@@ -15,10 +15,18 @@ Phases, in order; any failure exits non-zero:
    main path's shapes, with CUDA-event times, the roofline bound and one
    library call as a yardstick;
 4. serving: llama-3.1-8b at full width and depth in bf16 (random weights
-   from a seeded generator) through the port's P/D cluster, with both
-   kernels' launch counters read around the run;
+   from a seeded generator) through the port's P/D cluster over the dense
+   ring cache, with the kernels' launch counters read around the run;
 5. replay of the first served stream through the port's plain-attention
-   path, each emitted token within ``REPLAY_MARGIN`` of the max logit.
+   path, each emitted token within ``REPLAY_MARGIN`` of the max logit;
+6. paged serving of the same weights: a multi-turn workload over the
+   paged KV pool with a radix prefix cache (prefix hits prefill with the
+   query-offset flash kernel, decode runs the paged kernel at T = 1),
+   pools that balance, and a replay of a prefix-hit stream;
+7. paged serving with speculative draft–verify (``SPEC_K`` proposals from
+   a small seeded drafter, one verify launch at T = SPEC_K + 1), with the
+   accepted draft tokens replayed through the plain drafter and the
+   verify-emitted ones through the plain target.
 
 It prints the ``kernels`` JSON line and, last, the device line.  TTFT,
 ITL and energy come from the control plane's virtual clock (an A100
@@ -26,6 +34,7 @@ hardware model), not from the card.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import re
@@ -56,6 +65,10 @@ REPLAY_MARGIN = 0.5
 MAX_LEN = 1024
 SLOTS = 8
 L2_BYTES = 50e6
+SPEC_K = 2  # draft proposals per verify pass: T = SPEC_K + 1
+PAGE_SIZE = 16
+PMAX = MAX_LEN // PAGE_SIZE
+POOL_PAGES = (2 * SLOTS + 8) * PMAX  # the backend's default pool
 
 
 def check(cond: bool, msg: str) -> None:
@@ -122,51 +135,63 @@ def max_err(torch, got, want, dtype: str):
 
 
 def flash_case(torch, F, B, S, Hq, Hkv, Dh, dtype, kv_frac, window, softcap,
-               timed: bool):
+               timed: bool, q_start=None):
+    """One prefill case.  With ``q_start`` (the paged prefill after a
+    prefix hit) the keys are the gathered view of a full table
+    (``MAX_LEN`` positions), query row i sits at ``q_start + i`` and
+    ``kv_len = q_start + S * kv_frac``."""
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
     dt = getattr(torch, dtype)
-    g = torch.Generator(device="cuda").manual_seed(S * 131 + Dh)
+    Skv = S if q_start is None else MAX_LEN
+    g = torch.Generator(device="cuda").manual_seed(
+        S * 131 + Dh + (0 if q_start is None else q_start + 1))
     q = torch.randn((B, S, Hq, Dh), generator=g, device="cuda").to(dt)
-    k = torch.randn((B, S, Hkv, Dh), generator=g, device="cuda").to(dt)
-    v = torch.randn((B, S, Hkv, Dh), generator=g, device="cuda").to(dt)
-    kv_len = None
+    k = torch.randn((B, Skv, Hkv, Dh), generator=g, device="cuda").to(dt)
+    v = torch.randn((B, Skv, Hkv, Dh), generator=g, device="cuda").to(dt)
+    qs = 0 if q_start is None else q_start
+    kv_len = qst = None
     if kv_frac is not None:
-        kv_len = torch.full((B,), max(1, int(S * kv_frac)),
+        kv_len = torch.full((B,), qs + max(1, int(S * kv_frac)),
                             dtype=torch.int32, device="cuda")
-    kw = dict(causal=True, window=window, softcap=softcap)
-    got = fops.flash_attention(q, k, v, kv_len=kv_len, **kw)
-    want = attention_ref(q, k, v, kv_len=kv_len, **kw)
+    if q_start is not None:
+        qst = torch.full((B,), q_start, dtype=torch.int32, device="cuda")
+    kw = dict(causal=True, window=window, softcap=softcap, kv_len=kv_len,
+              q_start=qst)
+    got = fops.flash_attention(q, k, v, **kw)
+    want = attention_ref(q, k, v, **kw)
     torch.cuda.synchronize()
     err, ok = max_err(torch, got, want, dtype)
     check(ok, f"flash_prefill disagrees with its plain version at S={S} "
-              f"{dtype} kv_len={kv_frac} window={window} softcap={softcap}: "
-              f"max abs err {err}")
-    row = {"shape": f"B={B} S={S} Hq={Hq} Hkv={Hkv} Dh={Dh}", "dtype": dtype,
+              f"{dtype} kv_len={kv_frac} window={window} softcap={softcap} "
+              f"q_start={q_start}: max abs err {err}")
+    row = {"shape": f"B={B} S={S} Skv={Skv} Hq={Hq} Hkv={Hkv} Dh={Dh}",
+           "dtype": dtype, "q_start": q_start,
            "kv_len": None if kv_len is None else int(kv_len[0]),
            "window": window, "softcap": softcap, "max_abs_err": err}
     if not timed:
         return row
     # work this data needs: (q, key) pairs that are unmasked
-    L = S if kv_len is None else int(kv_len[0])
-    qpos = torch.arange(S)
-    n_keys = torch.clamp(torch.minimum(qpos + 1, torch.tensor(L)), min=0)
-    if window is not None:
-        n_keys = torch.minimum(n_keys, torch.tensor(window))
-    pairs = int(n_keys.sum()) * B * Hq
+    L = Skv if kv_len is None else int(kv_len[0])
+    qpos = qs + torch.arange(S)
+    hi = torch.minimum(qpos, torch.tensor(L - 1))
+    lo = torch.zeros_like(qpos) if window is None else torch.clamp(
+        qpos - window + 1, min=0)
+    pairs = int(torch.clamp(hi - lo + 1, min=0).sum()) * B * Hq
     esz = q.element_size()
     nbytes = (2 * q.numel() + 2 * B * L * Hkv * Dh) * esz
     flops = 4.0 * pairs * Dh
     sets = copies(torch, (q, k, v), (q.numel() + 2 * k.numel()) * esz)
-    ms = cuda_ms(torch, lambda a, b, c: fops.flash_attention(
-        a, b, c, kv_len=kv_len, **kw), sets)
-    plain_ms = cuda_ms(torch, lambda a, b, c: attention_ref(
-        a, b, c, kv_len=kv_len, **kw), sets)
+    ms = cuda_ms(torch, lambda a, b, c: fops.flash_attention(a, b, c, **kw),
+                 sets)
+    plain_ms = cuda_ms(torch, lambda a, b, c: attention_ref(a, b, c, **kw),
+                       sets)
     # library yardstick (never called by the port): SDPA on the same
     # inputs (head-major views) with the same mask
-    i = torch.arange(S, device="cuda")
-    mask = ((i[:, None] >= i[None, :]) & (i[None, :] < L))[None, None]
+    qp = (qs + torch.arange(S, device="cuda"))[:, None]
+    j = torch.arange(Skv, device="cuda")[None, :]
+    mask = ((qp >= j) & (j < L))[None, None]
     lib_ms = cuda_ms(torch, lambda a, b, c: F.scaled_dot_product_attention(
         a.transpose(1, 2), b.transpose(1, 2), c.transpose(1, 2),
         attn_mask=mask, enable_gqa=True), sets)
@@ -233,10 +258,102 @@ def decode_case(torch, F, B, C, Hq, Hkv, Dh, dtype, window, softcap,
     return row
 
 
+def paged_case(torch, F, B, T, Hq, Hkv, Dh, lengths, dtype, window, softcap,
+               timed: bool, Pmax=PMAX, pool_pages=POOL_PAGES):
+    """One paged decode / verify case over a pool of ``pool_pages`` pages
+    plus the scratch page, with shuffled disjoint block tables (-1 past
+    each row's last page) and ragged lengths.  A ``length == 0`` row must
+    return exactly 0 and stays out of the comparison with the plain
+    version (which averages V there); T = 1 must equal the decode call
+    bit for bit."""
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.decode_attention.ref import (
+        paged_verify_attention_ref,
+    )
+
+    ps = PAGE_SIZE
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(T * 977 + Dh + B)
+    P = pool_pages + 1
+    q = torch.randn((B, T, Hq, Dh), generator=g, device="cuda").to(dt)
+    kp = torch.randn((P, ps, Hkv, Dh), generator=g, device="cuda").to(dt)
+    vp = torch.randn((P, ps, Hkv, Dh), generator=g, device="cuda").to(dt)
+    perm = torch.randperm(P - 1, generator=g, device="cuda").to(torch.int32)
+    bt = torch.full((B, Pmax), -1, dtype=torch.int32, device="cuda")
+    for b, n in enumerate(lengths):
+        pages = -(-n // ps)
+        bt[b, :pages] = perm[b * Pmax: b * Pmax + pages]
+    ln = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    kw = dict(window=window, softcap=softcap)
+    got = dops.paged_verify_attention(q, kp, vp, bt, ln, **kw)
+    want = paged_verify_attention_ref(q, kp, vp, bt, ln, **kw)
+    torch.cuda.synchronize()
+    live = [b for b, n in enumerate(lengths) if n > 0]
+    err, ok = max_err(torch, got[live], want[live], dtype)
+    check(ok, f"paged_attention disagrees with its plain version at B={B} "
+              f"T={T} {dtype} window={window} softcap={softcap}: max abs "
+              f"err {err}")
+    for b, n in enumerate(lengths):
+        if n == 0:
+            check(bool((got[b] == 0).all()),
+                  f"paged_attention: a length-0 row is not 0 (row {b})")
+    if T == 1:
+        dec = dops.paged_decode_attention(q[:, 0].contiguous(), kp, vp, bt,
+                                          ln, **kw)
+        check(torch.equal(dec, got[:, 0]),
+              "paged T=1 is not bit-exact with the paged decode call")
+    row = {"shape": f"B={B} T={T} Hq={Hq} Hkv={Hkv} Dh={Dh} ps={ps} "
+                    f"Pmax={Pmax} pool={P}", "dtype": dtype,
+           "lengths": list(lengths), "window": window, "softcap": softcap,
+           "max_abs_err": err, "len0_rows_zero": len(live) < B}
+    if not timed:
+        return row
+    # bytes this data needs: each row's valid K/V, q, out, tables and
+    # lengths; operations: 4 * Dh per unmasked (q row, key) pair
+    esz = q.element_size()
+    n_tok = sum(lengths)
+    nbytes = (2 * q.numel() + 2 * n_tok * Hkv * Dh) * esz \
+        + bt.numel() * 4 + ln.numel() * 4
+    pairs = 0
+    for n in lengths:
+        for t in range(T):
+            qpos = n - T + t
+            lo = 0 if window is None else max(0, qpos - window + 1)
+            pairs += max(0, min(qpos, n - 1) - lo + 1)
+    flops = 4.0 * pairs * Hq * Dh
+    sets = copies(torch, (q, kp, vp), (q.numel() + 2 * n_tok * Hkv * Dh)
+                  * esz)
+    ms = cuda_ms(torch, lambda a, b, c: dops.paged_verify_attention(
+        a, b, c, bt, ln, **kw), sets)
+    plain_ms = cuda_ms(torch, lambda a, b, c: paged_verify_attention_ref(
+        a, b, c, bt, ln, **kw), sets)
+    # library yardstick (never called by the port): SDPA over the
+    # pre-gathered dense view with the same mask; the gather is not timed
+    C = Pmax * ps
+    idx = torch.clamp(bt.long(), min=0)
+    dense = [(a, b[idx].reshape(B, C, Hkv, Dh), c[idx].reshape(B, C, Hkv,
+                                                                Dh))
+             for a, b, c in sets]
+    pos = torch.arange(C, device="cuda")[None, None]
+    qpos = ln[:, None] - T + torch.arange(T, device="cuda")[None]
+    mask = ((pos < ln[:, None, None]) & (pos <= qpos[..., None]))[:, None]
+    lib_ms = cuda_ms(torch, lambda a, b, c: F.scaled_dot_product_attention(
+        a.transpose(1, 2), b.transpose(1, 2), c.transpose(1, 2),
+        attn_mask=mask, enable_gqa=True), dense)
+    del dense
+    b_ms, b_by = bound(flops, nbytes, dtype)
+    row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+               bound_by=b_by, library_note="SDPA over the pre-gathered "
+               "dense view, gather not timed")
+    return row
+
+
 def kernel_phase(torch, F):
-    """Every kernel at the main path's shapes, both dtypes; returns the
-    rows and the headline row per kernel (bf16 at the largest shape)."""
+    """Every kernel at the main paths' shapes, both dtypes; returns the
+    headline row per kernel (bf16 at the largest shape) and the largest
+    error against the plain version per kernel."""
     llama = dict(Hq=32, Hkv=8, Dh=128)
+    drafter = dict(Hq=2, Hkv=2, Dh=16)  # make_draft_config at full width
     flash_rows = []
     for dtype in ("bfloat16", "float32"):
         for S in (16, 96, 512):
@@ -250,6 +367,15 @@ def kernel_phase(torch, F):
             flash_rows.append(flash_case(
                 torch, F, 2, 200, 8, 2, 64, dtype=dtype, kv_frac=0.8,
                 window=window, softcap=softcap, timed=False))
+        # the paged prefill: suffixes after prefix hits of 0, 256, 496
+        for q_start in (0, 256, 496):
+            flash_rows.append(flash_case(
+                torch, F, 1, 512, dtype=dtype, kv_frac=2 / 3, window=None,
+                softcap=None, timed=dtype == "bfloat16", q_start=q_start,
+                **llama))
+        flash_rows.append(flash_case(
+            torch, F, 1, 512, dtype=dtype, kv_frac=2 / 3, window=None,
+            softcap=None, timed=False, **drafter))
     decode_rows = []
     for dtype in ("bfloat16", "float32"):
         decode_rows.append(decode_case(
@@ -258,16 +384,32 @@ def kernel_phase(torch, F):
         decode_rows.append(decode_case(
             torch, F, 3, 256, 8, 2, 64, dtype=dtype, window=48, softcap=30.0,
             timed=False))
-    for r in flash_rows + decode_rows:
-        print("  " + json.dumps(r))
-    head = {
-        "flash_prefill": next(r for r in flash_rows if "ms" in r),
-        "ring_decode": next(r for r in decode_rows if "ms" in r),
-    }
-    errs = {
-        "flash_prefill": max(r["max_abs_err"] for r in flash_rows),
-        "ring_decode": max(r["max_abs_err"] for r in decode_rows),
-    }
+        decode_rows.append(decode_case(
+            torch, F, SLOTS, MAX_LEN, dtype=dtype, window=None, softcap=None,
+            timed=False, **drafter))
+    # ragged rows: full, page boundaries, short, and one empty slot
+    lengths = [1024, 700, 513, 512, 300, 17, SPEC_K + 2, 0]
+    paged_rows = {1: [], SPEC_K + 1: []}
+    for dtype in ("bfloat16", "float32"):
+        for T in paged_rows:
+            paged_rows[T].append(paged_case(
+                torch, F, SLOTS, T, lengths=lengths, dtype=dtype, window=None,
+                softcap=None, timed=dtype == "bfloat16", **llama))
+            paged_rows[T].append(paged_case(
+                torch, F, 3, T, 8, 2, 64, [40, 0, 17], dtype=dtype,
+                window=24, softcap=30.0, timed=False, Pmax=4, pool_pages=24))
+    rows = {"flash_prefill": flash_rows, "ring_decode": decode_rows,
+            "paged_decode": paged_rows[1],
+            "paged_verify": paged_rows[SPEC_K + 1]}
+    for name, rs in rows.items():
+        for r in rs:
+            print(f"  {name}: " + json.dumps(r))
+    head = {name: next(r for r in rs if "ms" in r)
+            for name, rs in rows.items()}
+    errs = {name: {dtype: max(r["max_abs_err"] for r in rs
+                              if r["dtype"] == dtype)
+                   for dtype in ("bfloat16", "float32")}
+            for name, rs in rows.items()}
     return head, errs
 
 
@@ -312,20 +454,11 @@ def serve_phase(torch):
     base = make_real_backend_factory(cfg, params, slots=SLOTS,
                                      max_len=MAX_LEN, device="cuda")
 
-    def timed(fn, out):
-        def run(*a, **kw):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            res = fn(*a, **kw)
-            torch.cuda.synchronize()
-            out.append((time.perf_counter() - t) * 1e3)
-            return res
-        return run
-
     def factory(kind, idx, hw, seed, tp=None):
         be = base(kind, idx, hw, seed, tp=tp)
-        be._real_prefill = timed(be._real_prefill, walls["prefill"])
-        be._real_decode_step = timed(be._real_decode_step, walls["decode"])
+        be._real_prefill = timed(torch, be._real_prefill, walls["prefill"])
+        be._real_decode_step = timed(torch, be._real_decode_step,
+                                     walls["decode"])
         return be
 
     ccfg = ClusterConfig(
@@ -379,6 +512,18 @@ def serve_phase(torch):
     return cfg, params, reqs, launches
 
 
+def timed(torch, fn, out):
+    """``fn`` with its synchronised wall milliseconds appended to ``out``."""
+    def run(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = fn(*a, **kw)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t) * 1e3)
+        return res
+    return run
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -392,43 +537,243 @@ def _leaves(tree):
 # ---------------------------------------------------------------------------
 
 
-def replay_phase(torch, cfg, params, r):
+def replay_phase(torch, models, r, kinds=None):
+    """Replay ``r``'s stream through the plain-attention path of each
+    model in ``models`` (name -> (cfg, params)), prompt first, then every
+    emitted token.  Token i must be within ``REPLAY_MARGIN`` of the max
+    logit of the model named ``kinds[i]`` (the first model's, by
+    default): the one that chose it."""
     from repro_torch.models import model as M
     from repro_torch.serving.realengine import _bucket
 
+    names = list(models)
+    kinds = kinds or [names[0]] * len(r.output_tokens)
+    check(len(kinds) == len(r.output_tokens),
+          f"rid {r.rid}: {len(kinds)} token kinds for "
+          f"{len(r.output_tokens)} tokens")
     toks = torch.tensor(r.prompt_tokens, dtype=torch.int32, device="cuda")
     pad = _bucket(len(toks), hi=MAX_LEN)
     buf = torch.zeros((1, pad), dtype=torch.int32, device="cuda")
     buf[0, : len(toks)] = toks
     lengths = torch.tensor([len(toks)], dtype=torch.int32, device="cuda")
-    logits, cache = M.prefill(params, cfg, buf, lengths, max_len=MAX_LEN,
-                              plain_attention=True)
+    state = {}
+    for name, (cfg, params) in models.items():
+        state[name] = M.prefill(params, cfg, buf, lengths, max_len=MAX_LEN,
+                                plain_attention=True)
     pos = lengths.clone()
-    worst = 0.0
-    for i, tok in enumerate(r.output_tokens):
-        row = logits[0].double()
+    worst = {name: 0.0 for name in names}
+    for i, (tok, kind) in enumerate(zip(r.output_tokens, kinds)):
+        row = state[kind][0][0].double()
         gap = float(row.max() - row[tok])
-        worst = max(worst, gap)
+        worst[kind] = max(worst[kind], gap)
         check(gap <= REPLAY_MARGIN,
-              f"rid {r.rid} token {i}: emitted id {tok} is {gap:.4f} below "
-              f"the plain path's max logit (margin {REPLAY_MARGIN})")
-        logits, cache = M.decode_step(
-            params, cfg, torch.tensor([tok], dtype=torch.int32,
-                                      device="cuda"),
-            cache, pos, plain_attention=True)
+              f"rid {r.rid} token {i} ({kind}): emitted id {tok} is "
+              f"{gap:.4f} below the plain path's max logit (margin "
+              f"{REPLAY_MARGIN})")
+        t = torch.tensor([tok], dtype=torch.int32, device="cuda")
+        for name, (cfg, params) in models.items():
+            state[name] = M.decode_step(params, cfg, t, state[name][1], pos,
+                                        plain_attention=True)
         pos = pos + 1
-    print(f"replay rid {r.rid}: {len(r.output_tokens)} tokens, worst gap to "
-          f"the plain path's max logit {worst:.5f} (margin {REPLAY_MARGIN})")
+    counts = {name: kinds.count(name) for name in names}
+    print(f"replay rid {r.rid}: {len(r.output_tokens)} tokens {counts}, "
+          f"worst gap to the plain path's max logit {worst} (margin "
+          f"{REPLAY_MARGIN})")
+
+
+# ---------------------------------------------------------------------------
+# Phases 6 and 7: paged serving, then paged + speculative
+# ---------------------------------------------------------------------------
+
+
+def multiturn_workload(Request, vocab: int, n_convs=2, n_turns=3,
+                       system_len=256, seed=3):
+    """Conversations after a shared system prompt, each turn extending
+    the last (prompt + the previous turn's reply + a new user message),
+    at the full vocabulary (as tests/test_backend_parity.py:317 builds
+    it).  The radix cache matches whole pages of the previous prompt."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+
+    def ids(n):
+        return torch.randint(0, vocab, (n,), generator=g).tolist()
+
+    def between(lo, hi):
+        return int(torch.randint(lo, hi + 1, (1,), generator=g))
+
+    system = ids(system_len)
+    hist = {c: list(system) for c in range(n_convs)}
+    reqs, rid = [], 0
+    for turn in range(n_turns):
+        for c in range(n_convs):
+            prompt = hist[c] + ids(between(16, 48))
+            decode = between(16, 32)
+            r = Request(rid, 2.0 * turn + 0.3 * c, prompt_len=len(prompt),
+                        decode_len=decode, conv_id=c, turn=turn)
+            r.prompt_tokens = list(prompt)
+            reqs.append(r)
+            rid += 1
+            hist[c] = prompt + ids(decode)  # the reply, as the user saw it
+    return reqs
+
+
+def _radix_pages(cache):
+    pages, stack = [], [cache.root]
+    while stack:
+        n = stack.pop()
+        stack.extend(n.children.values())
+        pages.extend(n.pages)
+    return pages
+
+
+def paged_serve_phase(torch, cfg, params, pred, drafter=None):
+    """Serve the multi-turn workload over the paged pool with a radix
+    prefix cache; with ``drafter`` (cfg, params) the decode instance
+    speculates ``SPEC_K`` tokens per iteration.  Returns the requests,
+    the (rid, accepted) log of the speculative iterations, and the launch
+    counts of this run."""
+    from repro_torch.core.power import A100
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.serving import ClusterConfig, PDCluster, Request
+    from repro_torch.serving.realengine import make_real_backend_factory
+
+    phase = "spec" if drafter else "paged"
+    spec_k = SPEC_K if drafter else 0
+    reqs = multiturn_workload(Request, cfg.vocab_size)
+    walls = {"prefill": [], "decode": [], "spec": []}
+    log = []
+    base = make_real_backend_factory(
+        cfg, params, slots=SLOTS, max_len=MAX_LEN, paged=True,
+        page_size=PAGE_SIZE, pool_pages=POOL_PAGES, spec_k=spec_k,
+        draft_cfg=drafter[0] if drafter else None,
+        draft_params=drafter[1] if drafter else None, device="cuda")
+
+    def factory(kind, idx, hw, seed, tp=None):
+        be = base(kind, idx, hw, seed, tp=tp)
+        be._real_prefill = timed(torch, be._real_prefill, walls["prefill"])
+        be._real_decode_step = timed(torch, be._real_decode_step,
+                                     walls["decode"])
+        if be.spec_k:
+            inner = timed(torch, be._real_spec_step, walls["spec"])
+
+            def step(rs, k, accepts):
+                log.extend((r.rid, a) for r, a in zip(rs, accepts))
+                return inner(rs, k, accepts)
+
+            be._real_spec_step = step
+        return be
+
+    cluster = PDCluster(ClusterConfig(
+        model=cfg, chip=A100, n_prefill=1, n_decode=1, policy="voltana",
+        predictor=pred, kv_capacity_tokens=400_000, online_adapt=False,
+        decode_max_running=SLOTS, seed=0, paged=True,
+        kv_page_size=PAGE_SIZE, prefix_cache=True,
+        prefix_cache_capacity=8_192, spec_decode=bool(drafter),
+        spec_k=SPEC_K, backend_factory=factory,
+    ))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fops.launches = fops.q_offset_launches = 0
+    dops.launches = 0
+    dops.paged_launches.clear()
+    t0 = time.perf_counter()
+    m = cluster.run(reqs)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {
+        "flash_prefill": fops.launches,
+        "flash_prefill_q_offset": fops.q_offset_launches,
+        "ring_decode": dops.launches,
+        "paged_decode": dops.paged_launches.get(1, 0),
+        "paged_verify": sum(n for t, n in dops.paged_launches.items()
+                            if t > 1),
+        "paged_by_T": dict(dops.paged_launches),
+    }
+    peak = torch.cuda.max_memory_allocated()
+
+    check(m.finished_frac() == 1.0, f"{phase}: finished {m.finished_frac()}")
+    for r in reqs:
+        check(len(r.output_tokens) == r.decode_len + 1,
+              f"{phase}: request {r.rid}: {len(r.output_tokens)} tokens, "
+              f"expected {r.decode_len + 1}")
+        check(all(0 <= t < cfg.vocab_size for t in r.output_tokens),
+              f"{phase}: request {r.rid}: token id out of range")
+    pb = cluster.prefill[0].backend
+    total_prompt = sum(r.prompt_len for r in reqs)
+    check(pb.reused_tokens > 0, f"{phase}: no prefix reuse")
+    check(pb.computed_tokens == total_prompt - pb.reused_tokens,
+          f"{phase}: computed {pb.computed_tokens} + reused "
+          f"{pb.reused_tokens} != prompts {total_prompt}")
+    for e in cluster.decode:
+        e.backend.pool.assert_empty()
+    radix = _radix_pages(cluster.prefill[0].cache)
+    check(pb.pool.in_use == len(set(radix)),
+          f"{phase}: prefill pool holds {pb.pool.in_use} pages, its radix "
+          f"tree {len(set(radix))}")
+    check(launches["flash_prefill_q_offset"] > 0,
+          f"{phase}: the q-offset flash_prefill was never launched")
+    if drafter:
+        check(m.spec_iterations() > 0, "spec: no speculative iteration")
+        check(dops.paged_launches.get(SPEC_K + 1, 0) > 0,
+              f"spec: paged_verify never launched at T={SPEC_K + 1}")
+    else:
+        check(launches["paged_decode"] > 0,
+              "paged: paged_decode was never launched")
+    iters = walls["spec"] if drafter else walls["decode"]
+    n_dec = sum(r.decode_len for r in reqs)
+    dec_s = sum(iters) / 1e3
+    s = m.summary()
+    print(f"{phase}: served {len(reqs)} requests (prompts "
+          f"{min(r.prompt_len for r in reqs)}-"
+          f"{max(r.prompt_len for r in reqs)}, decode "
+          f"{min(r.decode_len for r in reqs)}-"
+          f"{max(r.decode_len for r in reqs)}) in {wall_s:.2f} s wall")
+    print(f"serve[{phase}]: " + json.dumps({
+        "requests": len(reqs),
+        "prompt_tokens": total_prompt,
+        "reused_tokens": pb.reused_tokens,
+        "computed_tokens": pb.computed_tokens,
+        "prefill_iters": len(walls["prefill"]),
+        "prefill_ms_mean": statistics.fmean(walls["prefill"]),
+        "prefill_ms_median": statistics.median(walls["prefill"]),
+        "iter_kind": "spec" if drafter else "decode",
+        "iters": len(iters),
+        "iter_ms_mean": statistics.fmean(iters),
+        "iter_ms_median": statistics.median(iters),
+        "decode_tokens": n_dec,
+        "decode_tok_s": n_dec / dec_s if dec_s else None,
+        "spec_iterations": m.spec_iterations(),
+        "acceptance_rate": m.acceptance_rate() if drafter else None,
+        "max_memory_allocated_gb": peak / 1e9,
+        "launches": launches,
+    }))
+    print(f"{phase}: virtual-clock A100 model (not measured on this card): "
+          f"ttft_p50_ms={s['ttft_p50_ms']} itl_p50_ms={s['itl_p50_ms']} "
+          f"energy_j={s['energy_j']}")
+    return reqs, log, launches
 
 
 # ---------------------------------------------------------------------------
 
 
+# name -> (source, the Pallas kernel it replaces, the serve phase whose
+# launch count the kernels line reports)
 KERNELS = {
     "flash_prefill": ("src/repro_torch/kernels/csrc/flash_prefill.cu",
-                      "src/repro/kernels/flash_attention/kernel.py:93"),
+                      "src/repro/kernels/flash_attention/kernel.py:93",
+                      "dense"),
     "ring_decode": ("src/repro_torch/kernels/csrc/ring_decode.cu",
-                    "src/repro/kernels/decode_attention/kernel.py:303"),
+                    "src/repro/kernels/decode_attention/kernel.py:303",
+                    "dense"),
+    "paged_verify": ("src/repro_torch/kernels/csrc/paged_attention.cu",
+                     "src/repro/kernels/decode_attention/kernel.py:181",
+                     "spec"),
+    "paged_decode": ("src/repro_torch/kernels/csrc/paged_attention.cu",
+                     "src/repro/kernels/decode_attention/kernel.py:268",
+                     "paged"),
 }
 
 
@@ -469,21 +814,58 @@ def main() -> int:
               f"spill stores up to {max(spills, default=0)} B (ptxas -v)")
 
     head, errs = kernel_phase(torch, F)
-    cfg, params, reqs, launches = serve_phase(torch)
-    replay_phase(torch, cfg, params, reqs[0])
+    cfg, params, reqs, dense_launches = serve_phase(torch)
+    replay_phase(torch, {"target": (cfg, params)}, reqs[0])
+    del reqs
+    gc.collect()
+    torch.cuda.empty_cache()  # the dense phase's ring caches
+
+    from repro_torch.core.power import A100
+    from repro_torch.models import model as M
+    from repro_torch.serving.cluster import build_predictor
+    from repro_torch.serving.realengine import make_draft_config
+
+    t0 = time.perf_counter()
+    pred = build_predictor(cfg, A100, A100.freq_levels_2, kv_cap=400_000,
+                           spec_k=SPEC_K)
+    print(f"predictor (decode + verify at k={SPEC_K}) fit in "
+          f"{time.perf_counter() - t0:.1f} s")
+    reqs, _, paged_launches = paged_serve_phase(torch, cfg, params, pred)
+    replay_phase(torch, {"target": (cfg, params)}, reqs[-1])
+
+    dcfg = make_draft_config(cfg)
+    dparams = M.init_params(
+        dcfg, torch.Generator(device="cuda").manual_seed(1), device="cuda")
+    reqs, log, spec_launches = paged_serve_phase(torch, cfg, params, pred,
+                                                 drafter=(dcfg, dparams))
+    r = reqs[-1]
+    kinds = ["target"]
+    for rid, a in log:
+        if rid == r.rid:
+            kinds += ["draft"] * a + ["target"]
+    check("draft" in kinds, f"spec: no accepted draft token in rid {r.rid}")
+    replay_phase(torch, {"target": (cfg, params), "draft": (dcfg, dparams)},
+                 r, kinds)
 
     leaked = [m for m in sys.modules
               if m == "jax" or m.startswith("jax.") or m == "repro"
               or m.startswith("repro.")]
     check(not leaked, f"JAX or the JAX package was imported: {leaked[:5]}")
 
+    by_phase = {"dense": dense_launches, "paged": paged_launches,
+                "spec": spec_launches}
     rows = []
-    for name, (source, replaces) in KERNELS.items():
+    for name, (source, replaces, phase) in KERNELS.items():
         h = head[name]
+        n = by_phase[phase][name]
+        check(n > 0, f"{name} was never launched in the {phase} phase")
         rows.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
-            "max_abs_err": errs[name], "ms": h["ms"],
+            "replaces": replaces, "launches": n, "launches_phase": phase,
+            "launches_by_phase": {p: by_phase[p].get(name, 0)
+                                  for p in by_phase},
+            "max_abs_err": max(errs[name].values()),
+            "max_abs_err_by_dtype": errs[name], "ms": h["ms"],
             "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"],
             "bound_by": h["bound_by"], "library_ms": h["library_ms"],
         })

@@ -25,7 +25,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-KERNELS = ("flash_prefill", "ring_decode")
+KERNELS = ("flash_prefill", "ring_decode", "paged_attention")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

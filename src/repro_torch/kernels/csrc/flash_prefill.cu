@@ -5,9 +5,14 @@
 // the GQA prefill attention that the JAX model computes through
 // L.chunked_attention (repro/models/model.py:257).
 //
-// Semantics (the Pallas kernel's, plus an optional per-row kv_len):
+// Semantics (the Pallas kernel's, plus an optional per-row kv_len and
+// query offset q_start):
 //   q (B, Sq, Hq, Dh), k/v (B, Skv, Hkv, Dh), out (B, Sq, Hq, Dh) in q's
-//   dtype; q position = row index, key position = key index, both from 0;
+//   dtype; key position = key index from 0; query position = q_start[b]
+//   + row index (row index alone without q_start, as in the Pallas
+//   kernel).  The offset is the paged prefill after a radix prefix hit:
+//   the new tokens sit after ctx resident tokens, and k/v is the
+//   gathered view of the whole table (repro/models/model.py:710-800);
 //   kv head = q head / (Hq / Hkv); scores = (q . k) / sqrt(Dh), then the
 //   tanh softcap, then the mask (causal, window, key < kv_len) with the
 //   finite -1e30; online softmax in float32; l clamped at 1e-37.  A row
@@ -19,7 +24,7 @@
 // accumulators in registers.  Ragged edges are masked here, so Sq and
 // Skv need not be multiples of the tile.  Tiles that lie wholly outside
 // every row's valid interval (the causal future, before the window,
-// past kv_len) are skipped: a fully masked tile after a valid key adds
+// past kv_len; all in positions, so shifted by q_start) are skipped: a fully masked tile after a valid key adds
 // exp(-1e30 - m) = 0 and one before it is wiped by alpha = 0, so the
 // result is unchanged.  When some row has no valid key at all, the block
 // visits every tile, to reproduce the reference's average over V.
@@ -70,7 +75,8 @@ struct Params {
   const void* k;
   const void* v;
   void* o;
-  const int* kv_len;  // (B,) or null
+  const int* kv_len;   // (B,) or null
+  const int* q_start;  // (B,) or null: position of query row 0
   int B, Sq, Skv, Hq, Hkv;
   int causal;
   int window;     // <= 0: none
@@ -108,21 +114,23 @@ __global__ void __launch_bounds__(THREADS) flash_prefill_kernel(Params p) {
   const int hk = h / (p.Hq / p.Hkv);
   const int qi = q0 + row;
   const int kv_len = p.kv_len ? min(max(p.kv_len[b], 0), p.Skv) : p.Skv;
+  const int qs = p.q_start ? p.q_start[b] : 0;
+  const int qpos = qs + qi;  // this row's position
 
   // this row's valid key interval [lo, hi]
   int hi = kv_len - 1;
-  if (p.causal) hi = min(hi, qi);
-  const int lo = p.window > 0 ? max(0, qi - p.window + 1) : 0;
+  if (p.causal) hi = min(hi, qpos);
+  const int lo = p.window > 0 ? max(0, qpos - p.window + 1) : 0;
   const int empty = (qi < p.Sq) && (lo > hi);
   const int any_empty = __syncthreads_or(empty);
   int k_begin = 0, k_end = p.Skv;
   if (!any_empty) {
     // both ends are non-decreasing in the row, so the block's union is
     // [lo(first row), hi(last row)]
-    const int q_last = min(q0 + BQ, p.Sq) - 1;
+    const int q_last = qs + min(q0 + BQ, p.Sq) - 1;
     int hi_last = kv_len - 1;
     if (p.causal) hi_last = min(hi_last, q_last);
-    const int lo_first = p.window > 0 ? max(0, q0 - p.window + 1) : 0;
+    const int lo_first = p.window > 0 ? max(0, qs + q0 - p.window + 1) : 0;
     k_begin = (lo_first / BK) * BK;
     k_end = hi_last + 1;
   }
@@ -187,8 +195,8 @@ __global__ void __launch_bounds__(THREADS) flash_prefill_kernel(Params p) {
         x = s[c] * p.scale;
         if (p.softcap > 0.f) x = p.softcap * tanhf(x / p.softcap);
         bool ok = kj < kv_len;
-        if (p.causal) ok = ok && kj <= qi;
-        if (p.window > 0) ok = ok && (qi - kj < p.window);
+        if (p.causal) ok = ok && kj <= qpos;
+        if (p.window > 0) ok = ok && (qpos - kj < p.window);
         if (!ok) x = NEG_INF;
       }
       s[c] = x;
@@ -259,11 +267,13 @@ cudaError_t dispatch_dh(const Params& p, int dh, cudaStream_t stream) {
 
 // dtype: 0 = float32, 1 = bfloat16.  Returns the cudaError_t of the launch.
 extern "C" int repro_flash_prefill(const void* q, const void* k, const void* v,
-                                   void* o, const void* kv_len, int B, int Sq,
+                                   void* o, const void* kv_len,
+                                   const void* q_start, int B, int Sq,
                                    int Skv, int Hq, int Hkv, int Dh, int causal,
                                    int window, float softcap, float scale,
                                    int dtype, void* stream) {
-  Params p{q, k, v, o, static_cast<const int*>(kv_len), B, Sq, Skv, Hq, Hkv,
+  Params p{q, k, v, o, static_cast<const int*>(kv_len),
+           static_cast<const int*>(q_start), B, Sq, Skv, Hq, Hkv,
            causal, window, softcap, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;

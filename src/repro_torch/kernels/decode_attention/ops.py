@@ -1,20 +1,29 @@
-"""Wrapper of the ring decode-attention kernel (``csrc/ring_decode.cu``).
+"""Wrappers of the decode-attention kernels: ring decode
+(``csrc/ring_decode.cu``) and paged decode / speculative verify
+(``csrc/paged_attention.cu``).
 
 A CUDA tensor launches the Hopper kernel (or raises); a CPU tensor takes
-the plain version in ``ref.py``.  ``launches`` counts kernel launches.
+the plain version in ``ref.py``.  ``launches`` counts ring-decode
+launches; ``paged_launches`` maps each query-token count T to the paged
+kernel's launches with it (T == 1 is paged decode).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+from repro_torch.kernels.decode_attention.ref import (
+    decode_attention_ref,
+    paged_verify_attention_ref,
+)
 
 launches = 0
+paged_launches: Dict[int, int] = {}
 _fn = None
+_paged_fn = None
 
 
 def _kernel():
@@ -95,3 +104,110 @@ def decode_attention(
         )
     launches += 1
     return out
+
+
+def _paged_kernel():
+    global _paged_fn
+    if _paged_fn is None:
+        lib = _build.load("paged_attention")
+        fn = lib.repro_paged_attention
+        fn.argtypes = (
+            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
+            + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p]
+        )
+        fn.restype = ctypes.c_int
+        lib.repro_paged_attention_error_string.argtypes = [ctypes.c_int]
+        lib.repro_paged_attention_error_string.restype = ctypes.c_char_p
+        _paged_fn = (fn, lib.repro_paged_attention_error_string)
+    return _paged_fn
+
+
+def paged_verify_attention(
+    q: torch.Tensor,  # (B, T, Hq, Dh)
+    k_pages: torch.Tensor,  # (P, page_size, Hkv, Dh), the whole pool
+    v_pages: torch.Tensor,  # (P, page_size, Hkv, Dh)
+    block_tables: torch.Tensor,  # (B, Pmax) int32 page ids, -1 = unused
+    lengths: torch.Tensor,  # (B,) int32 valid tokens incl. the T new ones
+    *,
+    window: Optional[int] = None,
+    softcap: Optional[float] = None,
+) -> torch.Tensor:
+    """T query tokens per sequence over a paged pool, causal within the
+    speculation window; (B, T, Hq, Dh) in q's dtype.  The T new tokens'
+    K/V must already sit in the pages the table maps.  The kernel reads
+    the pool page-major with the table, with no gather copy.  On the card
+    a ``length == 0`` row returns 0 (the Pallas kernel's behaviour); the
+    plain version averages V there."""
+    if q.dim() != 4 or k_pages.dim() != 4 or k_pages.shape != v_pages.shape:
+        raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k_pages.shape)}"
+                         f", v {tuple(v_pages.shape)}")
+    B, T, Hq, Dh = q.shape
+    P, ps, Hkv, _ = k_pages.shape
+    if k_pages.shape[3] != Dh or Hq % Hkv:
+        raise ValueError(f"q {tuple(q.shape)} does not match pool "
+                         f"{tuple(k_pages.shape)}")
+    if block_tables.dim() != 2 or block_tables.shape[0] != B \
+            or tuple(lengths.shape) != (B,):
+        raise ValueError(f"block_tables {tuple(block_tables.shape)} / lengths "
+                         f"{tuple(lengths.shape)} do not match B={B}")
+    if not (q.dtype == k_pages.dtype == v_pages.dtype):
+        raise TypeError(f"dtypes differ: {q.dtype}, {k_pages.dtype}, "
+                        f"{v_pages.dtype}")
+    if q.device.type == "cpu":
+        return paged_verify_attention_ref(q, k_pages, v_pages, block_tables,
+                                          lengths, window=window,
+                                          softcap=softcap)
+    if q.device.type != "cuda":
+        raise ValueError(f"no paged_verify_attention for device {q.device}")
+    code = _build.dtype_code(q)
+    if Dh not in _build.HEAD_DIMS:
+        raise ValueError(f"head_dim {Dh} not in {_build.HEAD_DIMS}")
+    if T * (Hq // Hkv) > 32:
+        raise ValueError(f"at most 32 query rows per kv head, got T={T} x "
+                         f"G={Hq // Hkv}")
+    if block_tables.dtype != torch.int32 or lengths.dtype != torch.int32:
+        raise TypeError("block_tables and lengths must be int32")
+    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
+        _build.check_operand(name, t, q.device)
+    for name, t in (("block_tables", block_tables), ("lengths", lengths)):
+        _build.check_operand(name, t, q.device, align=4)
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    fn, err_str = _paged_kernel()
+    with torch.cuda.device(q.device):
+        err = fn(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+            B, T, Hq, Hkv, Dh, P, ps, block_tables.shape[1],
+            int(window) if window is not None else 0,
+            float(softcap) if softcap is not None else 0.0,
+            1.0 / Dh ** 0.5, code,
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    if err:
+        raise RuntimeError(
+            f"paged_attention launch failed: {err_str(err).decode()} ({err})"
+        )
+    paged_launches[T] = paged_launches.get(T, 0) + 1
+    return out
+
+
+def paged_decode_attention(
+    q: torch.Tensor,  # (B, Hq, Dh)
+    k_pages: torch.Tensor,  # (P, page_size, Hkv, Dh)
+    v_pages: torch.Tensor,  # (P, page_size, Hkv, Dh)
+    block_tables: torch.Tensor,  # (B, Pmax) int32 page ids, -1 = unused
+    lengths: torch.Tensor,  # (B,) int32 valid tokens incl. the current one
+    *,
+    window: Optional[int] = None,
+    softcap: Optional[float] = None,
+) -> torch.Tensor:
+    """One new token per sequence over a paged pool: the ``T == 1``
+    launch of :func:`paged_verify_attention`; (B, Hq, Dh)."""
+    if q.dim() != 3:
+        raise ValueError(f"q must be (B, Hq, Dh), got {tuple(q.shape)}")
+    return paged_verify_attention(
+        q[:, None], k_pages, v_pages, block_tables, lengths,
+        window=window, softcap=softcap,
+    )[:, 0]

@@ -1,7 +1,8 @@
 """Wrapper of the prefill flash-attention kernel (``csrc/flash_prefill.cu``).
 
 A CUDA tensor launches the Hopper kernel (or raises); a CPU tensor takes
-the plain version in ``ref.py``.  ``launches`` counts kernel launches.
+the plain version in ``ref.py``.  ``launches`` counts kernel launches,
+``q_offset_launches`` those among them that took ``q_start``.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 launches = 0
+q_offset_launches = 0
 _fn = None
 
 
@@ -23,7 +25,7 @@ def _kernel():
         lib = _build.load("flash_prefill")
         fn = lib.repro_flash_prefill
         fn.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
             + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
@@ -42,11 +44,14 @@ def flash_attention(
     window: Optional[int] = None,
     softcap: Optional[float] = None,
     kv_len: Optional[torch.Tensor] = None,  # (B,) int32
+    q_start: Optional[torch.Tensor] = None,  # (B,) int32
 ) -> torch.Tensor:
     """GQA prefill attention; returns (B, Sq, Hq, Dh) in q's dtype.
-    Without ``kv_len`` it equals the Pallas ``flash_attention``; with it,
-    ``L.chunked_attention`` given ``kv_valid = pos < kv_len``."""
-    global launches
+    Without ``kv_len`` and ``q_start`` it equals the Pallas
+    ``flash_attention``; with them, ``L.chunked_attention`` given
+    ``q_positions = q_start + i`` and ``kv_valid = pos < kv_len`` (key j
+    at position j) — the paged prefill after a prefix hit."""
+    global launches, q_offset_launches
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}")
@@ -56,11 +61,13 @@ def flash_attention(
         raise ValueError(f"q {tuple(q.shape)} does not match k {tuple(k.shape)}")
     if not (q.dtype == k.dtype == v.dtype):
         raise TypeError(f"dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
-    if kv_len is not None and tuple(kv_len.shape) != (B,):
-        raise ValueError(f"kv_len must be ({B},), got {tuple(kv_len.shape)}")
+    rows = {"kv_len": kv_len, "q_start": q_start}
+    for name, t in rows.items():
+        if t is not None and tuple(t.shape) != (B,):
+            raise ValueError(f"{name} must be ({B},), got {tuple(t.shape)}")
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window,
-                             softcap=softcap, kv_len=kv_len)
+                             softcap=softcap, kv_len=kv_len, q_start=q_start)
     if q.device.type != "cuda":
         raise ValueError(f"no flash_attention for device {q.device}")
     code = _build.dtype_code(q)
@@ -68,10 +75,12 @@ def flash_attention(
         raise ValueError(f"head_dim {Dh} not in {_build.HEAD_DIMS}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         _build.check_operand(name, t, q.device)
-    if kv_len is not None:
-        if kv_len.dtype != torch.int32:
-            raise TypeError(f"kv_len must be int32, got {kv_len.dtype}")
-        _build.check_operand("kv_len", kv_len, q.device, align=4)
+    for name, t in rows.items():
+        if t is None:
+            continue
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32, got {t.dtype}")
+        _build.check_operand(name, t, q.device, align=4)
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
@@ -80,6 +89,7 @@ def flash_attention(
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             kv_len.data_ptr() if kv_len is not None else None,
+            q_start.data_ptr() if q_start is not None else None,
             B, Sq, Skv, Hq, Hkv, Dh, int(causal),
             int(window) if window is not None else 0,
             float(softcap) if softcap is not None else 0.0,
@@ -91,4 +101,5 @@ def flash_attention(
             f"flash_prefill launch failed: {err_str(err).decode()} ({err})"
         )
     launches += 1
+    q_offset_launches += q_start is not None
     return out

@@ -1,5 +1,5 @@
 """Model building blocks of the dense path: norms, RoPE, attention
-(chunked prefill / ring decode), SwiGLU/GeGLU MLP.
+(chunked prefill / ring decode / speculative verify), SwiGLU/GeGLU MLP.
 
 Counterpart of ``repro/models/layers.py``, function for function, with
 the same layouts and quirks: ``rms_norm`` scales by ``(1 + w)``, RoPE
@@ -151,6 +151,38 @@ def chunked_attention(
 # computation as the ring-decode kernel's plain version, so the layer is
 # that function.
 decode_attention = decode_attention_ref
+
+
+def verify_attention(
+    q: torch.Tensor,  # (B, T, Hq, Dh) -- T new tokens per sequence
+    k_cache: torch.Tensor,  # (B, C, Hkv, Dh)
+    v_cache: torch.Tensor,  # (B, C, Hkv, Dh)
+    slot_pos: torch.Tensor,  # (B, C) int absolute position per slot (-1 empty)
+    q_pos: torch.Tensor,  # (B, T) int positions of the new tokens
+    *,
+    window: Optional[int] = None,
+    softcap: Optional[float] = None,
+) -> torch.Tensor:
+    """Attention of ``T`` new tokens over a KV cache that already holds
+    their K/V — the speculative verify pass.  Causality within the
+    speculation window comes from per-token query positions; ``T == 1``
+    is :func:`decode_attention`."""
+    B, C, Hkv, Dh = k_cache.shape
+    T, Hq = q.shape[1], q.shape[2]
+    G = Hq // Hkv
+    qr = q.reshape(B, T, Hkv, G, Dh).float()
+    s = torch.einsum("bthgd,bchd->bthgc", qr, k_cache.float()) \
+        * (1.0 / math.sqrt(Dh))
+    s = _softcap(s, softcap)
+    sp = slot_pos[:, None, :]
+    qp = q_pos[:, :, None]
+    mask = (sp >= 0) & (sp <= qp)
+    if window is not None:
+        mask = mask & (qp - sp < window)
+    s = torch.where(mask[:, :, None, None, :], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bthgc,bchd->bthgd", p, v_cache.float())
+    return out.reshape(B, T, Hq, Dh).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,5 @@
-"""Dense model of the port: init, forward, prefill and ring-cache decode.
+"""Dense model of the port: init, forward, prefill and ring-cache decode,
+and the paged pool's prefill, decode and speculative verify.
 
 Counterpart of ``repro/models/model.py`` for dense attention + MLP
 configs (the llama family).  Parameters keep the stacked
@@ -6,11 +7,13 @@ configs (the llama family).  Parameters keep the stacked
 weights carry across leaf for leaf (:mod:`repro_torch.models.bridge`);
 ``lax.scan`` over blocks becomes a Python loop over that axis.
 
-Where the JAX model calls ``L.chunked_attention`` and
-``L.decode_attention``, this model calls the Hopper kernels' wrappers
-(:mod:`repro_torch.kernels`), which take their plain PyTorch versions
-for CPU tensors.  ``plain_attention=True`` runs the ported layers
-instead, as the JAX model does — the replay oracle on the card.
+Where the JAX model calls ``L.chunked_attention``,
+``L.decode_attention`` and ``L.verify_attention``, this model calls the
+Hopper kernels' wrappers (:mod:`repro_torch.kernels`), which take their
+plain PyTorch versions for CPU tensors.  ``plain_attention=True`` runs
+the ported layers instead, as the JAX model does — the replay oracle on
+the card.  Caches (ring and paged) are updated in place; the JAX model
+returns new ones.
 """
 from __future__ import annotations
 
@@ -21,7 +24,10 @@ import torch
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.decode_attention import (
+    decode_attention,
+    paged_verify_attention,
+)
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import layers as L
 
@@ -355,4 +361,278 @@ def decode_step_greedy(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                        cache: PyTree, lengths: torch.Tensor):
     """:func:`decode_step` returning (next token ids (B,) int32, cache)."""
     logits, cache = decode_step(params, cfg, tokens, cache, lengths)
+    return torch.argmax(logits, dim=-1).to(torch.int32), cache
+
+
+# ---------------------------------------------------------------------------
+# Paged serving: KV lives in pool pages, requests carry block tables
+# ---------------------------------------------------------------------------
+
+
+def _check_paged(cfg: ModelConfig) -> None:
+    """Reject configs the paged cache cannot serve.  Raises ``ValueError``
+    (never ``assert``), as the JAX model does."""
+    if cfg.has_mamba:
+        raise ValueError(
+            f"model '{cfg.name}': paged KV covers attention caches only; "
+            "recurrent (Mamba) state is constant-size per request and "
+            "cannot resume mid-sequence from shared prefix pages — serve "
+            "hybrid models with paged=False"
+        )
+    if cfg.kv_dtype == "int8":
+        raise ValueError(
+            f"model '{cfg.name}': paged cache does not carry int8 KV "
+            "scales yet — set kv_dtype to a float dtype or serve with "
+            "paged=False (which supports int8 KV)"
+        )
+
+
+def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
+                     device: DeviceLike = None) -> PyTree:
+    """Paged decode cache: per attention layer, a pool of
+    ``(n_blocks, num_pages + 1, page_size, Hkv, Dh)`` K/V pages shared by
+    every resident sequence.  Token position ``i`` of a sequence lives in
+    ``block_table[i // page_size]`` at offset ``i % page_size``.  The
+    extra page at index ``num_pages`` is a write scratch: masked and
+    padded scatters land there instead of on live pages."""
+    _check_paged(cfg)
+    check_supported(cfg)
+    dev = resolve_device(device)
+    shape = (cfg.n_blocks, num_pages + 1, page_size, cfg.n_kv_heads,
+             cfg.head_dim)
+    return {
+        f"layer_{i}": {
+            "k": torch.zeros(shape, dtype=_dtype(cfg), device=dev),
+            "v": torch.zeros(shape, dtype=_dtype(cfg), device=dev),
+        }
+        for i in range(len(cfg.block_pattern))
+    }
+
+
+def _gather_pages(pages: torch.Tensor, block_tables: torch.Tensor):
+    """(P+1, ps, H, D) pages x (B, Pmax) tables -> (B, Pmax*ps, H, D)
+    dense per-sequence copy (-1 table entries clamp to page 0; callers
+    mask by length)."""
+    B, Pmax = block_tables.shape
+    g = pages[torch.clamp(block_tables.long(), min=0)]  # (B, Pmax, ps, H, D)
+    return g.reshape(B, Pmax * pages.shape[1], *pages.shape[2:])
+
+
+def _pool_geometry(cache: PyTree):
+    """(scratch page id, page size) of a paged cache."""
+    leaf = cache["layer_0"]["k"]  # (n_blocks, P+1, ps, Hkv, Dh)
+    return leaf.shape[1] - 1, leaf.shape[2]
+
+
+def prefill_paged(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                  lengths: torch.Tensor, ctx_lens: torch.Tensor,
+                  block_tables: torch.Tensor, cache: PyTree,
+                  plain_attention: bool = False):
+    """Prefill that writes straight into pool pages.
+
+    tokens (B, S) are the NEW suffix tokens, left-aligned; lengths (B,)
+    their count; ctx_lens (B,) the resident prefix (a radix hit, page
+    aligned, already in the pool), which is not recomputed; block_tables
+    (B, Pmax) cover ctx + new, -1 padded.  New K/V scatters into the pages
+    the table assigns to positions ``ctx .. ctx+len`` (pad rows to the
+    scratch page).  Returns ``(last_logits (B, V) float32, cache)``.
+
+    The kernel path scatters first, then gathers the table into a dense
+    ``(B, Pmax*ps)`` view and runs ``flash_attention`` with query row i at
+    position ``ctx + i`` and ``kv_len = ctx + len``: the keys of the JAX
+    model's concat of prefix pages and new K/V, summed in another order.
+    Radix matches are whole pages, so the scatter only writes fresh pages
+    and the prefix reads the same either side of it.
+    ``plain_attention=True`` runs the JAX model's concat through
+    ``L.chunked_attention``."""
+    _check_paged(cfg)
+    check_supported(cfg)
+    dev = tokens.device
+    B, S = tokens.shape
+    scratch, ps = _pool_geometry(cache)
+    Pmax = block_tables.shape[1]
+    C = Pmax * ps
+    lengths = lengths.to(device=dev, dtype=torch.int32)
+    ctx_lens = ctx_lens.to(device=dev, dtype=torch.int32)
+    bt = block_tables.to(device=dev, dtype=torch.int32)
+    x = params["embed"][tokens.long()]
+    pos_row = torch.arange(S, device=dev, dtype=torch.int32)
+    positions = ctx_lens[:, None] + pos_row[None]  # (B, S) absolute
+    valid = pos_row[None] < lengths[:, None]
+    bidx = torch.arange(B, device=dev)[:, None]
+    # new token i of row b -> page bt[b, pos // ps], offset pos % ps
+    pid = bt[bidx, torch.clamp(positions // ps, max=Pmax - 1).long()]
+    pid = torch.where(valid & (pid >= 0), pid, scratch).long()
+    off = (positions % ps).long()
+    if plain_attention:
+        ctx_pos = torch.arange(C, device=dev, dtype=torch.int32).expand(B, C)
+        kv_pos = torch.cat([ctx_pos, positions], dim=1)
+        kv_valid = torch.cat([ctx_pos < ctx_lens[:, None], valid], dim=1)
+    kv_len = ctx_lens + lengths
+    for blk in range(cfg.n_blocks):
+        bp = _index(params["blocks"], blk)
+        for i, spec in enumerate(cfg.block_pattern):
+            lp = bp[f"layer_{i}"]
+            entry = cache[f"layer_{i}"]
+            kp, vp = entry["k"][blk], entry["v"][blk]
+            h = L.rms_norm(x, lp["attn"]["norm"], cfg.norm_eps)
+            q, k, v = _attn_qkv(lp["attn"], cfg, h)
+            if cfg.use_rope:
+                sin, cos = L.rope_sincos(positions, cfg.head_dim,
+                                         cfg.rope_theta)
+                q = L.apply_rope(q, sin, cos)
+                k = L.apply_rope(k, sin, cos)
+            kp[pid, off] = k
+            vp[pid, off] = v
+            kg, vg = _gather_pages(kp, bt), _gather_pages(vp, bt)
+            if plain_attention:
+                # the JAX model's span: resident prefix pages (kv_valid
+                # masks the table past ctx), then the new K/V
+                o = L.chunked_attention(
+                    q, torch.cat([kg, k], dim=1), torch.cat([vg, v], dim=1),
+                    causal=True, window=spec.window,
+                    softcap=cfg.attn_softcap, q_positions=positions,
+                    kv_positions=kv_pos, kv_valid=kv_valid,
+                    q_chunk=S, k_chunk=C + S,
+                )
+            else:
+                o = flash_attention(
+                    q, kg, vg, causal=True, window=spec.window,
+                    softcap=cfg.attn_softcap, kv_len=kv_len,
+                    q_start=ctx_lens,
+                )
+            x = x + o.reshape(B, S, cfg.q_dim) @ lp["attn"]["wo"]
+            x = x + _ffn(lp, cfg, x)
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    last = torch.clamp(lengths.long() - 1, min=0)
+    logits = lm_logits(params, cfg, x[torch.arange(B, device=dev), last])
+    return logits, cache
+
+
+def verify_step_paged(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                      cache: PyTree, lengths: torch.Tensor,
+                      block_tables: torch.Tensor,
+                      plain_attention: bool = False):
+    """Speculative verify: forward ``T = k + 1`` tokens per sequence in
+    one pass over the paged pool.
+
+    tokens (B, T): the pending token and k draft proposals; lengths (B,)
+    the resident tokens BEFORE this step; block_tables (B, Pmax) must
+    cover ``lengths + T``.  K/V of all T rows scatters into the pool
+    first (a row past the table's coverage goes to the scratch page,
+    never to the clamped last page), then attention is causal within the
+    window (row j sees positions ``<= lengths + j``).  Returns
+    ``(logits (B, T, V) float32, cache)``; ``T == 1`` is
+    :func:`decode_step_paged`.  Rollback of rejected rows is the caller's
+    page bookkeeping."""
+    _check_paged(cfg)
+    check_supported(cfg)
+    dev = tokens.device
+    B, T = tokens.shape
+    scratch, ps = _pool_geometry(cache)
+    Pmax = block_tables.shape[1]
+    C = Pmax * ps
+    lengths = lengths.to(device=dev, dtype=torch.int32)
+    bt = block_tables.to(device=dev, dtype=torch.int32)
+    x = params["embed"][tokens.long()]  # (B, T, d)
+    positions = lengths[:, None] + torch.arange(T, device=dev,
+                                                dtype=torch.int32)[None]
+    bidx = torch.arange(B, device=dev)[:, None]
+    pid = bt[bidx, torch.clamp(positions // ps, max=Pmax - 1).long()]
+    pid = torch.where((pid >= 0) & (positions < C), pid, scratch).long()
+    off = (positions % ps).long()
+    if plain_attention:
+        slot_pos = torch.arange(C, device=dev, dtype=torch.int32).expand(B, C)
+    total = lengths + T  # valid tokens incl. the T new ones
+    for blk in range(cfg.n_blocks):
+        bp = _index(params["blocks"], blk)
+        for i, spec in enumerate(cfg.block_pattern):
+            lp = bp[f"layer_{i}"]
+            entry = cache[f"layer_{i}"]
+            kp, vp = entry["k"][blk], entry["v"][blk]
+            h = L.rms_norm(x, lp["attn"]["norm"], cfg.norm_eps)
+            q, k, v = _attn_qkv(lp["attn"], cfg, h)  # (B, T, H, Dh)
+            if cfg.use_rope:
+                sin, cos = L.rope_sincos(positions, cfg.head_dim,
+                                         cfg.rope_theta)
+                q = L.apply_rope(q, sin, cos)
+                k = L.apply_rope(k, sin, cos)
+            kp[pid, off] = k
+            vp[pid, off] = v
+            if plain_attention:
+                o = L.verify_attention(
+                    q, _gather_pages(kp, bt), _gather_pages(vp, bt),
+                    slot_pos, positions, window=spec.window,
+                    softcap=cfg.attn_softcap,
+                )
+            else:
+                o = paged_verify_attention(
+                    q, kp, vp, bt, total, window=spec.window,
+                    softcap=cfg.attn_softcap,
+                )
+            x = x + o.reshape(B, T, cfg.q_dim) @ lp["attn"]["wo"]
+            x = x + _ffn(lp, cfg, x)
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return lm_logits(params, cfg, x), cache
+
+
+def decode_step_paged(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                      cache: PyTree, lengths: torch.Tensor,
+                      block_tables: torch.Tensor,
+                      plain_attention: bool = False):
+    """One decode iteration over the paged pool: tokens (B,), lengths (B,)
+    = resident tokens = the new token's position.  The ``T == 1`` call of
+    :func:`verify_step_paged`; returns ``(logits (B, V), cache)``."""
+    logits, cache = verify_step_paged(params, cfg, tokens[:, None], cache,
+                                      lengths, block_tables,
+                                      plain_attention=plain_attention)
+    return logits[:, 0], cache
+
+
+def draft_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+               cache: PyTree, lengths: torch.Tensor):
+    """One greedy draft-model proposal step over the ring cache: returns
+    ``(proposal ids (B,) int32, logits, cache)``."""
+    logits, cache = decode_step(params, cfg, tokens, cache, lengths)
+    return torch.argmax(logits, dim=-1).to(torch.int32), logits, cache
+
+
+def accept_prefix(draft_tokens: torch.Tensor,
+                  target_tokens: torch.Tensor) -> torch.Tensor:
+    """Greedy accept-prefix: per sequence, the longest prefix where the
+    k proposals (B, k) match the verify pass's argmaxes (B, k+1)
+    (``target_tokens[:, a]`` is the bonus/correction token).  Returns
+    (B,) int32 in ``[0, k]``."""
+    match = (draft_tokens == target_tokens[:, :-1]).to(torch.int32)
+    return torch.cumprod(match, dim=1).sum(dim=1).to(torch.int32)
+
+
+def prefill_paged_greedy(params: Params, cfg: ModelConfig,
+                         tokens: torch.Tensor, lengths: torch.Tensor,
+                         ctx_lens: torch.Tensor, block_tables: torch.Tensor,
+                         cache: PyTree):
+    """:func:`prefill_paged` returning (first token ids (B,) int32, cache)."""
+    logits, cache = prefill_paged(params, cfg, tokens, lengths, ctx_lens,
+                                  block_tables, cache)
+    return torch.argmax(logits, dim=-1).to(torch.int32), cache
+
+
+def decode_step_paged_greedy(params: Params, cfg: ModelConfig,
+                             tokens: torch.Tensor, cache: PyTree,
+                             lengths: torch.Tensor,
+                             block_tables: torch.Tensor):
+    """:func:`decode_step_paged` returning (next ids (B,) int32, cache)."""
+    logits, cache = decode_step_paged(params, cfg, tokens, cache, lengths,
+                                      block_tables)
+    return torch.argmax(logits, dim=-1).to(torch.int32), cache
+
+
+def verify_step_paged_greedy(params: Params, cfg: ModelConfig,
+                             tokens: torch.Tensor, cache: PyTree,
+                             lengths: torch.Tensor,
+                             block_tables: torch.Tensor):
+    """:func:`verify_step_paged` returning (argmax ids (B, T) int32,
+    cache)."""
+    logits, cache = verify_step_paged(params, cfg, tokens, cache, lengths,
+                                      block_tables)
     return torch.argmax(logits, dim=-1).to(torch.int32), cache

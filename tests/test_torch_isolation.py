@@ -96,18 +96,25 @@ def test_wrappers_never_fall_back_off_the_cpu():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(paged=True), "item 4"),
-    (dict(spec_k=2), "item 5"),
-    (dict(tp=2), "item 8"),
+    pytest.param(dict(tp=2), "item 8", id="kw2-item 8"),
 ])
 def test_unported_serving_paths_raise(kw, item):
     rc = MODEL.reduced()
     with pytest.raises(NotImplementedError, match=item):
         make_real_backend_factory(rc, {}, device="cpu", **kw)
-    if "tp" not in kw:
-        with pytest.raises(NotImplementedError, match=item):
-            RealBackend(HardwareModel(MODEL, A100), rc, {}, device="cpu",
-                        **kw)
+
+
+def test_paged_and_spec_serving_paths_are_ported():
+    """The paged pool (ROADMAP queue 1, item 4) and speculation (item 5)
+    construct; speculation still needs the paged pool and a drafter."""
+    rc = MODEL.reduced()
+    hw = HardwareModel(MODEL, A100)
+    be = RealBackend(hw, rc, {}, slots=2, max_len=64, paged=True,
+                     device="cpu")
+    assert be.pool.free_pages == be.pool_pages == (2 * 2 + 8) * 4
+    assert make_real_backend_factory(rc, {}, paged=True, device="cpu")
+    with pytest.raises(ValueError, match="paged"):
+        RealBackend(hw, rc, {}, spec_k=2, device="cpu")
 
 
 def test_unported_model_paths_raise():

@@ -13,13 +13,21 @@ import torch
 from repro.kernels.decode_attention import (
     decode_attention as pallas_decode,
     decode_attention_ref as jax_decode_ref,
+    paged_decode_attention as pallas_paged_decode,
+    paged_decode_attention_ref as jax_paged_decode_ref,
+    paged_verify_attention as pallas_paged_verify,
+    paged_verify_attention_ref as jax_paged_verify_ref,
 )
 from repro.kernels.flash_attention import (
     attention_ref as jax_attention_ref,
     flash_attention as pallas_flash,
 )
 from repro.models import layers as JL
-from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.decode_attention import (
+    decode_attention,
+    paged_decode_attention,
+    paged_verify_attention,
+)
 from repro_torch.kernels.decode_attention import ops as dops
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention import ops as fops
@@ -188,3 +196,191 @@ def test_decode_ring_buffer_wraparound():
     want = jax_decode_ref(qj, kj, vj, jnp.asarray(slot_pos),
                           jnp.asarray(q_pos), window=48)
     _close(want, out, "float32")
+
+
+
+# ---------------------------------------------------------------------------
+# prefill flash attention with a query offset (paged prefill after a hit)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window,softcap", [(None, None), (24, 30.0)])
+def test_flash_q_offset_matches_chunked_attention(dtype, window, softcap):
+    """Query row i at position ctx + i over the gathered table (key j at
+    position j), kv_len = ctx + new: ``L.chunked_attention`` with
+    ``q_positions = ctx + i`` and ``kv_valid = pos < kv_len``."""
+    rng = np.random.default_rng(7)
+    B, S, Skv, Hq, Hkv, Dh = 3, 24, 64, 8, 2, 16
+    (qj, qt), (kj, kt), (vj, vt) = _qkv(rng, B, S, Skv, Hq, Hkv, Dh, dtype)
+    ctx = np.array([0, 16, 32], np.int32)
+    new = np.array([24, 7, 1], np.int32)
+    qpos = (ctx[:, None] + np.arange(S)[None]).astype(np.int32)
+    kpos = np.broadcast_to(np.arange(Skv, dtype=np.int32), (B, Skv))
+    valid = kpos < (ctx + new)[:, None]
+    want = JL.chunked_attention(
+        qj, kj, vj, causal=True, window=window, softcap=softcap,
+        q_positions=jnp.asarray(qpos), kv_positions=jnp.asarray(kpos),
+        kv_valid=jnp.asarray(valid), q_chunk=S, k_chunk=Skv,
+    )
+    got = flash_attention(qt, kt, vt, causal=True, window=window,
+                          softcap=softcap,
+                          kv_len=torch.from_numpy(ctx + new),
+                          q_start=torch.from_numpy(ctx))
+    _close(want, got, dtype)
+
+
+def test_flash_q_start_zero_equals_no_offset():
+    rng = np.random.default_rng(8)
+    (_, qt), (_, kt), (_, vt) = _qkv(rng, 2, 40, 40, 4, 2, 16, "float32")
+    kl = torch.tensor([40, 22], dtype=torch.int32)
+    a = flash_attention(qt, kt, vt, kv_len=kl)
+    b = flash_attention(qt, kt, vt, kv_len=kl,
+                        q_start=torch.zeros(2, dtype=torch.int32))
+    assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# paged decode and speculative verify (tests/test_kernels.py:69-216)
+# ---------------------------------------------------------------------------
+
+
+def _paged(rng, B, T, P, ps, Hq, Hkv, Dh, Pmax, lengths, dtype):
+    """Pool, queries and shuffled disjoint tables (-1 past each row's
+    last page), the same values on both sides."""
+    qj, qt = _pair(rng.normal(size=(B, T, Hq, Dh)), dtype)
+    kj, kt = _pair(rng.normal(size=(P, ps, Hkv, Dh)), dtype)
+    vj, vt = _pair(rng.normal(size=(P, ps, Hkv, Dh)), dtype)
+    perm = rng.permutation(P)
+    bt = np.full((B, Pmax), -1, np.int32)
+    for b in range(B):
+        n = -(-int(lengths[b]) // ps)
+        bt[b, :n] = perm[b * Pmax: b * Pmax + n]
+    ln = np.asarray(lengths, np.int32)
+    return ((qj, qt), (kj, kt), (vj, vt),
+            (jnp.asarray(bt), torch.from_numpy(bt)),
+            (jnp.asarray(ln), torch.from_numpy(ln)))
+
+
+@pytest.mark.parametrize("P,ps,Hq,Hkv,Dh,Pmax", [
+    (24, 16, 4, 4, 64, 4),    # MHA
+    (32, 8, 8, 2, 64, 6),     # GQA 4:1
+    (16, 16, 6, 2, 128, 3),   # GQA 3:1, 128-dim heads
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window,softcap", [
+    (None, None), (24, None), (None, 30.0),
+])
+def test_paged_decode_wrapper_matches_jax_ref_and_pallas(P, ps, Hq, Hkv, Dh,
+                                                         Pmax, dtype, window,
+                                                         softcap):
+    """The sweep of tests/test_kernels.py:78-105 (ragged lengths); the
+    Pallas kernel in interpret mode on the unwindowed, uncapped cell of
+    each shape (each interpret call compiles anew)."""
+    rng = np.random.default_rng(9)
+    B = 3
+    lengths = [1 + (ps * Pmax) // 3, ps * Pmax - 1, ps + 1]
+    (qj, qt), (kj, kt), (vj, vt), (bj, bt), (lj, lt) = _paged(
+        rng, B, 1, P, ps, Hq, Hkv, Dh, Pmax, lengths, dtype)
+    kw = dict(window=window, softcap=softcap)
+    n0 = dict(dops.paged_launches)
+    out = paged_decode_attention(qt[:, 0], kt, vt, bt, lt, **kw)
+    assert dops.paged_launches == n0  # the CPU path launches nothing
+    assert out.dtype == qt.dtype and out.shape == qt[:, 0].shape
+    _close(jax_paged_decode_ref(qj[:, 0], kj, vj, bj, lj, **kw), out, dtype)
+    if window is None and softcap is None:
+        _close(pallas_paged_decode(qj[:, 0], kj, vj, bj, lj, **kw), out,
+               dtype)
+
+
+@pytest.mark.parametrize("extra", [0, 1])
+def test_paged_decode_page_boundary(extra):
+    """len % page_size in {0, 1} (tests/test_kernels.py:108-127)."""
+    rng = np.random.default_rng(10)
+    P, ps, Hkv, Dh, Hq, B, Pmax = 12, 8, 2, 32, 4, 2, 3
+    L = 2 * ps + extra
+    (qj, qt), (kj, kt), (vj, vt), (bj, bt), (lj, lt) = _paged(
+        rng, B, 1, P, ps, Hq, Hkv, Dh, Pmax, [L, L], "float32")
+    out = paged_decode_attention(qt[:, 0], kt, vt, bt, lt)
+    _close(jax_paged_decode_ref(qj[:, 0], kj, vj, bj, lj), out, "float32")
+    _close(pallas_paged_decode(qj[:, 0], kj, vj, bj, lj), out, "float32")
+
+
+@pytest.mark.parametrize("k", [1, 2, 4])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window,softcap", [
+    (None, None), (24, None), (None, 30.0),
+])
+def test_paged_verify_wrapper_matches_jax_ref_and_pallas(k, dtype, window,
+                                                         softcap):
+    """The sweep of tests/test_kernels.py:130-157: T = k + 1 query rows,
+    causal within the speculation window; Pallas on one cell per k."""
+    rng = np.random.default_rng(11)
+    P, ps, Hq, Hkv, Dh, Pmax, B = 32, 8, 8, 2, 64, 6, 3
+    T = k + 1
+    lengths = [T + 1, (ps * Pmax) // 2, ps * Pmax - 1]
+    (qj, qt), (kj, kt), (vj, vt), (bj, bt), (lj, lt) = _paged(
+        rng, B, T, P, ps, Hq, Hkv, Dh, Pmax, lengths, dtype)
+    kw = dict(window=window, softcap=softcap)
+    out = paged_verify_attention(qt, kt, vt, bt, lt, **kw)
+    assert out.dtype == qt.dtype and out.shape == qt.shape
+    _close(jax_paged_verify_ref(qj, kj, vj, bj, lj, **kw), out, dtype)
+    if window is None and softcap is None and dtype == "float32":
+        _close(pallas_paged_verify(qj, kj, vj, bj, lj, **kw), out, dtype)
+
+
+@pytest.mark.parametrize("k", [1, 2, 4])
+@pytest.mark.parametrize("extra", [0, 1])
+def test_paged_verify_page_boundary(k, extra):
+    """The window straddling a page boundary
+    (tests/test_kernels.py:160-182)."""
+    rng = np.random.default_rng(12)
+    P, ps, Hkv, Dh, Hq, B, Pmax = 16, 8, 2, 32, 4, 2, 4
+    L = 2 * ps + extra
+    (qj, qt), (kj, kt), (vj, vt), (bj, bt), (lj, lt) = _paged(
+        rng, B, k + 1, P, ps, Hq, Hkv, Dh, Pmax, [L, L], "float32")
+    out = paged_verify_attention(qt, kt, vt, bt, lt)
+    _close(jax_paged_verify_ref(qj, kj, vj, bj, lj), out, "float32")
+
+
+def test_paged_verify_t1_equals_paged_decode():
+    """tests/test_kernels.py:185-199: bit-exact."""
+    rng = np.random.default_rng(13)
+    (_, qt), (_, kt), (_, vt), (_, bt), (_, lt) = _paged(
+        rng, 2, 1, 12, 8, 4, 2, 32, 3, [8 + 3, 3 * 8], "float32")
+    ver = paged_verify_attention(qt, kt, vt, bt, lt)
+    dec = paged_decode_attention(qt[:, 0], kt, vt, bt, lt)
+    assert torch.equal(ver[:, 0], dec)
+
+
+def test_paged_matches_ring_decode_attention():
+    """tests/test_kernels.py:202-215: the paged and ring layouts are two
+    views of one cache."""
+    rng = np.random.default_rng(14)
+    ps, n_pages, Hkv, Dh, Hq = 8, 4, 2, 32, 4
+    C = ps * n_pages
+    (_, qt), (_, kt), (_, vt), _ = _ring(rng, 1, C, Hq, Hkv, Dh, "float32",
+                                         np.array([C]))
+    L = 19
+    slot_pos = np.where(np.arange(C) < L, np.arange(C), -1)[None]
+    ring = decode_attention(qt, kt, vt,
+                            torch.from_numpy(slot_pos.astype(np.int32)),
+                            torch.tensor([L - 1], dtype=torch.int32))
+    paged = paged_decode_attention(
+        qt, kt.reshape(n_pages, ps, Hkv, Dh), vt.reshape(n_pages, ps, Hkv, Dh),
+        torch.arange(n_pages, dtype=torch.int32)[None],
+        torch.tensor([L], dtype=torch.int32))
+    torch.testing.assert_close(paged, ring, atol=2e-5, rtol=2e-5)
+
+
+def test_paged_wrapper_rejects_mismatched_tables():
+    q = torch.zeros((2, 3, 4, 16))
+    pool = torch.zeros((5, 8, 2, 16))
+    with pytest.raises(ValueError, match="do not match"):
+        paged_verify_attention(q, pool, pool,
+                               torch.zeros((3, 2), dtype=torch.int32),
+                               torch.zeros(2, dtype=torch.int32))
+    with pytest.raises(ValueError, match="does not match"):
+        paged_verify_attention(q, pool[..., :8], pool[..., :8],
+                               torch.zeros((2, 2), dtype=torch.int32),
+                               torch.zeros(2, dtype=torch.int32))

@@ -106,6 +106,35 @@ def test_decode_attention(dtype, window, softcap):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("T", [1, 3, 5])
+@pytest.mark.parametrize("window,softcap", [(None, None), (12, 30.0)])
+def test_verify_attention(dtype, T, window, softcap):
+    """T new tokens per sequence over a cache that holds their K/V,
+    causal within the window; the last row mixes empty slots in."""
+    rng = np.random.default_rng(6)
+    B, C, Hq, Hkv, Dh = 3, 32, 4, 2, 16
+    qj, qt = _pair(rng.normal(size=(B, T, Hq, Dh)), dtype)
+    kj, kt = _pair(rng.normal(size=(B, C, Hkv, Dh)), dtype)
+    vj, vt = _pair(rng.normal(size=(B, C, Hkv, Dh)), dtype)
+    filled = np.array([20, 32, 9])
+    slot_pos = np.where(np.arange(C)[None] < filled[:, None],
+                        np.arange(C)[None], -1).astype(np.int32)
+    q_pos = (filled[:, None] - T + np.arange(T)[None]).astype(np.int32)
+    kw = dict(window=window, softcap=softcap)
+    out_j = JL.verify_attention(qj, kj, vj, jnp.asarray(slot_pos),
+                                jnp.asarray(q_pos), **kw)
+    out_t = TL.verify_attention(qt, kt, vt, torch.from_numpy(slot_pos),
+                                torch.from_numpy(q_pos), **kw)
+    assert out_t.dtype == qt.dtype and out_t.shape == qt.shape
+    _close(out_j, out_t, dtype)
+    if T == 1:  # T == 1 is decode_attention
+        dec = TL.decode_attention(qt[:, 0], kt, vt,
+                                  torch.from_numpy(slot_pos),
+                                  torch.from_numpy(q_pos[:, 0]), **kw)
+        torch.testing.assert_close(out_t[:, 0], dec, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("act", ["silu", "gelu"])
 def test_glu_mlp(dtype, act):
     rng = np.random.default_rng(4)

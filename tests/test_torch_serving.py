@@ -9,6 +9,12 @@
 (c) Served tokens equal a direct port-model loop (tests/test_realengine.py:63).
 (d) Dense preemption resume and failure restart over real compute.
 (e) A second run over the same shapes adds 0 to ``compile_count()``.
+(f) The paged pool and speculative draft–verify: torch and JAX paged
+    (and paged + speculative) real clusters are bit-equal in everything
+    the control plane computes; Sim==Real through speculation, slot
+    capacity, preemption, multi-turn prefix reuse and prefill failure
+    (tests/test_backend_parity.py:161-437), pipeline depth through
+    speculation (tests/test_perf_invariants.py:243).
 """
 import dataclasses
 from functools import partial
@@ -25,7 +31,10 @@ from repro.configs.registry import REGISTRY
 from repro.core.power import A100
 from repro.models import model as M
 from repro.serving.cluster import build_predictor
-from repro.serving.realengine import make_real_backend_factory
+from repro.serving.realengine import (
+    make_draft_config,
+    make_real_backend_factory,
+)
 import repro_torch.serving as TS
 from repro_torch.configs.registry import REGISTRY as TREG
 from repro_torch.core.hwmodel import HardwareModel as THardwareModel
@@ -37,6 +46,7 @@ from repro_torch.serving.cluster import build_predictor as t_build_predictor
 from repro_torch.serving.realengine import (
     RealBackend,
     _bucket,
+    make_draft_config as t_make_draft_config,
     make_real_backend_factory as t_make_factory,
 )
 
@@ -382,3 +392,372 @@ def test_slot_reuse(torch_side):
     be.release(reqs[0])
     be.insert(reqs[2])
     assert be.slot_of[reqs[2].rid] in (0, 1)
+
+
+
+# ---------------------------------------------------------------------------
+# (f) paged pool and speculative draft–verify
+# ---------------------------------------------------------------------------
+
+SPEC_K = 2
+
+
+@pytest.fixture(scope="module")
+def spec(jax_side, torch_side):
+    """Each side's drafter (the same weights, carried across) and a
+    predictor profiled for verify iterations."""
+    jdc = make_draft_config(jax_side.rc)
+    jdp = M.init_params(jdc, jax.random.key(1))
+    tdc = t_make_draft_config(torch_side.rc)
+    tdp = params_from_jax(jax.tree.map(np.asarray, jdp), device="cpu")
+    jpred = build_predictor(jax_side.model, A100, A100.freq_levels_2,
+                            kv_cap=400_000, spec_k=SPEC_K)
+    tpred = t_build_predictor(torch_side.model, TA100, TA100.freq_levels_2,
+                              kv_cap=400_000, spec_k=SPEC_K)
+    return {
+        "jax": SimpleNamespace(draft_cfg=jdc, draft_params=jdp, pred=jpred),
+        "torch": SimpleNamespace(draft_cfg=tdc, draft_params=tdp,
+                                 pred=tpred),
+    }
+
+
+def _spec_kw(sp, **kw):
+    """Backend keywords of a paged + speculative factory."""
+    return dict(paged=True, page_size=16, spec_k=SPEC_K,
+                draft_cfg=sp.draft_cfg, draft_params=sp.draft_params, **kw)
+
+
+def _spec_cluster_cfg(side, sp, **kw):
+    base = dict(prefill_chunk_tokens=32, paged=True, kv_page_size=16,
+                spec_decode=True, spec_k=SPEC_K, predictor=sp.pred)
+    base.update(kw)
+    return _cluster_cfg(side, "chunked-pd", **base)
+
+
+def _recording(factory):
+    """Wrap a factory so each speculative iteration's (rid, accepted)
+    pairs are logged in dispatch order."""
+    log = []
+
+    def wrapped(kind, idx, hw, seed, tp=None):
+        be = factory(kind, idx, hw, seed, tp=tp)
+        if be.spec_k:
+            inner = be._real_spec_step
+
+            def step(reqs, k, accepts):
+                log.extend((r.rid, a) for r, a in zip(reqs, accepts))
+                return inner(reqs, k, accepts)
+
+            be._real_spec_step = step
+        return be
+
+    return wrapped, log
+
+
+def _token_kinds(reqs, log):
+    """Per request, which model chose each emitted token: the prefill's
+    first token and each verify pass's bonus/correction token are the
+    target's argmax, accepted draft tokens the drafter's."""
+    kinds = {r.rid: ["target"] for r in reqs}
+    for rid, a in log:
+        kinds[rid] += ["draft"] * a + ["target"]
+    return kinds
+
+
+def _replay_by_kind(jax_side, sp, reqs, kinds, margin=0.05):
+    """Each emitted token within ``margin`` of the max logit of the JAX
+    model that chose it (target or drafter, same weights)."""
+    models = {"target": (jax_side.rc, jax_side.params),
+              "draft": (sp.draft_cfg, sp.draft_params)}
+    fns = {name: (jax.jit(partial(M.prefill, cfg=c, max_len=MAX_LEN)),
+                  jax.jit(partial(M.decode_step, cfg=c)))
+           for name, (c, _) in models.items()}
+    for r in reqs:
+        assert len(kinds[r.rid]) == len(r.output_tokens), r.rid
+        toks = np.asarray(r.prompt_tokens, np.int32)
+        pad = np.zeros((1, _bucket(len(toks), hi=MAX_LEN)), np.int32)
+        pad[0, : len(toks)] = toks
+        rows = {}
+        for name, (_, params) in models.items():
+            prefill, decode = fns[name]
+            logits, cache = prefill(params, tokens=jnp.asarray(pad),
+                                    lengths=jnp.asarray([len(toks)],
+                                                        jnp.int32))
+            pos = jnp.asarray([len(toks)], jnp.int32)
+            rows[name] = []
+            for tok in r.output_tokens:
+                rows[name].append(np.asarray(logits[0], np.float64))
+                logits, cache = decode(params,
+                                       tokens=jnp.asarray([tok], jnp.int32),
+                                       cache=cache, lengths=pos)
+                pos = pos + 1
+        for i, (tok, kind) in enumerate(zip(r.output_tokens, kinds[r.rid])):
+            row = rows[kind][i]
+            assert row[tok] >= row.max() - margin, (
+                f"rid {r.rid} token {i} ({kind}): id {tok} has logit "
+                f"{row[tok]:.4f} vs max {row.max():.4f}")
+
+
+def test_torch_paged_real_cluster_matches_jax(jax_side, torch_side):
+    """The paged memory model: same workload through a JAX and a torch
+    paged real cluster (a hybrid instance exercises the local join)."""
+    runs = []
+    for side in (jax_side, torch_side):
+        reqs = _workload(side)
+        m = side.pkg.PDCluster(_cluster_cfg(
+            side, "paged-pd",
+            backend_factory=side.factory(paged=True, page_size=16))).run(reqs)
+        assert m.finished_frac() == 1.0
+        for r in reqs:
+            assert len(r.output_tokens) == r.decode_len + 1
+        runs.append((reqs, m))
+    (ra, ma), (rb, mb) = runs
+    _assert_same_run(ra, ma, rb, mb)
+    _replay_near_argmax(jax_side, rb[:6])
+
+
+def test_torch_spec_real_cluster_matches_jax(jax_side, torch_side, spec):
+    """Paged + speculative: bit-equal control plane (acceptance
+    realizations included), complete streams, drained pools, and every
+    token near the argmax of the model that chose it."""
+    runs = []
+    for side, sp in ((jax_side, spec["jax"]), (torch_side, spec["torch"])):
+        reqs = _workload(side)
+        factory, log = _recording(side.factory(**_spec_kw(sp)))
+        cl = side.pkg.PDCluster(_spec_cluster_cfg(side, sp,
+                                                  backend_factory=factory))
+        m = cl.run(reqs)
+        assert m.finished_frac() == 1.0
+        assert m.spec_iterations() > 0
+        for r in reqs:
+            assert len(r.output_tokens) == r.decode_len + 1
+        for e in cl.decode:
+            e.backend.pool.assert_empty()
+        runs.append((reqs, m, log))
+    (ra, ma, la), (rb, mb, lb) = runs
+    _assert_same_run(ra, ma, rb, mb)
+    for a, b in zip(ra, rb):
+        assert (a.spec_iters, a.spec_accepted) == (b.spec_iters,
+                                                   b.spec_accepted)
+    assert la == lb and any(a > 0 for _, a in lb)
+    _replay_by_kind(jax_side, spec["jax"], rb[:6], _token_kinds(rb, lb))
+
+
+def test_sim_and_real_agree_through_speculation(torch_side, spec):
+    """tests/test_backend_parity.py:161 in the port."""
+    side, sp = torch_side, spec["torch"]
+    reqs_sim, reqs_real = _workload(side), _workload(side)
+    m_sim = side.pkg.PDCluster(_spec_cluster_cfg(side, sp)).run(reqs_sim)
+    cl = side.pkg.PDCluster(_spec_cluster_cfg(
+        side, sp, backend_factory=side.factory(**_spec_kw(sp))))
+    m_real = cl.run(reqs_real)
+    assert m_sim.spec_iterations() > 0
+    _assert_same_run(reqs_sim, m_sim, reqs_real, m_real, streams=False)
+    for rs, rr in zip(reqs_sim, reqs_real):
+        assert (rs.spec_iters, rs.spec_accepted) == (rr.spec_iters,
+                                                     rr.spec_accepted)
+        assert len(rr.output_tokens) == rr.decode_len + 1
+    assert m_sim.acceptance_rate() == m_real.acceptance_rate()
+    for e in cl.decode:
+        e.backend.pool.assert_empty()
+    assert sum(e.backend.spec_real_drafted for e in cl.decode) > 0
+
+
+def test_real_spec_at_slot_capacity(torch_side, spec):
+    """tests/test_backend_parity.py:211: a context that tops out at the
+    slot capacity completes; the verify window clamps at max_len and the
+    overflow rows scatter to the scratch page."""
+    side, sp = torch_side, spec["torch"]
+    max_len = 64
+    reqs = [side.pkg.Request(0, 0.0, prompt_len=40, decode_len=24),
+            side.pkg.Request(1, 0.05, prompt_len=33, decode_len=12)]
+    side.pkg.attach_tokens(reqs, side.rc.vocab_size, seed=6)
+    cl = side.pkg.PDCluster(_spec_cluster_cfg(
+        side, sp, n_decode=1, decode_max_running=4,
+        backend_factory=t_make_factory(
+            side.rc, side.params, slots=4, max_len=max_len, device="cpu",
+            **_spec_kw(sp))))
+    m = cl.run(reqs)
+    assert m.finished_frac() == 1.0
+    for r in reqs:
+        assert r.kv_len == r.prompt_len + r.decode_len <= max_len
+        assert len(r.output_tokens) == r.decode_len + 1
+    cl.decode[0].backend.pool.assert_empty()
+
+
+def test_real_spec_requires_paged_and_a_drafter(torch_side, spec):
+    """tests/test_backend_parity.py:246, with ValueError for the JAX
+    backend's asserts; tp > 0 still raises."""
+    side, sp = torch_side, spec["torch"]
+    hw = THardwareModel(side.model, side.chip)
+    with pytest.raises(ValueError, match="paged"):
+        RealBackend(hw, side.rc, side.params, slots=2, max_len=64,
+                    paged=False, spec_k=2, draft_cfg=sp.draft_cfg,
+                    draft_params=sp.draft_params, device="cpu")
+    with pytest.raises(ValueError, match="draft model"):
+        RealBackend(hw, side.rc, side.params, slots=2, max_len=64,
+                    paged=True, spec_k=2, device="cpu")
+    with pytest.raises(ValueError, match="multiple of page_size"):
+        RealBackend(hw, side.rc, side.params, slots=2, max_len=60,
+                    paged=True, device="cpu")
+    with pytest.raises(NotImplementedError, match="mesh"):
+        t_make_factory(side.rc, side.params, tp=2, device="cpu")
+
+
+def test_paged_preemption_resume(torch_side):
+    """tests/test_backend_parity.py:287, paged: Sim/Real parity through
+    preempt/resume, complete streams, the victim's pages returned."""
+    side = torch_side
+    reqs_sim, reqs_real = _pressure_workload(side), _pressure_workload(side)
+    kw = dict(paged=True, kv_page_size=16)
+    m_sim = side.pkg.PDCluster(_cluster_cfg(side, "pressure", **kw)).run(
+        reqs_sim)
+    cl = side.pkg.PDCluster(_cluster_cfg(
+        side, "pressure", **kw,
+        backend_factory=side.factory(paged=True, page_size=16)))
+    m_real = cl.run(reqs_real)
+    assert m_sim.preemptions_total() > 0, "scenario never preempted"
+    _assert_same_run(reqs_sim, m_sim, reqs_real, m_real, streams=False)
+    for r in reqs_real:
+        assert len(r.output_tokens) == r.decode_len + 1
+    for e in cl.decode:
+        e.backend.pool.assert_empty()
+
+
+def _multiturn_reqs(side, n_convs=2, n_turns=3, system_len=48):
+    """Conversations sharing a system prompt, each turn a strict
+    extension of the last (tests/test_backend_parity.py:317)."""
+    rng = np.random.default_rng(11)
+    system = rng.integers(0, side.rc.vocab_size, system_len).tolist()
+    hist = {c: list(system) for c in range(n_convs)}
+    reqs, rid = [], 0
+    for turn in range(n_turns):
+        for c in range(n_convs):
+            prompt = hist[c] + rng.integers(0, side.rc.vocab_size,
+                                            8).tolist()
+            r = side.pkg.Request(rid, 2.0 * turn + 0.3 * c,
+                                 prompt_len=len(prompt), decode_len=4,
+                                 conv_id=c, turn=turn)
+            r.prompt_tokens = list(prompt)
+            reqs.append(r)
+            rid += 1
+            hist[c] = prompt + [0] * 4  # prompt + synthetic outputs
+    return reqs
+
+
+def _radix_pages(cache):
+    pages, stack = [], [cache.root]
+    while stack:
+        n = stack.pop()
+        stack.extend(n.children.values())
+        pages.extend(n.pages)
+    return pages
+
+
+def test_paged_multiturn_prefix_reuse(jax_side, torch_side):
+    """tests/test_backend_parity.py:340: prefix pages are reused (refcount
+    > 1), reused tokens never re-enter the forward (the suffix prefill
+    runs flash with a query offset), pools balance; and the torch run
+    equals the JAX one."""
+    runs = []
+    for side in (jax_side, torch_side):
+        reqs = _multiturn_reqs(side)
+        cl = side.pkg.PDCluster(_cluster_cfg(
+            side, "plain-pd", n_decode=1, prefill_chunk_tokens=64,
+            chunked_prefill=True, prefix_cache=True,
+            prefix_cache_capacity=2_048, paged=True, kv_page_size=16,
+            backend_factory=side.factory(paged=True, page_size=16,
+                                         pool_pages=256)))
+        m = cl.run(reqs)
+        assert m.finished_frac() == 1.0
+        assert m.prefix_hit_rate and m.prefix_hit_rate > 0.3
+        pb = cl.prefill[0].backend
+        assert pb.reused_tokens > 0
+        assert pb.computed_tokens == sum(r.prompt_len for r in reqs) \
+            - pb.reused_tokens
+        assert pb.pool.stats.max_refcount > 1
+        for r in reqs:
+            assert len(r.output_tokens) == r.decode_len + 1
+        radix = _radix_pages(cl.prefill[0].cache)
+        assert pb.pool.in_use == len(set(radix))
+        assert all(pb.pool.refcount(p) == 1 for p in radix)
+        cl.decode[0].backend.pool.assert_empty()
+        runs.append((reqs, m, (pb.reused_tokens, pb.computed_tokens)))
+    (ra, ma, ca), (rb, mb, cb) = runs
+    _assert_same_run(ra, ma, rb, mb)
+    assert ca == cb
+    _replay_near_argmax(jax_side, rb)
+
+
+def test_paged_prefill_failure_releases_stashed_pages(torch_side):
+    """tests/test_backend_parity.py:393."""
+    side = torch_side
+    reqs = _pressure_workload(side)
+    cl = side.pkg.PDCluster(_cluster_cfg(
+        side, "pressure", n_prefill=2, n_decode=2,
+        kv_capacity_tokens=400_000, prefix_cache=True,
+        prefix_cache_capacity=1_024, paged=True, kv_page_size=16,
+        backend_factory=side.factory(paged=True, page_size=16)))
+    cl.schedule_failure(0.05, "prefill", 0)
+    m = cl.run(reqs)
+    assert m.finished_frac() == 1.0
+    for r in reqs:
+        assert len(r.output_tokens) == r.decode_len + 1
+    dead = cl.prefill[0].backend
+    assert not dead._pstash
+    assert dead.pool.in_use == len(set(_radix_pages(cl.prefill[0].cache)))
+    for e in cl.decode:
+        e.backend.pool.assert_empty()
+
+
+def test_pipeline_depth_parity_through_speculation(torch_side, spec):
+    """tests/test_perf_invariants.py:243: chunked prefill, tiers, paged KV
+    and speculation at depth 1, 2 and 4 emit identical streams with 0
+    recompiles once warm, and depth 4 keeps more than one iteration in
+    flight."""
+    side, sp = torch_side, spec["torch"]
+    jitcache.clear()
+    runs = {}
+    for depth in (1, 1, 2, 4):  # the first depth-1 run warms the shapes
+        reqs = _workload(side, tiered=True)
+        cl = side.pkg.PDCluster(_spec_cluster_cfg(
+            side, sp, slo_tiers=side.pkg.DEFAULT_TIERS,
+            backend_factory=side.factory(
+                **_spec_kw(sp, pipeline_depth=depth))))
+        m = cl.run(reqs)
+        assert m.finished_frac() == 1.0
+        runs[depth] = (reqs, m, cl)
+    ref_reqs, ref_m, _ = runs[1]
+    assert ref_m.recompiles == 0 and ref_m.spec_iterations() > 0
+    for depth in (2, 4):
+        reqs, m, cl = runs[depth]
+        assert m.recompiles == 0
+        assert m.energy_j() == ref_m.energy_j()
+        for a, b in zip(ref_reqs, reqs):
+            assert a.output_tokens == b.output_tokens
+            assert (a.t_first_token, a.t_finish, a.decode_instance) == (
+                b.t_first_token, b.t_finish, b.decode_instance)
+        for e in cl.decode:
+            assert e.backend.pipeline_depth == depth
+            assert not e.backend._ring
+    cl4 = runs[4][2]
+    disp = sum(e.backend.pipeline_dispatches for e in cl4.decode)
+    occ = sum(e.backend.pipeline_depth_sum for e in cl4.decode)
+    assert disp > 0 and occ / disp > 1.0
+
+
+def test_second_paged_spec_run_adds_zero_compiles(torch_side, spec):
+    side, sp = torch_side, spec["torch"]
+    jitcache.clear()
+
+    def run():
+        return side.pkg.PDCluster(_spec_cluster_cfg(
+            side, sp,
+            backend_factory=side.factory(**_spec_kw(sp)))).run(
+                _workload(side))
+
+    m1 = run()
+    assert m1.spec_iterations() > 0 and m1.recompiles > 0
+    n = jitcache.compile_count()
+    m2 = run()
+    assert m2.recompiles == 0 and jitcache.compile_count() == n
