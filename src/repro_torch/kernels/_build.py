@@ -25,7 +25,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-KERNELS = ("flash_prefill", "ring_decode", "paged_attention")
+KERNELS = ("flash_prefill", "ring_decode", "paged_attention", "ssd_scan")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

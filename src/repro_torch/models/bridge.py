@@ -22,17 +22,24 @@ def _to_tensor(x: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
+# Leaves the JAX model keeps in float32 whatever the model dtype (the
+# Mamba2 mixer's decay, step bias and skip: repro/models/model.py:57-84).
+FLOAT32_LEAVES = frozenset({"A_log", "dt_bias", "D"})
+
+
 def params_from_jax(np_tree: Any, device: DeviceLike = None,
                     dtype: Optional[torch.dtype] = None) -> Any:
     """The port's params from a numpy copy of a JAX param tree.
-    ``dtype`` casts the floating-point leaves; integer leaves keep theirs."""
+    ``dtype`` casts the floating-point leaves, except those named in
+    ``FLOAT32_LEAVES``; integer leaves keep theirs."""
     dev = resolve_device(device)
 
-    def conv(x):
+    def conv(x, name=None):
         if isinstance(x, dict):
-            return {k: conv(v) for k, v in x.items()}
+            return {k: conv(v, k) for k, v in x.items()}
         t = _to_tensor(np.asarray(x))
-        if dtype is not None and t.is_floating_point():
+        if dtype is not None and t.is_floating_point() \
+                and name not in FLOAT32_LEAVES:
             t = t.to(dtype)
         return t.to(dev)
 

@@ -1,14 +1,15 @@
-"""Model building blocks of the dense path: norms, RoPE, attention
-(chunked prefill / ring decode / speculative verify), SwiGLU/GeGLU MLP.
+"""Model building blocks: norms, RoPE, attention (chunked prefill / ring
+decode / speculative verify), SwiGLU/GeGLU MLP, and the Mamba2 mixer's
+SSD scan and depthwise causal conv.
 
 Counterpart of ``repro/models/layers.py``, function for function, with
 the same layouts and quirks: ``rms_norm`` scales by ``(1 + w)``, RoPE
 uses the half-split layout, masks use the finite ``NEG_INF``, softmax
 and normalisation accumulate in float32.  These are the plain-PyTorch
-layers: the model runs its attention through the Hopper kernels in
-``repro_torch.kernels`` and keeps these as the oracle and the plain
-path.  MoE, SSD, conv and ``sliding_attention`` join with the other
-architectures.
+layers: the model runs its attention and its prefill SSD scan through
+the Hopper kernels in ``repro_torch.kernels`` and keeps these as the
+oracle and the plain path.  MoE and ``sliding_attention`` join with the
+other architectures.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+from repro_torch.kernels.ssd import ref as ssd_ref
 
 NEG_INF = -1e30
 
@@ -203,3 +205,104 @@ def glu_mlp(x, w_gate, w_in, w_out, act: str):
     g = _act(x @ w_gate, act)
     h = g * (x @ w_in)
     return h @ w_out
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 (SSD) mixer
+# ---------------------------------------------------------------------------
+
+
+def ssd_chunked(
+    x: torch.Tensor,  # (B, S, H, P)
+    dt: torch.Tensor,  # (B, S, H) fp32, post-softplus
+    A: torch.Tensor,  # (H,) fp32 negative
+    Bm: torch.Tensor,  # (B, S, N)
+    Cm: torch.Tensor,  # (B, S, N)
+    *,
+    chunk: int,
+    init_state: Optional[torch.Tensor] = None,  # (B, H, P, N)
+):
+    """Chunked state-space-duality scan. Returns (y (B,S,H,P), state).
+
+    The JAX layer solves the inter-chunk recurrence
+    ``st_c = dec_c * st_{c-1} + s_c`` with an associative scan; here it
+    is a loop over chunks: the same recurrence, summed in another order
+    (float32 rounding only)."""
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[-1]
+    chunk = min(chunk, S)
+    if S % chunk:
+        raise ValueError(f"chunk must divide the sequence: {(S, chunk)}")
+    nc = S // chunk
+
+    xf = x.float().reshape(Bsz, nc, chunk, H, P)
+    dtc = dt.float().reshape(Bsz, nc, chunk, H)
+    Bc = Bm.float().reshape(Bsz, nc, chunk, N)
+    Cc = Cm.float().reshape(Bsz, nc, chunk, N)
+
+    a = dtc * A  # (B, nc, L, H), negative
+    cum = torch.cumsum(a, dim=2)  # inclusive cumsum over chunk
+
+    # ---- intra-chunk (quadratic within chunk) ----
+    # decay(i, j) = exp(cum_i - cum_j) for i >= j; exp is taken only
+    # there (above the diagonal seg > 0 could overflow)
+    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (B,nc,L,L,H)
+    li = torch.arange(chunk, device=x.device)
+    tri = (li[:, None] >= li[None, :])[None, None, :, :, None]
+    decay = torch.where(tri, torch.exp(torch.where(tri, seg, 0.0)), 0.0)
+    cb = torch.einsum("bcln,bcmn->bclm", Cc, Bc)  # (B,nc,L,L)
+    att = cb[..., None] * decay * dtc[:, :, None, :, :]  # dt_j at j=m
+    y_intra = torch.einsum("bclmh,bcmhp->bclhp", att, xf)
+
+    # ---- chunk states ----
+    # state_c = sum_j exp(cum_last - cum_j) * dt_j * B_j (outer) x_j
+    dec_last = torch.exp(cum[:, :, -1:, :] - cum)  # (B,nc,L,H)
+    states = torch.einsum("bclh,bcln,bclhp->bchpn", dec_last * dtc, Bc, xf)
+
+    # ---- inter-chunk recurrence, one chunk after another ----
+    chunk_decay = torch.exp(cum[:, :, -1, :])  # (B,nc,H)
+    st = (init_state.float() if init_state is not None
+          else torch.zeros((Bsz, H, P, N), dtype=torch.float32,
+                           device=x.device))
+    entry = []  # state *entering* each chunk
+    for c in range(nc):
+        entry.append(st)
+        st = st * chunk_decay[:, c, :, None, None] + states[:, c]
+    entry_states = torch.stack(entry, dim=1)  # (B,nc,H,P,N)
+
+    # contribution of the carried state within each chunk:
+    # y_inter[l] = C_l . (exp(cum_l) * state_entry)
+    y_inter = torch.einsum("bcln,bclh,bchpn->bclhp", Cc, torch.exp(cum),
+                           entry_states)
+
+    y = (y_intra + y_inter).reshape(Bsz, S, H, P)
+    return y.to(x.dtype), st
+
+
+# One token of the SSD recurrence: the step of the SSD kernel's plain
+# version (the token recurrence), so the layer is that function.
+ssd_decode_step = ssd_ref.ssd_decode_step
+
+
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv. x: (B, S, D), w: (D, K). Returns (B, S, D)."""
+    K = w.shape[-1]
+    S = x.shape[1]
+    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for i in range(K):
+        shift = K - 1 - i
+        xi = F.pad(x, (0, 0, shift, 0))[:, :S]
+        out = out + xi.float() * w[:, i].float()
+    return out.to(x.dtype)
+
+
+def conv_step(x: torch.Tensor, conv_state: torch.Tensor, w: torch.Tensor):
+    """One decode step of the depthwise causal conv.
+
+    x: (B, D); conv_state: (B, K-1, D) previous inputs; w: (D, K).
+    Returns (y (B, D), new_conv_state (B, K-1, D)).
+    """
+    K = w.shape[-1]
+    hist = torch.cat([conv_state, x[:, None, :]], dim=1)  # (B, K, D)
+    y = torch.einsum("bkd,dk->bd", hist.float(), w.float()).to(x.dtype)
+    return y, hist[:, 1:K, :] if K > 1 else conv_state

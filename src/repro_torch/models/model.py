@@ -1,19 +1,23 @@
-"""Dense model of the port: init, forward, prefill and ring-cache decode,
-and the paged pool's prefill, decode and speculative verify.
+"""Model of the port: init, forward, prefill and dense-cache decode, and
+the paged pool's prefill, decode and speculative verify.
 
-Counterpart of ``repro/models/model.py`` for dense attention + MLP
-configs (the llama family).  Parameters keep the stacked
-``params["blocks"]`` layout with a leading ``n_blocks`` axis, so JAX
-weights carry across leaf for leaf (:mod:`repro_torch.models.bridge`);
-``lax.scan`` over blocks becomes a Python loop over that axis.
+Counterpart of ``repro/models/model.py`` for attention and Mamba2 (SSD)
+mixers with an MLP or no FFN: the llama family and mamba2.  Parameters
+keep the stacked ``params["blocks"]`` layout with a leading
+``n_blocks`` axis, so JAX weights carry across leaf for leaf
+(:mod:`repro_torch.models.bridge`); ``lax.scan`` over blocks becomes a
+Python loop over that axis.
 
 Where the JAX model calls ``L.chunked_attention``,
-``L.decode_attention`` and ``L.verify_attention``, this model calls the
-Hopper kernels' wrappers (:mod:`repro_torch.kernels`), which take their
-plain PyTorch versions for CPU tensors.  ``plain_attention=True`` runs
-the ported layers instead, as the JAX model does — the replay oracle on
-the card.  Caches (ring and paged) are updated in place; the JAX model
-returns new ones.
+``L.decode_attention``, ``L.verify_attention`` and ``L.ssd_chunked``,
+this model calls the Hopper kernels' wrappers
+(:mod:`repro_torch.kernels`), which take their plain PyTorch versions
+for CPU tensors.  ``plain_attention=True`` runs the ported layers for
+every mixer instead, as the JAX model does — the replay oracle on the
+card.  Mamba2 decode (``L.conv_step``, ``L.ssd_decode_step``) is plain
+PyTorch on both paths, as the JAX model computes it outside any Pallas
+kernel.  Caches (ring, recurrent and paged) are updated in place; the
+JAX model returns new ones.
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ import math
 from typing import Any, Dict, Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
@@ -29,6 +34,7 @@ from repro_torch.kernels.decode_attention import (
     paged_verify_attention,
 )
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.ssd import ssd_scan
 from repro_torch.models import layers as L
 
 Params = Dict[str, Any]
@@ -40,15 +46,16 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Reject what the dense slice of the port does not serve yet."""
-    other = (cfg.has_mamba or cfg.moe is not None or not cfg.embed_inputs
-             or any(s.mixer != "attn" or s.ffn != "mlp"
+    """Reject what the port does not serve yet."""
+    other = (cfg.moe is not None or not cfg.embed_inputs
+             or any(s.mixer not in ("attn", "mamba")
+                    or s.ffn not in ("mlp", "none")
                     for s in cfg.block_pattern))
     if other:
         raise NotImplementedError(
-            f"model '{cfg.name}': the port serves dense attention + MLP "
-            "configs; MoE, Mamba2, hybrid and encoder models are ROADMAP "
-            "queue 1, item 7"
+            f"model '{cfg.name}': the port serves attention and Mamba2 "
+            "mixers with an MLP or no FFN; MoE, hybrid-MoE and encoder "
+            "models are ROADMAP queue 1, item 7"
         )
     if cfg.kv_dtype == "int8" or cfg.weight_dtype == "int8":
         raise NotImplementedError(
@@ -96,11 +103,15 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     def zeros(*shape):
         return torch.zeros(shape, dtype=dt, device=dev)
 
+    def uniform(lo, hi, *shape):  # float32, as the JAX model keeps it
+        u = torch.rand(shape, generator=generator, device=dev,
+                       dtype=torch.float32)
+        return lo + (hi - lo) * u
+
     d, qd, kvd, ff = cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.d_ff
-    params: Params = {"embed": normal((cfg.vocab_size, d), std)}
-    blocks = {}
-    for i, spec in enumerate(cfg.block_pattern):
-        attn = {
+
+    def init_attn():
+        p = {
             "norm": zeros(n, d),
             "wq": stacked((d, qd), std),
             "wk": stacked((d, kvd), std),
@@ -108,15 +119,47 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
             "wo": stacked((qd, d), out_std),
         }
         if cfg.qk_norm:
-            attn["q_norm"] = zeros(n, cfg.head_dim)
-            attn["k_norm"] = zeros(n, cfg.head_dim)
-        mlp = {
+            p["q_norm"] = zeros(n, cfg.head_dim)
+            p["k_norm"] = zeros(n, cfg.head_dim)
+        return p
+
+    def init_mamba():
+        m = cfg.mamba
+        di, nh = m.d_inner(d), m.n_heads(d)
+        conv_dim = di + 2 * m.d_state
+        in_dim = 2 * di + 2 * m.d_state + nh  # z, x, B, C, dt
+        # dt bias: inverse softplus of dt ~ log-uniform on [1e-3, 0.1]
+        dt0 = torch.exp(uniform(math.log(1e-3), math.log(0.1), n, nh))
+        return {
+            "norm": zeros(n, d),
+            "in_proj": stacked((d, in_dim), std),
+            "conv_w": stacked((conv_dim, m.d_conv), std),
+            "A_log": torch.log(uniform(1.0, 16.0, n, nh)),
+            "dt_bias": dt0 + torch.log(-torch.expm1(-dt0)),
+            "D": torch.ones((n, nh), dtype=torch.float32, device=dev),
+            "gnorm": zeros(n, di),
+            "out_proj": stacked((di, d), out_std),
+        }
+
+    def init_mlp():
+        return {
             "norm": zeros(n, d),
             "w_gate": stacked((d, ff), std),
             "w_in": stacked((d, ff), std),
             "w_out": stacked((ff, d), out_std),
         }
-        blocks[f"layer_{i}"] = {"attn": attn, "mlp": mlp}
+
+    params: Params = {"embed": normal((cfg.vocab_size, d), std)}
+    blocks = {}
+    for i, spec in enumerate(cfg.block_pattern):
+        lp = {}
+        if spec.mixer == "attn":
+            lp["attn"] = init_attn()
+        else:
+            lp["mamba"] = init_mamba()
+        if spec.ffn == "mlp":
+            lp["mlp"] = init_mlp()
+        blocks[f"layer_{i}"] = lp
     params["blocks"] = blocks
     params["final_norm"] = zeros(d)
     if not cfg.tie_embeddings:
@@ -200,6 +243,86 @@ def _attn_decode(p, cfg: ModelConfig, spec: LayerSpec, x, entry, blk: int,
     return o.reshape(B, cfg.q_dim) @ p["wo"]
 
 
+def _mamba_inner_split(p, cfg: ModelConfig, h):
+    m = cfg.mamba
+    d = cfg.d_model
+    di = m.d_inner(d)
+    nh = m.n_heads(d)
+    N = m.d_state
+    proj = h @ p["in_proj"]
+    z = proj[..., :di]
+    xbc = proj[..., di: di + di + 2 * N]
+    dt_raw = proj[..., di + di + 2 * N:]
+    return z, xbc, dt_raw, di, nh, N
+
+
+def _mamba_full(p, cfg: ModelConfig, x, valid, plain: bool):
+    """Full-sequence Mamba2 (SSD).  ``valid`` (B, S) bool, or None for
+    every position.
+
+    Returns (residual_out, (final_ssm_state, conv_tail)) where conv_tail
+    is the last (d_conv-1) *pre-conv* features per row — the decode-time
+    conv ring state.  The scan runs in the ``ssd_scan`` kernel, or in
+    ``L.ssd_chunked`` with ``plain``."""
+    m = cfg.mamba
+    B, S, _ = x.shape
+    h = L.rms_norm(x, p["norm"], cfg.norm_eps)
+    z, xbc, dt_raw, di, nh, N = _mamba_inner_split(p, cfg, h)
+    if valid is not None:  # zero padded positions so state is unpolluted
+        xbc = xbc * valid[..., None].to(xbc.dtype)
+        lengths = valid.sum(dim=-1)  # (B,)
+    else:
+        lengths = torch.full((B,), S, device=x.device)
+    # conv tail state: last (K-1) pre-conv inputs per row (zeros if short)
+    K = m.d_conv
+    tail_pos = lengths[:, None] - (K - 1) \
+        + torch.arange(K - 1, device=x.device)[None, :]  # (B, K-1)
+    tail = xbc[torch.arange(B, device=x.device)[:, None],
+               torch.clamp(tail_pos, 0, S - 1)]
+    conv_tail = torch.where((tail_pos >= 0)[..., None], tail,
+                            torch.zeros_like(tail))
+    xbc = F.silu(L.causal_conv1d(xbc, p["conv_w"]))
+    xs = xbc[..., :di].reshape(B, S, nh, m.head_dim)
+    Bm = xbc[..., di: di + N]
+    Cm = xbc[..., di + N:]
+    dt = F.softplus(dt_raw.float() + p["dt_bias"])  # (B, S, nh)
+    if valid is not None:
+        dt = dt * valid[..., None].to(dt.dtype)
+    A = -torch.exp(p["A_log"])
+    scan = L.ssd_chunked if plain else ssd_scan
+    y, state = scan(xs, dt, A, Bm, Cm, chunk=m.chunk)
+    y = y + xs * p["D"][None, None, :, None].to(y.dtype)
+    y = y.reshape(B, S, di)
+    y = L.rms_norm(y * F.silu(z.float()).to(y.dtype), p["gnorm"],
+                   cfg.norm_eps)
+    return y @ p["out_proj"], (state, conv_tail)
+
+
+def _mamba_decode(p, cfg: ModelConfig, x, entry, blk: int):
+    """One-token Mamba2 step against block ``blk`` of a recurrent cache
+    entry (conv (n, B, K-1, conv_dim), ssm (n, B, H, P, N)), updated in
+    place.  x: (B, d); returns the residual output."""
+    m = cfg.mamba
+    B, _ = x.shape
+    h = L.rms_norm(x, p["norm"], cfg.norm_eps)
+    z, xbc, dt_raw, di, nh, N = _mamba_inner_split(p, cfg, h)
+    xbc_c, conv_state = L.conv_step(xbc, entry["conv"][blk], p["conv_w"])
+    entry["conv"][blk] = conv_state
+    xbc_c = F.silu(xbc_c)
+    xs = xbc_c[..., :di].reshape(B, nh, m.head_dim)
+    Bm = xbc_c[..., di: di + N]
+    Cm = xbc_c[..., di + N:]
+    dt = F.softplus(dt_raw.float() + p["dt_bias"])  # (B, nh)
+    A = -torch.exp(p["A_log"])
+    y, ssm_state = L.ssd_decode_step(xs, dt, A, Bm, Cm, entry["ssm"][blk])
+    entry["ssm"][blk] = ssm_state
+    y = y + xs * p["D"][None, :, None].to(y.dtype)
+    y = y.reshape(B, di)
+    y = L.rms_norm(y * F.silu(z.float()).to(y.dtype), p["gnorm"],
+                   cfg.norm_eps)
+    return y @ p["out_proj"]
+
+
 def _ffn(lp, cfg: ModelConfig, x):
     p = lp["mlp"]
     h = L.rms_norm(x, p["norm"], cfg.norm_eps)
@@ -215,26 +338,38 @@ def _run_blocks(params, cfg: ModelConfig, x, positions, lengths, cache,
                 plain: bool):
     """The JAX scan over blocks, as a loop.  With ``cache`` (from
     :func:`init_cache`, capacity >= S) each block's K/V is written into
-    slots ``0..S-1`` as it is produced."""
+    slots ``0..S-1``, and each Mamba block's final state and conv tail
+    into its entry, as they are produced."""
     S = x.shape[1]
+    valid = None if lengths is None else positions < lengths[:, None]
     for blk in range(cfg.n_blocks):
         bp = _index(params["blocks"], blk)
         for i, spec in enumerate(cfg.block_pattern):
             lp = bp[f"layer_{i}"]
-            out, (k, v) = _attn_full(lp["attn"], cfg, spec, x, positions,
-                                     lengths, plain)
+            entry = None if cache is None else cache[f"layer_{i}"]
+            if spec.mixer == "attn":
+                out, (k, v) = _attn_full(lp["attn"], cfg, spec, x, positions,
+                                         lengths, plain)
+                if entry is not None:
+                    entry["k"][blk, :, :S] = k
+                    entry["v"][blk, :, :S] = v
+            else:
+                out, (ssm, conv) = _mamba_full(lp["mamba"], cfg, x, valid,
+                                               plain)
+                if entry is not None:
+                    entry["ssm"][blk] = ssm
+                    entry["conv"][blk] = conv
             x = x + out
-            if cache is not None:
-                entry = cache[f"layer_{i}"]
-                entry["k"][blk, :, :S] = k
-                entry["v"][blk, :, :S] = v
-            x = x + _ffn(lp, cfg, x)
+            if spec.ffn == "mlp":
+                x = x + _ffn(lp, cfg, x)
     return x
 
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             plain_attention: bool = False):
-    """Returns (hidden (B,S,d), moe_aux_loss) for tokens (B, S)."""
+    """Returns (hidden (B,S,d), moe_aux_loss) for tokens (B, S).
+    ``plain_attention`` runs every mixer's plain layer (attention and
+    the SSD scan) instead of its kernel."""
     check_supported(cfg)
     x = params["embed"][tokens.long()]
     B, S = x.shape[:2]
@@ -267,21 +402,35 @@ def cache_capacity(cfg: ModelConfig, spec: LayerSpec, max_len: int) -> int:
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: DeviceLike = None) -> PyTree:
-    """Empty decode cache (zeros; slot_pos=-1 marks empty slots)."""
+    """Empty decode cache (zeros; slot_pos=-1 marks empty slots).  An
+    attention layer holds a K/V ring, a Mamba layer its conv tail (model
+    dtype) and SSM state (float32)."""
     check_supported(cfg)
     dev = resolve_device(device)
     dt = _dtype(cfg)
+    m = cfg.mamba
     n = cfg.n_blocks
     cache = {}
     for i, spec in enumerate(cfg.block_pattern):
-        cap = cache_capacity(cfg, spec, max_len)
-        shape = (n, batch, cap, cfg.n_kv_heads, cfg.head_dim)
-        cache[f"layer_{i}"] = {
-            "k": torch.zeros(shape, dtype=dt, device=dev),
-            "v": torch.zeros(shape, dtype=dt, device=dev),
-            "pos": torch.full((n, batch, cap), -1, dtype=torch.int32,
-                              device=dev),
-        }
+        if spec.mixer == "attn":
+            cap = cache_capacity(cfg, spec, max_len)
+            shape = (n, batch, cap, cfg.n_kv_heads, cfg.head_dim)
+            entry = {
+                "k": torch.zeros(shape, dtype=dt, device=dev),
+                "v": torch.zeros(shape, dtype=dt, device=dev),
+                "pos": torch.full((n, batch, cap), -1, dtype=torch.int32,
+                                  device=dev),
+            }
+        else:
+            conv_dim = m.d_inner(cfg.d_model) + 2 * m.d_state
+            entry = {
+                "conv": torch.zeros((n, batch, m.d_conv - 1, conv_dim),
+                                    dtype=dt, device=dev),
+                "ssm": torch.zeros((n, batch, m.n_heads(cfg.d_model),
+                                    m.head_dim, m.d_state),
+                                   dtype=torch.float32, device=dev),
+            }
+        cache[f"layer_{i}"] = entry
     return cache
 
 
@@ -292,12 +441,14 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 
     tokens (B, S) left-aligned, lengths (B,).  Returns (last_logits (B, V)
     float32, cache); ``max_len`` is the cache capacity (defaults to S).
+    ``plain_attention`` runs every mixer's plain layer (attention and the
+    SSD scan) instead of its kernel.
     """
     check_supported(cfg)
     B, S = tokens.shape
     max_len = max_len or S
     for spec in cfg.block_pattern:
-        if cache_capacity(cfg, spec, max_len) < S:
+        if spec.mixer == "attn" and cache_capacity(cfg, spec, max_len) < S:
             raise NotImplementedError(
                 "a ring cache smaller than the prompt (windowed configs) is "
                 "ROADMAP queue 1, item 7"
@@ -317,7 +468,8 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     # identity ring layout (cap >= S): slots >= S stay empty
     pos = torch.where(pos_row[None] < lengths[:, None], pos_row[None], -1)
     for entry in cache.values():
-        entry["pos"][:, :, :S] = pos.to(torch.int32)
+        if "pos" in entry:  # attention layers; Mamba entries have none
+            entry["pos"][:, :, :S] = pos.to(torch.int32)
     return logits, cache
 
 
@@ -334,10 +486,14 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         for i, spec in enumerate(cfg.block_pattern):
             lp = bp[f"layer_{i}"]
             entry = cache[f"layer_{i}"]
-            write_slot = q_pos % entry["k"].shape[2]
-            x = x + _attn_decode(lp["attn"], cfg, spec, x, entry, blk, q_pos,
-                                 write_slot, plain_attention)
-            x = x + _ffn(lp, cfg, x)
+            if spec.mixer == "attn":
+                write_slot = q_pos % entry["k"].shape[2]
+                x = x + _attn_decode(lp["attn"], cfg, spec, x, entry, blk,
+                                     q_pos, write_slot, plain_attention)
+            else:
+                x = x + _mamba_decode(lp["mamba"], cfg, x, entry, blk)
+            if spec.ffn == "mlp":
+                x = x + _ffn(lp, cfg, x)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return lm_logits(params, cfg, x), cache
 

@@ -7,8 +7,12 @@ forwards, on the card by default.  Two memory models, selected by
 
 * **dense** (``paged=False``): prefill runs B=1 with the prompt padded to
   a power-of-two bucket (clamped to ``max_len``) and hands a per-request
-  dense KV cache to the decode instance with the request; decode
-  scatters requests into slots of a ``slots × max_len`` ring cache.
+  dense cache to the decode instance with the request — a K/V ring per
+  attention layer, the conv tail and SSM state per Mamba2 layer; decode
+  scatters requests into slots of a ``slots × max_len`` cache and steps
+  every slot each iteration.  A recurrent state cannot roll back, so the
+  engine's contract that every resident request is in each decode batch
+  is what keeps a Mamba2 slot from stepping for a token it never got.
 * **paged** (``paged=True``): KV lives in a
   :class:`~repro_torch.serving.kvpool.KVPool` of fixed-size pages backed
   by one ``(pool_pages + 1, page_size, …)`` tensor set per layer
@@ -78,7 +82,8 @@ def _not_ported(tp: int) -> None:
 
 def _put_slot(dst_tree, src_tree, slot: int) -> None:
     """Write a B=1 cache (n_blocks, 1, ...) into ``slot`` of a batched
-    one (n_blocks, slots, ...), in place."""
+    one (n_blocks, slots, ...), in place: every leaf, K/V ring and Mamba2
+    state alike."""
     for name, entry in dst_tree.items():
         for key, dst in entry.items():
             dst[:, slot] = src_tree[name][key][:, 0]
@@ -146,9 +151,11 @@ class RealBackend(SimBackend):
             # worst case: every decode slot at max_len, plus in-flight
             # prefill tables and radix-shared prefix pages
             self.pool_pages = pool_pages or (2 * slots + 8) * self.max_pages
-            self.pool = KVPool(self.pool_pages, page_size)
+            # the cache first: it rejects recurrent (Mamba) and int8-KV
+            # configs before a pool exists
             self.kvcache = M.init_paged_cache(cfg, self.pool_pages,
                                               page_size, self.device)
+            self.pool = KVPool(self.pool_pages, page_size)
             self.block_tables = np.full((slots, self.max_pages), -1,
                                         np.int32)
             self.table_of: Dict[int, BlockTable] = {}  # rid -> table

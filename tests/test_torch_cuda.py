@@ -1,7 +1,7 @@
 """The port on the card: each Hopper kernel against its plain PyTorch
-version, the model's kernel path against its plain-attention path, and
-served clusters (dense, and paged with speculation) that launch every
-kernel.
+version, the model's kernel path against its plain path, and served
+clusters (dense llama, paged with speculation, dense Mamba2) that launch
+every kernel.
 
 Every test here needs a CUDA card (marker ``cuda``) and skips without
 one.  The file imports no JAX, so it also runs on a machine without it:
@@ -9,6 +9,7 @@ one.  The file imports no JAX, so it also runs on a machine without it:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
 import dataclasses
+import math
 
 import pytest
 import torch
@@ -28,17 +29,23 @@ from repro_torch.kernels.decode_attention.ref import (
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention import ops as fops
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.ssd import ssd_ref, ssd_scan
+from repro_torch.kernels.ssd import ops as sops
 from repro_torch.models import model as TM
 from repro_torch.serving import ClusterConfig, PDCluster, poisson_workload
 from repro_torch.serving.cluster import build_predictor
 from repro_torch.serving.realengine import (
+    _bucket,
     make_draft_config,
     make_real_backend_factory,
 )
 from repro_torch.serving.request import Request
 from repro_torch.serving.workload import DatasetDist, LengthDist, attach_tokens
+from _mamba_weights import live_state
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # tests/test_kernels.py:18
+# the SSD scan's, scale-normalised (tests/test_kernels.py:256)
+SSD_TOL = {"float32": 1e-5, "bfloat16": 3e-2}
 pytestmark = pytest.mark.cuda
 
 
@@ -356,3 +363,203 @@ def test_served_paged_and_spec_clusters_launch_their_kernels(card):
             assert dops.paged_launches.get(3, 0) > 0
         else:
             assert dops.paged_launches.get(1, 0) > 0
+
+
+# ---------------------------------------------------------------------------
+# SSD chunked scan and the Mamba2 model
+# ---------------------------------------------------------------------------
+
+
+def _ssd_inputs(card, dtype, B, S, H, P, N, seed, law=False):
+    """tests/test_kernels.py:244-249 on the card: x, B and C in the
+    working dtype, dt post-softplus and A negative in float32 (about 0.7
+    and -1: a memory of about 2 tokens), or with ``law`` drawn as the
+    model draws them (``_model_law``)."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    dt_ = getattr(torch, dtype)
+    x = torch.randn((B, S, H, P), generator=g, device=card).to(dt_)
+    dt = torch.nn.functional.softplus(
+        torch.randn((B, S, H), generator=g, device=card))
+    A = -torch.exp(torch.randn((H,), generator=g, device=card) * 0.3)
+    Bm = (torch.randn((B, S, N), generator=g, device=card) * 0.3).to(dt_)
+    Cm = (torch.randn((B, S, N), generator=g, device=card) * 0.3).to(dt_)
+    if law:
+        dt, A = _model_law(card, g, B, S, H)
+    return x, dt, A, Bm, Cm
+
+
+def _model_law(card, g, B, S, H):
+    """dt and A drawn as the model makes them (``init_params``'s law):
+    dt = softplus(dt_raw + dt_bias) with softplus(dt_bias) log-uniform in
+    [1e-3, 0.1], and -A uniform in [1, 16].  The state then remembers up
+    to about 1000 tokens, across every sub-chunk and chunk boundary."""
+    u = torch.rand((H,), generator=g, device=card)
+    dt0 = torch.exp(u * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3))
+    dt_bias = dt0 + torch.log(-torch.expm1(-dt0))
+    dt_raw = 0.1 * torch.randn((B, S, H), generator=g, device=card)
+    dt = torch.nn.functional.softplus(dt_raw + dt_bias)
+    A = -(1.0 + 15.0 * torch.rand((H,), generator=g, device=card))
+    return dt, A
+
+
+def _ssd_close(got, want, dtype):
+    scale = float(want.float().abs().max()) + 1e-9
+    err = float((got.float() - want.float()).abs().max()) / scale
+    assert err <= SSD_TOL[dtype], f"scale-normalised error {err}"
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,P,N,chunk,law", [
+    (2, 256, 4, 64, 128, 64, False),
+    (1, 512, 8, 32, 64, 128, False),
+    (2, 128, 2, 64, 32, 128, False),
+    (1, 96, 4, 16, 16, 32, False),  # the reduced config's head, state dims
+    (1, 512, 80, 64, 128, 256, False),  # mamba2-2.7b's prefill at S=512
+    # the same with the model's dt and A: the carry crosses every
+    # sub-chunk and chunk, so a fault there shows in y and the state
+    (1, 512, 80, 64, 128, 256, True),
+])
+def test_ssd_kernel_matches_plain(card, dtype, B, S, H, P, N, chunk, law):
+    x, dt, A, Bm, Cm = _ssd_inputs(card, dtype, B, S, H, P, N, seed=S + N,
+                                   law=law)
+    n0 = sops.launches
+    y, st = ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
+    torch.cuda.synchronize()
+    assert sops.launches == n0 + 1
+    assert y.dtype == x.dtype and st.dtype == torch.float32
+    yr, sr = ssd_ref(x, dt, A, Bm, Cm)
+    _ssd_close(y, yr, dtype)
+    _ssd_close(st, sr, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_kernel_reads_model_slices_and_pad_tails(card, dtype):
+    """x, B and C as slices of one (B, S, conv_dim) tensor, as the model
+    passes them, with x = dt = 0 past each row's length: the final state
+    is the state after the last valid token."""
+    Bsz, S, H, P, N = 2, 192, 4, 32, 64
+    g = torch.Generator(device=card).manual_seed(7)
+    di = H * P
+    xbc = torch.randn((Bsz, S, di + 2 * N), generator=g,
+                      device=card).to(getattr(torch, dtype))
+    lengths = torch.tensor([S, 77], device=card)
+    valid = torch.arange(S, device=card)[None] < lengths[:, None]
+    xbc = xbc * valid[..., None].to(xbc.dtype)
+    xs = xbc[..., :di].reshape(Bsz, S, H, P)
+    Bm, Cm = xbc[..., di: di + N] * 0.3, xbc[..., di + N:] * 0.3
+    dt = torch.nn.functional.softplus(
+        torch.randn((Bsz, S, H), generator=g, device=card)) * valid[..., None]
+    A = -torch.exp(torch.randn((H,), generator=g, device=card) * 0.3)
+    y, st = ssd_scan(xs, dt, A, Bm, Cm, chunk=64)
+    yr, sr = ssd_ref(xs, dt, A, Bm, Cm)
+    _ssd_close(y, yr, dtype)
+    _ssd_close(st, sr, dtype)
+    n = 77
+    _, s_short = ssd_ref(xs[1:, :n], dt[1:, :n], A, Bm[1:, :n], Cm[1:, :n])
+    _ssd_close(st[1:], s_short, dtype)
+
+
+def test_ssd_wrapper_rejects_what_the_kernel_does_not_take(card):
+    x, dt, A, Bm, Cm = _ssd_inputs(card, "float32", 1, 64, 2, 24, 16, 0)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        ssd_scan(x, dt, A, Bm, Cm)
+    x, dt, A, Bm, Cm = _ssd_inputs(card, "float32", 1, 64, 2, 16, 48, 0)
+    with pytest.raises(ValueError, match="state dim"):
+        ssd_scan(x, dt, A, Bm, Cm)
+    x, dt, A, Bm, Cm = _ssd_inputs(card, "float32", 1, 64, 2, 16, 16, 0)
+    with pytest.raises(TypeError, match="float32"):
+        ssd_scan(x, dt.to(torch.bfloat16), A, Bm, Cm)
+    with pytest.raises(ValueError, match="chunk must divide"):
+        ssd_scan(x, dt, A, Bm, Cm, chunk=48)
+
+
+def test_mamba_model_kernel_path_matches_plain_path(card):
+    """Reduced mamba2 in float32 on the card, with weights under which the
+    state reaches the logits (``live_state``): prefill through the
+    ssd_scan kernel agrees with the plain ``L.ssd_chunked`` path, in
+    logits and in the recurrent cache (scale-normalised), then 8 decode
+    steps agree."""
+    cfg = dataclasses.replace(REGISTRY["mamba2-2.7b"].reduced(),
+                              dtype="float32")
+    params = live_state(TM.init_params(
+        cfg, torch.Generator(device=card).manual_seed(0), device=card), cfg)
+    toks = torch.randint(0, cfg.vocab_size, (2, 64), device=card,
+                         generator=torch.Generator(device=card).manual_seed(1))
+    lengths = torch.tensor([64, 30], dtype=torch.int32, device=card)
+    n0 = sops.launches
+    lk, ck = TM.prefill(params, cfg, toks, lengths, max_len=128)
+    assert sops.launches == n0 + cfg.n_blocks
+    lp, cp = TM.prefill(params, cfg, toks, lengths, max_len=128,
+                        plain_attention=True)
+    torch.testing.assert_close(lk, lp, atol=1e-4, rtol=1e-4)
+    for key in ("ssm", "conv"):
+        assert float(cp["layer_0"][key].abs().max()) > 0.1, key
+        _ssd_close(ck["layer_0"][key], cp["layer_0"][key], "float32")
+    tok, pos = lk.argmax(-1).to(torch.int32), lengths.clone()
+    for _ in range(8):
+        lk, ck = TM.decode_step(params, cfg, tok, ck, pos)
+        lp, cp = TM.decode_step(params, cfg, tok, cp, pos,
+                                plain_attention=True)
+        torch.testing.assert_close(lk, lp, atol=1e-4, rtol=1e-4)
+        tok, pos = lk.argmax(-1).to(torch.int32), pos + 1
+
+
+def test_served_mamba_cluster_launches_ssd_scan_and_replays(card):
+    """Reduced mamba2 in bf16 through the dense P/D cluster: ssd_scan
+    launches once per block per real prefill, no attention kernel runs,
+    and each stream replays through the plain path within 0.05 of its
+    max logit (the reduced model's margin in the CPU tests).  The weights
+    are ``live_state``'s, so the replay sees the handed-over state."""
+    base = REGISTRY["mamba2-2.7b"]
+    cfg = dataclasses.replace(base.reduced(), dtype="bfloat16")
+    params = live_state(TM.init_params(
+        cfg, torch.Generator(device=card).manual_seed(0), device=card), cfg)
+    reqs = attach_tokens(poisson_workload(
+        DatasetDist("tiny", LengthDist(24.0, 10.0, hi=60),
+                    LengthDist(6.0, 3.0, hi=12)), 2.0, 4.0, seed=3),
+        cfg.vocab_size, seed=4)
+    pred = build_predictor(base, A100, A100.freq_levels_2, kv_cap=400_000)
+    prefills = []
+    base_factory = make_real_backend_factory(cfg, params, slots=8,
+                                             max_len=128)
+
+    def factory(kind, idx, hw, seed, tp=None):
+        be = base_factory(kind, idx, hw, seed, tp=tp)
+        inner = be._real_prefill
+
+        def counted(r):
+            prefills.append(r.rid)
+            return inner(r)
+
+        be._real_prefill = counted
+        return be
+
+    fops.launches = dops.launches = sops.launches = 0
+    dops.paged_launches.clear()
+    m = PDCluster(ClusterConfig(
+        model=base, chip=A100, n_prefill=1, n_decode=2, policy="voltana",
+        predictor=pred, kv_capacity_tokens=400_000, online_adapt=False,
+        decode_max_running=8, seed=2, backend_factory=factory,
+    )).run(reqs)
+    assert m.finished_frac() == 1.0
+    assert sops.launches == cfg.n_blocks * len(prefills) > 0
+    assert fops.launches == dops.launches == 0 and not dops.paged_launches
+    for r in reqs:
+        assert len(r.output_tokens) == r.decode_len + 1
+        assert all(0 <= t < cfg.vocab_size for t in r.output_tokens)
+    for r in reqs[:4]:
+        n = len(r.prompt_tokens)
+        buf = torch.zeros((1, _bucket(n, hi=128)), dtype=torch.int32,
+                          device=card)
+        buf[0, :n] = torch.tensor(r.prompt_tokens, device=card)
+        logits, cache = TM.prefill(
+            params, cfg, buf, torch.tensor([n], device=card), max_len=128,
+            plain_attention=True)
+        pos = torch.tensor([n], device=card)
+        for i, tok in enumerate(r.output_tokens):
+            row = logits[0].double()
+            assert float(row.max() - row[tok]) <= 0.05, (r.rid, i)
+            logits, cache = TM.decode_step(
+                params, cfg, torch.tensor([tok], device=card), cache, pos,
+                plain_attention=True)
+            pos = pos + 1

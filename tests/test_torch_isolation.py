@@ -59,6 +59,7 @@ def test_port_imports_with_jax_and_repro_blocked():
         "import repro_torch.serving.realengine, repro_torch.kernels._build\n"
         "import repro_torch.kernels.flash_attention\n"
         "import repro_torch.kernels.decode_attention\n"
+        "import repro_torch.kernels.ssd\n"
         "print('ok')\n"
     )
     env = dict(os.environ)

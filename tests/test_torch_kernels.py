@@ -29,10 +29,16 @@ from repro_torch.kernels.decode_attention import (
     paged_verify_attention,
 )
 from repro_torch.kernels.decode_attention import ops as dops
+from repro.kernels.ssd import ssd_ref as jax_ssd_ref
+from repro.kernels.ssd import ssd_scan as pallas_ssd
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention import ops as fops
+from repro_torch.kernels.ssd import ssd_ref, ssd_scan
+from repro_torch.kernels.ssd import ops as sops
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # tests/test_kernels.py:18
+# the SSD scan's tolerances, scale-normalised (tests/test_kernels.py:256)
+SSD_TOL = {"float32": 1e-5, "bfloat16": 3e-2}
 
 
 def _pair(x, dtype):
@@ -384,3 +390,94 @@ def test_paged_wrapper_rejects_mismatched_tables():
         paged_verify_attention(q, pool[..., :8], pool[..., :8],
                                torch.zeros((2, 2), dtype=torch.int32),
                                torch.zeros(2, dtype=torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# SSD chunked scan
+# ---------------------------------------------------------------------------
+
+
+def _ssd_inputs(rng, B, S, H, P, N, dtype):
+    """tests/test_kernels.py:244-249, drawn with numpy: x, B and C in the
+    working dtype, dt (post-softplus) and A (negative) in float32."""
+    x = _pair(rng.normal(size=(B, S, H, P)), dtype)
+    dt = np.log1p(np.exp(rng.normal(size=(B, S, H)))).astype(np.float32)
+    A = (-np.exp(rng.normal(size=(H,)) * 0.3)).astype(np.float32)
+    Bm = _pair(rng.normal(size=(B, S, N)) * 0.3, dtype)
+    Cm = _pair(rng.normal(size=(B, S, N)) * 0.3, dtype)
+    return (x, _pair(dt, "float32"), _pair(A, "float32"), Bm, Cm)
+
+
+def _close_scaled(want, got, dtype):
+    """Scale-normalised agreement, as tests/test_kernels.py:256-262."""
+    want = np.asarray(want, np.float32)
+    scale = float(np.abs(want).max()) + 1e-9
+    np.testing.assert_allclose(got.float().numpy() / scale, want / scale,
+                               atol=SSD_TOL[dtype])
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk", [
+    (2, 256, 4, 64, 128, 64),
+    (1, 512, 8, 32, 64, 128),
+    (2, 128, 2, 64, 32, 128),  # chunk == S
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_wrapper_matches_jax_ref_and_pallas(B, S, H, P, N, chunk, dtype):
+    """The sweep of tests/test_kernels.py:237-262: the wrapper (the token
+    recurrence on CPU) against the JAX ``ssd_ref`` and the Pallas kernel
+    in interpret mode, y and the final state."""
+    rng = np.random.default_rng(3)
+    (xj, xt), (dj, dtt), (aj, at), (bj, bt), (cj, ct) = _ssd_inputs(
+        rng, B, S, H, P, N, dtype)
+    n0 = sops.launches
+    y, st = ssd_scan(xt, dtt, at, bt, ct, chunk=chunk)
+    assert sops.launches == n0  # the CPU path launches nothing
+    assert y.dtype == xt.dtype and y.shape == xt.shape
+    assert st.dtype == torch.float32 and st.shape == (B, H, P, N)
+    yr, sr = jax_ssd_ref(xj, dj, aj, bj, cj)
+    _close_scaled(yr, y, dtype)
+    _close_scaled(sr, st, dtype)
+    yp, sp = pallas_ssd(xj, dj, aj, bj, cj, chunk=chunk)
+    _close_scaled(yp, y, dtype)
+    _close_scaled(sp, st, dtype)
+
+
+def test_ssd_wrapper_keeps_the_pallas_contract():
+    """``chunk = min(chunk, S)`` must divide S (ValueError, where the
+    Pallas wrapper asserts); a short sequence takes one chunk."""
+    rng = np.random.default_rng(4)
+    args = [t for _, t in _ssd_inputs(rng, 1, 96, 2, 16, 16, "float32")]
+    with pytest.raises(ValueError, match="chunk must divide"):
+        ssd_scan(*args, chunk=64)
+    y, st = ssd_scan(*args, chunk=256)  # chunk becomes S
+    yr, sr = ssd_ref(*args)
+    torch.testing.assert_close(y, yr, atol=0, rtol=0)
+    torch.testing.assert_close(st, sr, atol=0, rtol=0)
+    with pytest.raises(ValueError, match="does not match"):
+        ssd_scan(args[0], args[1][:, :, :1], *args[2:])
+
+
+def test_ssd_wrapper_never_falls_back_off_the_cpu():
+    x = torch.zeros((1, 16, 2, 16), device="meta")
+    dt = torch.zeros((1, 16, 2), device="meta")
+    A = torch.zeros((2,), device="meta")
+    Bm = torch.zeros((1, 16, 16), device="meta")
+    with pytest.raises(ValueError, match="no ssd_scan"):
+        ssd_scan(x, dt, A, Bm, Bm)
+
+
+def test_ssd_pad_tail_leaves_the_state_of_the_last_valid_token():
+    """The model's prefill zeroes x and dt past each row's length: the
+    final state is the state after the last valid token, and the valid
+    rows of y are unchanged."""
+    rng = np.random.default_rng(5)
+    (xj, xt), (dj, dtt), (aj, at), (bj, bt), (cj, ct) = _ssd_inputs(
+        rng, 1, 128, 4, 32, 64, "float32")
+    n = 77
+    xp, dp = xt.clone(), dtt.clone()
+    xp[:, n:] = 0
+    dp[:, n:] = 0
+    y, st = ssd_scan(xp, dp, at, bt, ct, chunk=64)
+    yr, sr = jax_ssd_ref(xj[:, :n], dj[:, :n], aj, bj[:, :n], cj[:, :n])
+    _close_scaled(yr, y[:, :n], "float32")
+    _close_scaled(sr, st, "float32")

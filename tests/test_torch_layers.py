@@ -144,3 +144,93 @@ def test_glu_mlp(dtype, act):
     out_j = JL.glu_mlp(xj, *(w[0] for w in ws), act)
     out_t = TL.glu_mlp(xt, *(w[1] for w in ws), act)
     _close(out_j, out_t, dtype)
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 (SSD) mixer layers
+# ---------------------------------------------------------------------------
+
+
+def _ssd(rng, B, S, H, P, N, dtype):
+    x = _pair(rng.normal(size=(B, S, H, P)), dtype)
+    dt = _pair(np.log1p(np.exp(rng.normal(size=(B, S, H)))), "float32")
+    A = _pair(-np.exp(rng.normal(size=(H,)) * 0.3), "float32")
+    Bm = _pair(rng.normal(size=(B, S, N)) * 0.3, dtype)
+    Cm = _pair(rng.normal(size=(B, S, N)) * 0.3, dtype)
+    return x, dt, A, Bm, Cm
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("with_state", [False, True], ids=["zero", "init"])
+def test_ssd_chunked(dtype, with_state):
+    """The loop over chunks against the JAX associative scan, with and
+    without a carried-in state.  Float32 to 2e-5 of the output's scale
+    (the chunk states sum in another order); bf16 to the bf16 rounding of
+    y."""
+    rng = np.random.default_rng(7)
+    B, S, H, P, N, chunk = 2, 96, 3, 16, 8, 32
+    args = _ssd(rng, B, S, H, P, N, dtype)
+    kw_j, kw_t = {}, {}
+    if with_state:
+        sj, st = _pair(rng.normal(size=(B, H, P, N)), "float32")
+        kw_j, kw_t = dict(init_state=sj), dict(init_state=st)
+    yj, fj = JL.ssd_chunked(*(a[0] for a in args), chunk=chunk, **kw_j)
+    yt, ft = TL.ssd_chunked(*(a[1] for a in args), chunk=chunk, **kw_t)
+    assert yt.dtype == args[0][1].dtype and ft.dtype == torch.float32
+    scale = float(np.abs(np.asarray(yj, np.float32)).max())
+    _close(yj, yt, dtype, scale=scale)
+    _close(fj, ft, "float32", scale=float(np.abs(np.asarray(fj)).max()))
+    with pytest.raises(ValueError, match="chunk must divide"):
+        TL.ssd_chunked(*(a[1] for a in args), chunk=64)
+
+
+def test_ssd_chunked_is_the_token_recurrence():
+    """Chunking is exact algebra: the layer equals the port's token
+    recurrence (the kernel's plain version) from a zero state."""
+    from repro_torch.kernels.ssd import ssd_ref
+
+    rng = np.random.default_rng(8)
+    args = [a[1] for a in _ssd(rng, 2, 128, 4, 16, 16, "float32")]
+    y, st = TL.ssd_chunked(*args, chunk=32)
+    yr, sr = ssd_ref(*args)
+    torch.testing.assert_close(y, yr, atol=2e-5, rtol=2e-5)
+    torch.testing.assert_close(st, sr, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ssd_decode_step(dtype):
+    rng = np.random.default_rng(9)
+    B, H, P, N = 3, 4, 16, 8
+    xj, xt = _pair(rng.normal(size=(B, H, P)), dtype)
+    dj, dt = _pair(np.log1p(np.exp(rng.normal(size=(B, H)))), "float32")
+    aj, at = _pair(-np.exp(rng.normal(size=(H,)) * 0.3), "float32")
+    bj, bt = _pair(rng.normal(size=(B, N)) * 0.3, dtype)
+    cj, ct = _pair(rng.normal(size=(B, N)) * 0.3, dtype)
+    sj, st = _pair(rng.normal(size=(B, H, P, N)), "float32")
+    yj, nj = JL.ssd_decode_step(xj, dj, aj, bj, cj, sj)
+    yt, nt = TL.ssd_decode_step(xt, dt, at, bt, ct, st)
+    assert yt.dtype == xt.dtype and nt.dtype == torch.float32
+    _close(yj, yt, dtype, scale=10)  # |y| is a few units
+    _close(nj, nt, "float32")
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_causal_conv1d_and_conv_step(dtype):
+    """The full-sequence conv against JAX, and the decode-time step: fed
+    the sequence token by token from a zero state, it reproduces the
+    full conv and leaves the last K-1 inputs as its state."""
+    rng = np.random.default_rng(10)
+    B, S, D, K = 2, 9, 24, 4
+    xj, xt = _pair(rng.normal(size=(B, S, D)), dtype)
+    wj, wt = _pair(rng.normal(size=(D, K)) * 0.5, dtype)
+    full_t = TL.causal_conv1d(xt, wt)
+    _close(JL.causal_conv1d(xj, wj), full_t, dtype)
+    state_j = jnp.zeros((B, K - 1, D), xj.dtype)
+    state_t = torch.zeros((B, K - 1, D), dtype=xt.dtype)
+    for t in range(S):
+        yj, state_j = JL.conv_step(xj[:, t], state_j, wj)
+        yt, state_t = TL.conv_step(xt[:, t], state_t, wt)
+        _close(yj, yt, dtype)
+        _close(state_j, state_t, dtype)
+        torch.testing.assert_close(yt, full_t[:, t], atol=0, rtol=0)
+    torch.testing.assert_close(state_t, xt[:, S - K + 1:], atol=0, rtol=0)

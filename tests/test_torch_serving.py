@@ -43,6 +43,7 @@ from repro_torch.models import model as TM
 from repro_torch.models.bridge import params_from_jax
 from repro_torch.serving import jitcache
 from repro_torch.serving.cluster import build_predictor as t_build_predictor
+from _port_parity import assert_same_run, replay_near_argmax
 from repro_torch.serving.realengine import (
     RealBackend,
     _bucket,
@@ -137,34 +138,6 @@ def _reqs_for(side, scenario):
     return _workload(side, tiered="tiered" in scenario)
 
 
-def _assert_same_run(reqs_a, m_a, reqs_b, m_b, streams=True):
-    """Everything the control plane computes, compared bit for bit (stream
-    lengths too, unless one side is the token-less Sim backend)."""
-    assert len(reqs_a) == len(reqs_b)
-    for a, b in zip(reqs_a, reqs_b):
-        assert a.rid == b.rid
-        assert a.t_prefill_start == b.t_prefill_start
-        assert a.t_first_token == b.t_first_token
-        assert a.t_join_decode == b.t_join_decode
-        assert a.t_finish == b.t_finish
-        assert a.max_itl_s == b.max_itl_s
-        assert a.prefill_instance == b.prefill_instance
-        assert a.decode_instance == b.decode_instance
-        assert a.preemptions == b.preemptions
-        assert a.restarts == b.restarts
-        if streams:
-            assert len(a.output_tokens) == len(b.output_tokens)
-    assert [e.name for e in m_a.instances] == [e.name for e in m_b.instances]
-    for ea, eb in zip(m_a.instances, m_b.instances):
-        assert ea.busy_j == eb.busy_j and ea.busy_s == eb.busy_s
-    assert m_a.energy_j() == m_b.energy_j()
-    # compile telemetry is per backend, not a control-plane output
-    sa, sb = m_a.summary(), m_b.summary()
-    sa.pop("recompiles", None)
-    sb.pop("recompiles", None)
-    assert sa == sb
-
-
 # ---------------------------------------------------------------------------
 # (a) the copied control plane
 # ---------------------------------------------------------------------------
@@ -184,37 +157,12 @@ def test_control_plane_copy_is_bit_exact(jax_side, torch_side, scenario):
     assert ma.finished_frac() == 1.0
     if scenario == "pressure":
         assert ma.preemptions_total() > 0, "scenario never preempted"
-    _assert_same_run(ra, ma, rb, mb)
+    assert_same_run(ra, ma, rb, mb)
 
 
 # ---------------------------------------------------------------------------
 # (b) torch real cluster == JAX real cluster
 # ---------------------------------------------------------------------------
-
-
-def _replay_near_argmax(jax_side, reqs, margin=0.05):
-    """Each emitted token's reference logit (JAX model, same weights)
-    lies within ``margin`` of the reference max."""
-    rc, params = jax_side.rc, jax_side.params
-    prefill = jax.jit(partial(M.prefill, cfg=rc, max_len=MAX_LEN))
-    decode = jax.jit(partial(M.decode_step, cfg=rc))
-    for r in reqs:
-        toks = jnp.asarray(r.prompt_tokens, jnp.int32)[None]
-        pad = _bucket(toks.shape[1], hi=MAX_LEN)
-        buf = jnp.zeros((1, pad), jnp.int32).at[:, : toks.shape[1]].set(toks)
-        logits, cache = prefill(params, tokens=buf,
-                                lengths=jnp.asarray([toks.shape[1]],
-                                                    jnp.int32))
-        pos = jnp.asarray([toks.shape[1]], jnp.int32)
-        for i, tok in enumerate(r.output_tokens):
-            row = np.asarray(logits[0], np.float64)
-            assert row[tok] >= row.max() - margin, (
-                f"rid {r.rid} token {i}: id {tok} has reference logit "
-                f"{row[tok]:.4f} vs max {row.max():.4f}")
-            logits, cache = decode(params, tokens=jnp.asarray([tok],
-                                                              jnp.int32),
-                                   cache=cache, lengths=pos)
-            pos = pos + 1
 
 
 @pytest.mark.parametrize("scenario", ["plain-pd", "chunked-pd",
@@ -231,9 +179,9 @@ def test_torch_real_cluster_matches_jax_real_cluster(jax_side, torch_side,
             assert len(r.output_tokens) == r.decode_len + 1
         runs.append((reqs, m))
     (ra, ma), (rb, mb) = runs
-    _assert_same_run(ra, ma, rb, mb)
+    assert_same_run(ra, ma, rb, mb)
     if scenario == "plain-pd":
-        _replay_near_argmax(jax_side, rb[:6])
+        replay_near_argmax(jax_side.rc, jax_side.params, rb[:6], MAX_LEN)
 
 
 # ---------------------------------------------------------------------------
@@ -274,7 +222,7 @@ def test_pipeline_depth_emits_identical_streams(torch_side, depth):
             backend_factory=side.factory(pipeline_depth=d))).run(reqs)
         runs.append((reqs, m))
     (ra, ma), (rb, mb) = runs
-    _assert_same_run(ra, ma, rb, mb)
+    assert_same_run(ra, ma, rb, mb)
     assert [r.output_tokens for r in ra] == [r.output_tokens for r in rb]
 
 
@@ -294,7 +242,7 @@ def test_dense_preemption_resume(torch_side):
     m_real = side.pkg.PDCluster(_cluster_cfg(
         side, "pressure", backend_factory=side.factory())).run(reqs_real)
     assert m_sim.preemptions_total() > 0, "scenario never preempted"
-    _assert_same_run(reqs_sim, m_sim, reqs_real, m_real, streams=False)
+    assert_same_run(reqs_sim, m_sim, reqs_real, m_real, streams=False)
     for r in reqs_real:
         assert len(r.output_tokens) == r.decode_len + 1
 
@@ -512,8 +460,8 @@ def test_torch_paged_real_cluster_matches_jax(jax_side, torch_side):
             assert len(r.output_tokens) == r.decode_len + 1
         runs.append((reqs, m))
     (ra, ma), (rb, mb) = runs
-    _assert_same_run(ra, ma, rb, mb)
-    _replay_near_argmax(jax_side, rb[:6])
+    assert_same_run(ra, ma, rb, mb)
+    replay_near_argmax(jax_side.rc, jax_side.params, rb[:6], MAX_LEN)
 
 
 def test_torch_spec_real_cluster_matches_jax(jax_side, torch_side, spec):
@@ -535,7 +483,7 @@ def test_torch_spec_real_cluster_matches_jax(jax_side, torch_side, spec):
             e.backend.pool.assert_empty()
         runs.append((reqs, m, log))
     (ra, ma, la), (rb, mb, lb) = runs
-    _assert_same_run(ra, ma, rb, mb)
+    assert_same_run(ra, ma, rb, mb)
     for a, b in zip(ra, rb):
         assert (a.spec_iters, a.spec_accepted) == (b.spec_iters,
                                                    b.spec_accepted)
@@ -552,7 +500,7 @@ def test_sim_and_real_agree_through_speculation(torch_side, spec):
         side, sp, backend_factory=side.factory(**_spec_kw(sp))))
     m_real = cl.run(reqs_real)
     assert m_sim.spec_iterations() > 0
-    _assert_same_run(reqs_sim, m_sim, reqs_real, m_real, streams=False)
+    assert_same_run(reqs_sim, m_sim, reqs_real, m_real, streams=False)
     for rs, rr in zip(reqs_sim, reqs_real):
         assert (rs.spec_iters, rs.spec_accepted) == (rr.spec_iters,
                                                      rr.spec_accepted)
@@ -617,7 +565,7 @@ def test_paged_preemption_resume(torch_side):
         backend_factory=side.factory(paged=True, page_size=16)))
     m_real = cl.run(reqs_real)
     assert m_sim.preemptions_total() > 0, "scenario never preempted"
-    _assert_same_run(reqs_sim, m_sim, reqs_real, m_real, streams=False)
+    assert_same_run(reqs_sim, m_sim, reqs_real, m_real, streams=False)
     for r in reqs_real:
         assert len(r.output_tokens) == r.decode_len + 1
     for e in cl.decode:
@@ -684,9 +632,9 @@ def test_paged_multiturn_prefix_reuse(jax_side, torch_side):
         cl.decode[0].backend.pool.assert_empty()
         runs.append((reqs, m, (pb.reused_tokens, pb.computed_tokens)))
     (ra, ma, ca), (rb, mb, cb) = runs
-    _assert_same_run(ra, ma, rb, mb)
+    assert_same_run(ra, ma, rb, mb)
     assert ca == cb
-    _replay_near_argmax(jax_side, rb)
+    replay_near_argmax(jax_side.rc, jax_side.params, rb, MAX_LEN)
 
 
 def test_paged_prefill_failure_releases_stashed_pages(torch_side):
