@@ -34,7 +34,17 @@ Phases, in order; any failure exits non-zero:
    prefill and no attention kernel, one stream replayed through the
    plain ``L.ssd_chunked`` path, and that stream's prefill state, every
    layer, held against the plain path's: on the served weights, and
-   with x/B/C rescaled so that the scan dominates the mixer's output.
+   with x/B/C rescaled so that the scan dominates the mixer's output;
+9. with Mamba2 freed, a world of ``MESH_TP`` = 2 ranks spawned on the one
+   card (gloo: NCCL refuses two ranks on one device), every rank holding
+   its shards of llama-3.1-8b at full width and depth (the phase 4
+   weights, cut as they are drawn).  Each rank holds the three
+   head-sharded decode-attention wrappers against their plain versions
+   on the full tensors, then serves through a tp=2 P/D cluster (one
+   prefill and one decode instance on the same two ranks) dense, paged
+   and speculative, as phases 4, 6 and 7; both ranks must emit the same
+   streams, and the parent replays one stream per serve through the
+   meshless plain path.
 
 It prints the ``kernels`` JSON line and, last, the device line.  TTFT,
 ITL and energy come from the control plane's virtual clock (an A100
@@ -52,6 +62,7 @@ import sys
 import time
 from functools import partial
 from pathlib import Path
+from types import SimpleNamespace
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
@@ -84,6 +95,8 @@ SPEC_K = 2  # draft proposals per verify pass: T = SPEC_K + 1
 PAGE_SIZE = 16
 PMAX = MAX_LEN // PAGE_SIZE
 POOL_PAGES = (2 * SLOTS + 8) * PMAX  # the backend's default pool
+MESH_TP = 2  # phase 9: ranks of the world, each instance's slice width
+MESH_TIMEOUT_S = 600.0  # the parent's wait for the phase 9 world
 
 
 def check(cond: bool, msg: str) -> None:
@@ -496,11 +509,17 @@ def kernel_phase(torch, F):
         flash_rows.append(flash_case(
             torch, F, 1, 512, dtype=dtype, kv_frac=2 / 3, window=None,
             softcap=None, timed=False, **drafter))
-    decode_rows = []
+    # one rank's shard of llama at tp=2 (phase 9)
+    shard = dict(Hq=llama["Hq"] // MESH_TP, Hkv=llama["Hkv"] // MESH_TP,
+                 Dh=llama["Dh"])
+    decode_rows, decode_shard_rows = [], []
     for dtype in ("bfloat16", "float32"):
         decode_rows.append(decode_case(
             torch, F, SLOTS, MAX_LEN, dtype=dtype, window=None, softcap=None,
             timed=(dtype == "bfloat16"), **llama))
+        decode_shard_rows.append(decode_case(
+            torch, F, SLOTS, MAX_LEN, dtype=dtype, window=None, softcap=None,
+            timed=(dtype == "bfloat16"), **shard))
         decode_rows.append(decode_case(
             torch, F, 3, 256, 8, 2, 64, dtype=dtype, window=48, softcap=30.0,
             timed=False))
@@ -510,11 +529,15 @@ def kernel_phase(torch, F):
     # ragged rows: full, page boundaries, short, and one empty slot
     lengths = [1024, 700, 513, 512, 300, 17, SPEC_K + 2, 0]
     paged_rows = {1: [], SPEC_K + 1: []}
+    paged_shard_rows = {1: [], SPEC_K + 1: []}
     for dtype in ("bfloat16", "float32"):
         for T in paged_rows:
             paged_rows[T].append(paged_case(
                 torch, F, SLOTS, T, lengths=lengths, dtype=dtype, window=None,
                 softcap=None, timed=dtype == "bfloat16", **llama))
+            paged_shard_rows[T].append(paged_case(
+                torch, F, SLOTS, T, lengths=lengths, dtype=dtype, window=None,
+                softcap=None, timed=dtype == "bfloat16", **shard))
             paged_rows[T].append(paged_case(
                 torch, F, 3, T, 8, 2, 64, [40, 0, 17], dtype=dtype,
                 window=24, softcap=30.0, timed=False, Pmax=4, pool_pages=24))
@@ -539,7 +562,10 @@ def kernel_phase(torch, F):
                                  timed=False, **mamba))
     rows = {"flash_prefill": flash_rows, "ring_decode": decode_rows,
             "paged_decode": paged_rows[1],
-            "paged_verify": paged_rows[SPEC_K + 1], "ssd_scan": ssd_rows}
+            "paged_verify": paged_rows[SPEC_K + 1], "ssd_scan": ssd_rows,
+            "ring_decode@shard": decode_shard_rows,
+            "paged_decode@shard": paged_shard_rows[1],
+            "paged_verify@shard": paged_shard_rows[SPEC_K + 1]}
     for name, rs in rows.items():
         for r in rs:
             print(f"  {name}: " + json.dumps(r))
@@ -557,13 +583,15 @@ def kernel_phase(torch, F):
 # ---------------------------------------------------------------------------
 
 
-def serve_phase(torch, arch, label, per_iter):
+def serve_phase(torch, arch, label, per_iter, params=None, tp=0):
     """``arch`` at full width and depth in bf16 (random weights from a
     seeded generator) through the dense P/D cluster, one prefill and one
     decode instance, on 8 Poisson requests.  ``per_iter`` maps each
     kernel the path runs to the iteration kind ("prefill" or "decode")
     that launches it once per layer; every other kernel must stay at 0.
-    Returns the config, params, requests and this run's launch counts."""
+    With ``tp`` the instances are tp-wide slices of the world and
+    ``params`` this rank's shards.  Returns the config, params, requests,
+    this run's launch counts and the printed stats."""
     from repro_torch.configs.registry import REGISTRY
     from repro_torch.core.power import A100
     from repro_torch.kernels.decode_attention import ops as dops
@@ -578,19 +606,21 @@ def serve_phase(torch, arch, label, per_iter):
     )
 
     cfg = REGISTRY[arch]
-    t0 = time.perf_counter()
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    params = M.init_params(cfg, gen, device="cuda")
-    torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in _leaves(params))
-    ssm = ""
-    if cfg.mamba is not None:
-        m = cfg.mamba
-        ssm = (f"d_inner {m.d_inner(cfg.d_model)}, {m.n_heads(cfg.d_model)} "
-               f"SSM heads of {m.head_dim}, state {m.d_state}, ")
-    print(f"model {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-          f"{ssm}{cfg.dtype}, {n_params:,} params, init "
-          f"{time.perf_counter() - t0:.1f} s")
+    if params is None:
+        t0 = time.perf_counter()
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        params = M.init_params(cfg, gen, device="cuda")
+        torch.cuda.synchronize()
+        n_params = sum(t.numel() for t in _leaves(params))
+        ssm = ""
+        if cfg.mamba is not None:
+            m = cfg.mamba
+            ssm = (f"d_inner {m.d_inner(cfg.d_model)}, "
+                   f"{m.n_heads(cfg.d_model)} SSM heads of {m.head_dim}, "
+                   f"state {m.d_state}, ")
+        print(f"model {cfg.name}: {cfg.n_layers} layers, d_model "
+              f"{cfg.d_model}, {ssm}{cfg.dtype}, {n_params:,} params, init "
+              f"{time.perf_counter() - t0:.1f} s")
     pred = build_predictor(cfg, A100, A100.freq_levels_2, kv_cap=400_000)
     ds = DatasetDist(
         "smoke",
@@ -603,7 +633,7 @@ def serve_phase(torch, arch, label, per_iter):
 
     walls = {"prefill": [], "decode": []}
     base = make_real_backend_factory(cfg, params, slots=SLOTS,
-                                     max_len=MAX_LEN, device="cuda")
+                                     max_len=MAX_LEN, tp=tp, device="cuda")
 
     def factory(kind, idx, hw, seed, tp=None):
         be = base(kind, idx, hw, seed, tp=tp)
@@ -615,13 +645,15 @@ def serve_phase(torch, arch, label, per_iter):
     ccfg = ClusterConfig(
         model=cfg, chip=A100, n_prefill=1, n_decode=1, policy="voltana",
         predictor=pred, kv_capacity_tokens=400_000, online_adapt=False,
-        decode_max_running=SLOTS, seed=0, backend_factory=factory,
+        decode_max_running=SLOTS, seed=0, tp=max(tp, 1),
+        backend_factory=factory,
     )
     cluster = PDCluster(ccfg)
     torch.cuda.reset_peak_memory_stats()
     fops.launches = fops.q_offset_launches = 0
     dops.launches = 0
     dops.paged_launches.clear()
+    dops.sharded_launches.clear()
     sops.launches = 0
     t0 = time.perf_counter()
     m = cluster.run(reqs)
@@ -654,7 +686,7 @@ def serve_phase(torch, arch, label, per_iter):
           f"{max(r.prompt_len for r in reqs)}, decode "
           f"{min(r.decode_len for r in reqs)}-"
           f"{max(r.decode_len for r in reqs)}) in {wall_s:.2f} s wall")
-    print(f"serve[{label}]: " + json.dumps({
+    stats = {
         "requests": len(reqs),
         "prefill_iters": len(walls["prefill"]),
         "prefill_ms_mean": statistics.fmean(walls["prefill"]),
@@ -666,11 +698,19 @@ def serve_phase(torch, arch, label, per_iter):
         "decode_tok_s": n_dec / dec_s if dec_s else None,
         "max_memory_allocated_gb": peak / 1e9,
         "launches": launches,
-    }))
+        "sharded_launches": sharded_counts(dops),
+    }
+    print(f"serve[{label}]: " + json.dumps(stats))
     print(f"{label}: virtual-clock A100 model (not measured on this card): "
           f"ttft_p50_ms={s['ttft_p50_ms']} itl_p50_ms={s['itl_p50_ms']} "
           f"energy_j={s['energy_j']} epot_mj={s['epot_mj']}")
-    return cfg, params, reqs, launches
+    return cfg, params, reqs, launches, stats
+
+
+def sharded_counts(dops):
+    """The sharded wrappers' launches on this rank, "wrapper/hkvN"."""
+    return {f"{name}/hkv{h}": n
+            for (name, h), n in sorted(dops.sharded_launches.items())}
 
 
 def timed(torch, fn, out):
@@ -857,19 +897,21 @@ def _radix_pages(cache):
     return pages
 
 
-def paged_serve_phase(torch, cfg, params, pred, drafter=None):
+def paged_serve_phase(torch, cfg, params, pred, drafter=None, tp=0,
+                      label=None):
     """Serve the multi-turn workload over the paged pool with a radix
     prefix cache; with ``drafter`` (cfg, params) the decode instance
-    speculates ``SPEC_K`` tokens per iteration.  Returns the requests,
-    the (rid, accepted) log of the speculative iterations, and the launch
-    counts of this run."""
+    speculates ``SPEC_K`` tokens per iteration; with ``tp`` the instances
+    are tp-wide slices (``params`` this rank's shards).  Returns the
+    requests, the (rid, accepted) log of the speculative iterations, the
+    launch counts of this run and the printed stats."""
     from repro_torch.core.power import A100
     from repro_torch.kernels.decode_attention import ops as dops
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.serving import ClusterConfig, PDCluster, Request
     from repro_torch.serving.realengine import make_real_backend_factory
 
-    phase = "spec" if drafter else "paged"
+    phase = label or ("spec" if drafter else "paged")
     spec_k = SPEC_K if drafter else 0
     reqs = multiturn_workload(Request, cfg.vocab_size)
     walls = {"prefill": [], "decode": [], "spec": []}
@@ -878,7 +920,7 @@ def paged_serve_phase(torch, cfg, params, pred, drafter=None):
         cfg, params, slots=SLOTS, max_len=MAX_LEN, paged=True,
         page_size=PAGE_SIZE, pool_pages=POOL_PAGES, spec_k=spec_k,
         draft_cfg=drafter[0] if drafter else None,
-        draft_params=drafter[1] if drafter else None, device="cuda")
+        draft_params=drafter[1] if drafter else None, tp=tp, device="cuda")
 
     def factory(kind, idx, hw, seed, tp=None):
         be = base(kind, idx, hw, seed, tp=tp)
@@ -901,7 +943,7 @@ def paged_serve_phase(torch, cfg, params, pred, drafter=None):
         decode_max_running=SLOTS, seed=0, paged=True,
         kv_page_size=PAGE_SIZE, prefix_cache=True,
         prefix_cache_capacity=8_192, spec_decode=bool(drafter),
-        spec_k=SPEC_K, backend_factory=factory,
+        spec_k=SPEC_K, tp=max(tp, 1), backend_factory=factory,
     ))
     gc.collect()
     torch.cuda.empty_cache()
@@ -909,6 +951,7 @@ def paged_serve_phase(torch, cfg, params, pred, drafter=None):
     fops.launches = fops.q_offset_launches = 0
     dops.launches = 0
     dops.paged_launches.clear()
+    dops.sharded_launches.clear()
     t0 = time.perf_counter()
     m = cluster.run(reqs)
     torch.cuda.synchronize()
@@ -961,7 +1004,7 @@ def paged_serve_phase(torch, cfg, params, pred, drafter=None):
           f"{max(r.prompt_len for r in reqs)}, decode "
           f"{min(r.decode_len for r in reqs)}-"
           f"{max(r.decode_len for r in reqs)}) in {wall_s:.2f} s wall")
-    print(f"serve[{phase}]: " + json.dumps({
+    stats = {
         "requests": len(reqs),
         "prompt_tokens": total_prompt,
         "reused_tokens": pb.reused_tokens,
@@ -979,11 +1022,247 @@ def paged_serve_phase(torch, cfg, params, pred, drafter=None):
         "acceptance_rate": m.acceptance_rate() if drafter else None,
         "max_memory_allocated_gb": peak / 1e9,
         "launches": launches,
-    }))
+        "sharded_launches": sharded_counts(dops),
+    }
+    print(f"serve[{phase}]: " + json.dumps(stats))
     print(f"{phase}: virtual-clock A100 model (not measured on this card): "
           f"ttft_p50_ms={s['ttft_p50_ms']} itl_p50_ms={s['itl_p50_ms']} "
           f"energy_j={s['energy_j']}")
-    return reqs, log, launches
+    return reqs, log, launches, stats
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: tensor-parallel slices, two ranks sharing the card
+# ---------------------------------------------------------------------------
+
+def _streams(reqs):
+    return [{"rid": r.rid, "prompt_tokens": list(r.prompt_tokens),
+             "output_tokens": list(r.output_tokens)} for r in reqs]
+
+
+def mesh_rank(rank: int, world: int, init: str, out: str, pred) -> None:
+    """Phase 9 on one rank: join the world, hold the sharded wrappers
+    against their plain versions, build this rank's shards of llama and
+    the drafter, and serve dense, paged and speculative through tp-wide
+    slices.  Writes its results (or its traceback) to ``out``."""
+    import pickle
+    import traceback
+
+    # whole lines, not mixed with the other rank's: buffer each line and
+    # write it at once, even under PYTHONUNBUFFERED
+    sys.stdout.reconfigure(line_buffering=True, write_through=False)
+    sys.path.insert(0, str(SRC))
+    sys.path.insert(0, str(ROOT / "tests"))
+    import torch
+    import torch.distributed as dist
+
+    res = {"ok": False}
+    try:
+        from repro_torch.configs.registry import REGISTRY
+        from repro_torch.distributed import init_world, make_slice_mesh
+        from repro_torch.models import model as M
+        from repro_torch.serving.realengine import make_draft_config
+        from _mesh_worlds import check_sharded_wrappers
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        res["backend"] = init_world(rank, world, init, "cuda",
+                                    timeout_s=300.0)
+        mesh = make_slice_mesh(range(world), "cuda")
+        res["wrappers"] = check_sharded_wrappers(torch, mesh)
+        res["collectives"] = time_collectives(torch, mesh)
+        res["wrapper_wall"] = time_sharded_wrapper(torch, mesh)
+        cfg = REGISTRY["llama-3.1-8b"]
+        t0 = time.perf_counter()
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        params = M.init_params(cfg, gen, device="cuda", mesh=mesh)
+        torch.cuda.synchronize()
+        res["init_s"] = time.perf_counter() - t0
+        res["local_params"] = sum(t.numel() for t in _leaves(params))
+        serves = {}
+        _, _, reqs, _, stats = serve_phase(
+            torch, "llama-3.1-8b", f"mesh-dense rank {rank}",
+            {"flash_prefill": "prefill", "ring_decode": "decode"},
+            params=params, tp=world)
+        serves["dense"] = (_streams(reqs), [], stats)
+        reqs, log, _, stats = paged_serve_phase(
+            torch, cfg, params, pred, tp=world,
+            label=f"mesh-paged rank {rank}")
+        serves["paged"] = (_streams(reqs), log, stats)
+        dcfg = make_draft_config(cfg)
+        dparams = M.init_params(
+            dcfg, torch.Generator(device="cuda").manual_seed(1),
+            device="cuda", mesh=mesh)
+        reqs, log, _, stats = paged_serve_phase(
+            torch, cfg, params, pred, drafter=(dcfg, dparams), tp=world,
+            label=f"mesh-spec rank {rank}")
+        serves["spec"] = (_streams(reqs), log, stats)
+        res.update(serves=serves, ok=True)
+    except BaseException:  # the parent fails the phase with it
+        res["error"] = traceback.format_exc()
+    Path(out).write_bytes(pickle.dumps(res))
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def time_collectives(torch, mesh, iters: int = 50):
+    """Synchronised wall ms per call of the model's two collectives on
+    this world's backend, at a decode step's shapes: the sum of one
+    row-parallel output (8 slots x 4096, bf16) and the gather of the
+    logits' vocabulary shards (8 x 128256 / tp, float32)."""
+    from repro_torch.distributed.context import (
+        gather_model, mesh_context, reduce_model,
+    )
+
+    x = torch.zeros((SLOTS, 4096), dtype=torch.bfloat16, device="cuda")
+    logits = torch.zeros((SLOTS, 128256 // MESH_TP), device="cuda")
+    out = {}
+    with mesh_context(mesh):
+        for name, fn in (("all_reduce 8x4096 bf16", lambda: reduce_model(x)),
+                         ("gather 8x64128 f32",
+                          lambda: gather_model(logits))):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            out[name] = (time.perf_counter() - t0) * 1e3 / iters
+    return out
+
+
+def time_sharded_wrapper(torch, mesh, iters: int = 50):
+    """Synchronised wall ms a call of each sharded wrapper (bf16, main
+    shapes, this rank's half of the heads) by each route: "local" is the
+    sharded branch as the model calls it (``ops.on_local_heads``),
+    "dtensor" the wrapper fed DTensors and returning one, "unsharded"
+    the unsharded wrapper on the same local views.  {kind: {route:
+    ms}}."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.kernels.decode_attention import ops as dops
+    from _mesh_worlds import _wrapper, main_shape_inputs
+
+    i, w = mesh.get_local_rank("model"), MESH_TP
+    out = {}
+    for kind in ("decode", "paged_decode", "paged_verify"):
+        fn, qd = _wrapper(kind)
+        q, k, v, *rest = main_shape_inputs(torch, kind, "bfloat16", "cuda")
+        local = [t.chunk(w, dim=d)[i].contiguous()
+                 for t, d in ((q, qd), (k, 2), (v, 2))]
+
+        def placed():
+            return [DTensor.from_local(t, mesh, (Replicate(), Shard(d)),
+                                       run_check=False)
+                    for t, d in zip(local, (qd, 2, 2))]
+
+        calls = {
+            "local": lambda: dops.on_local_heads(fn, *local, *rest,
+                                                 mesh=mesh),
+            "dtensor": lambda: fn(*placed(), *rest, mesh=mesh).to_local(),
+            "unsharded": lambda: fn(*local, *rest),
+        }
+        out[kind] = {}
+        for name, call in calls.items():
+            call()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                call()
+            torch.cuda.synchronize()
+            out[kind][name] = (time.perf_counter() - t0) * 1e3 / iters
+    return out
+
+
+def mesh_phase(torch, pred):
+    """Spawn the phase 9 world and check what its ranks report: the
+    sharded wrappers' errors and launches, every serve's completeness
+    and launches, and the same streams on every rank.  Returns rank 0's
+    results."""
+    import multiprocessing as mp
+    import pickle
+    import tempfile
+
+    ctx = mp.get_context("spawn")
+    t0 = time.perf_counter()
+    sys.stdout.flush()  # the ranks write to the same stream
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = [Path(tmp) / f"rank{r}.pkl" for r in range(MESH_TP)]
+        procs = [ctx.Process(target=mesh_rank, args=(
+            r, MESH_TP, f"file://{tmp}/store", str(outs[r]), pred))
+            for r in range(MESH_TP)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + MESH_TIMEOUT_S
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(30)
+        ranks = [pickle.loads(o.read_bytes()) if o.exists() else
+                 {"ok": False, "error": f"no result (exit {p.exitcode})"}
+                 for o, p in zip(outs, procs)]
+    for r, res in enumerate(ranks):
+        if not res["ok"]:
+            print(f"mesh rank {r} failed:\n{res['error']}", file=sys.stderr)
+    check(not hung, f"mesh: ranks {hung} outlasted {MESH_TIMEOUT_S} s")
+    check(all(res["ok"] for res in ranks), "mesh: a rank failed")
+    print(f"mesh: {MESH_TP} ranks on one card, {ranks[0]['backend']} "
+          f"backend, {ranks[0]['local_params']:,} llama params per rank "
+          f"(init {ranks[0]['init_s']:.1f} s), "
+          f"{time.perf_counter() - t0:.1f} s wall")
+    print("mesh collectives, synchronised wall ms a call, per rank "
+          "(a dense decode step makes 65 all-reduces and 1 gather): "
+          + json.dumps({k: [res["collectives"][k] for res in ranks]
+                        for k in ranks[0]["collectives"]}))
+    print("mesh sharded wrappers, synchronised wall ms a call, per rank "
+          "(local: the sharded branch as the model calls it; dtensor: "
+          "DTensors in and out; unsharded: the unsharded wrapper on the "
+          "same local views): " + json.dumps(
+              {k: {r: [res["wrapper_wall"][k][r] for res in ranks]
+                   for r in ranks[0]["wrapper_wall"][k]}
+               for k in ranks[0]["wrapper_wall"]}))
+    hkv = 8 // MESH_TP
+    check(all(res["wrappers"]["empty"] == {} for res in ranks),
+          "mesh: an empty batch counted sharded launches: "
+          f"{[res['wrappers']['empty'] for res in ranks]}")
+    for kind in ("decode", "paged_decode", "paged_verify"):
+        for dtype in ("bfloat16", "float32"):
+            errs = [e for res in ranks
+                    for e in res["wrappers"][kind][dtype].values()]
+            check(all(ok for _, ok, _ in errs),
+                  f"mesh: sharded {kind} disagrees with its plain version "
+                  f"in {dtype}: {[e for e, _, _ in errs]}")
+            check(all(n == {hkv: 1} for _, _, n in errs),
+                  f"mesh: sharded {kind} launches {[n for *_, n in errs]}")
+        print(f"mesh wrapper {kind}: max abs err vs plain on the full "
+              f"tensors, by route " + json.dumps(
+                  {d: {r: max(res["wrappers"][kind][d][r][0]
+                              for res in ranks)
+                       for r in ranks[0]["wrappers"][kind][d]}
+                   for d in ("bfloat16", "float32")}))
+    # each serve's sharded wrapper, at the kv heads of one rank's shard
+    wrapper = {serve: name.split("(")[0]
+               for name, (_, _, serve, _) in WRAPPERS.items()}
+    for name in ("dense", "paged", "spec"):
+        per = [res["serves"][name] for res in ranks]
+        check(all(p[0] == per[0][0] for p in per),
+              f"mesh-{name}: the ranks emitted different streams")
+        check(all(p[1] == per[0][1] for p in per),
+              f"mesh-{name}: the ranks accepted different drafts")
+        key = f"{wrapper[name]}/hkv{hkv}"
+        for r, (_, _, st) in enumerate(per):
+            check(st["sharded_launches"].get(key, 0) > 0,
+                  f"mesh-{name}: rank {r} never launched sharded {key}")
+        cols = ("prefill_ms_median",
+                "decode_ms_median" if name == "dense" else "iter_ms_median",
+                "decode_tok_s", "max_memory_allocated_gb", "launches",
+                "sharded_launches")
+        print(f"serve[mesh-{name}] per rank: " + json.dumps(
+            {c: [st[c] for _, _, st in per] for c in cols}))
+    return ranks[0]
 
 
 # ---------------------------------------------------------------------------
@@ -1006,6 +1285,23 @@ KERNELS = {
                      "paged"),
     "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
                  "src/repro/kernels/ssd/kernel.py:98", "mamba"),
+}
+# the head-sharded wrappers: name -> (source, the JAX wrapper it
+# replaces, the phase 9 serve whose launches the line reports, the
+# kernel phase's row at one rank's shard)
+WRAPPERS = {
+    "decode_attention(mesh=)": (
+        "src/repro_torch/kernels/decode_attention/ops.py",
+        "src/repro/kernels/decode_attention/ops.py:48", "dense",
+        "ring_decode@shard"),
+    "paged_decode_attention(mesh=)": (
+        "src/repro_torch/kernels/decode_attention/ops.py",
+        "src/repro/kernels/decode_attention/ops.py:86", "paged",
+        "paged_decode@shard"),
+    "paged_verify_attention(mesh=)": (
+        "src/repro_torch/kernels/decode_attention/ops.py",
+        "src/repro/kernels/decode_attention/ops.py:122", "spec",
+        "paged_verify@shard"),
 }
 
 
@@ -1046,7 +1342,7 @@ def main() -> int:
               f"spill stores up to {max(spills, default=0)} B (ptxas -v)")
 
     head, errs = kernel_phase(torch, F)
-    cfg, params, reqs, dense_launches = serve_phase(
+    cfg, params, reqs, dense_launches, _ = serve_phase(
         torch, "llama-3.1-8b", "dense",
         {"flash_prefill": "prefill", "ring_decode": "decode"})
     replay_phase(torch, {"target": (cfg, params)}, reqs[0])
@@ -1064,14 +1360,14 @@ def main() -> int:
                            spec_k=SPEC_K)
     print(f"predictor (decode + verify at k={SPEC_K}) fit in "
           f"{time.perf_counter() - t0:.1f} s")
-    reqs, _, paged_launches = paged_serve_phase(torch, cfg, params, pred)
+    reqs, _, paged_launches, _ = paged_serve_phase(torch, cfg, params, pred)
     replay_phase(torch, {"target": (cfg, params)}, reqs[-1])
 
     dcfg = make_draft_config(cfg)
     dparams = M.init_params(
         dcfg, torch.Generator(device="cuda").manual_seed(1), device="cuda")
-    reqs, log, spec_launches = paged_serve_phase(torch, cfg, params, pred,
-                                                 drafter=(dcfg, dparams))
+    reqs, log, spec_launches, _ = paged_serve_phase(
+        torch, cfg, params, pred, drafter=(dcfg, dparams))
     r = reqs[-1]
     kinds = ["target"]
     for rid, a in log:
@@ -1081,24 +1377,49 @@ def main() -> int:
     replay_phase(torch, {"target": (cfg, params), "draft": (dcfg, dparams)},
                  r, kinds)
     # free the llama weights (16 GB) and the drafter before phase 8
-    del params, dparams, pred, reqs, log, r
+    del params, dparams, reqs, log, r
     gc.collect()
     torch.cuda.empty_cache()
 
-    cfg, params, reqs, mamba_launches = serve_phase(
+    mcfg, params, reqs, mamba_launches, _ = serve_phase(
         torch, "mamba2-2.7b", "mamba", {"ssd_scan": "prefill"})
-    replay_phase(torch, {"target": (cfg, params)}, reqs[0])
+    replay_phase(torch, {"target": (mcfg, params)}, reqs[0])
     # with the seeded init the scan's share of y lies below bf16's
     # rounding of y + D*x, so neither the replay nor the logits can see
     # the SSD path; the state can.  Then again with x/B/C rescaled to
     # order-one activations (the tests' weights), where the scan's term
     # outweighs D*x and the state reaches the logits.
-    state_phase(torch, cfg, params, reqs[0], "served", whole_path=True)
+    state_phase(torch, mcfg, params, reqs[0], "served", whole_path=True)
     sys.path.insert(0, str(ROOT / "tests"))
     from _mamba_weights import live_state
 
-    state_phase(torch, cfg, live_state(params, cfg), reqs[0], "live",
+    state_phase(torch, mcfg, live_state(params, mcfg), reqs[0], "live",
                 whole_path=False)
+    del params, reqs  # free Mamba2 before phase 9
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    mesh = mesh_phase(torch, pred)
+    # replay one stream per serve through the meshless plain path, on the
+    # full weights the ranks cut their shards from
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           device="cuda")
+    dparams = M.init_params(
+        dcfg, torch.Generator(device="cuda").manual_seed(1), device="cuda")
+    for name in ("dense", "paged", "spec"):
+        streams, log, _ = mesh["serves"][name]
+        r = SimpleNamespace(**streams[-1])
+        r.rid = f"{r.rid} (mesh-{name})"
+        models, kinds = {"target": (cfg, params)}, None
+        if name == "spec":
+            kinds = ["target"]
+            for rid, a in log:
+                if rid == streams[-1]["rid"]:
+                    kinds += ["draft"] * a + ["target"]
+            check("draft" in kinds, "mesh-spec: no accepted draft token in "
+                                    f"rid {r.rid}")
+            models["draft"] = (dcfg, dparams)
+        replay_phase(torch, models, r, kinds)
 
     leaked = [m for m in sys.modules
               if m == "jax" or m.startswith("jax.") or m == "repro"
@@ -1107,6 +1428,8 @@ def main() -> int:
 
     by_phase = {"dense": dense_launches, "paged": paged_launches,
                 "spec": spec_launches, "mamba": mamba_launches}
+    by_phase.update({f"mesh-{name}": mesh["serves"][name][2]["launches"]
+                     for name in ("dense", "paged", "spec")})
     rows = []
     for name, (source, replaces, phase) in KERNELS.items():
         h = head[name]
@@ -1121,6 +1444,33 @@ def main() -> int:
             "max_abs_err_by_dtype": errs[name], "ms": h["ms"],
             "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"],
             "bound_by": h["bound_by"], "library_ms": h["library_ms"],
+        })
+    hkv = 8 // MESH_TP
+    for name, (source, replaces, serve, shard_row) in WRAPPERS.items():
+        h = head[shard_row]
+        fn = name.split("(")[0]
+        kind = fn.replace("_attention", "")
+        st = mesh["serves"][serve][2]
+        n = st["sharded_launches"].get(f"{fn}/hkv{hkv}", 0)
+        check(n > 0, f"{name} was never launched in mesh-{serve}")
+        by_dtype = {d: max(e[0] for e in mesh["wrappers"][kind][d].values())
+                    for d in ("bfloat16", "float32")}
+        rows.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": n,
+            "launches_phase": f"mesh-{serve} (per rank, Hkv={hkv})",
+            "max_abs_err": max(by_dtype.values()),
+            "max_abs_err_by_dtype": by_dtype,
+            "err_against": "plain version on the full tensors",
+            "ms": h["ms"], "plain_ms": h["plain_ms"],
+            "bound_ms": h["bound_ms"], "bound_by": h["bound_by"],
+            "library_ms": h["library_ms"],
+            "timed_at": "ms, plain_ms, bound_ms and library_ms: the "
+                        "unsharded kernel on one rank's shard, "
+                        f"{h['shape']}",
+            "wrapper_ms": mesh["wrapper_wall"][kind]["local"],
+            "wrapper_ms_is": "the sharded branch as the model calls it, "
+                             "rank 0, synchronised wall ms a call",
         })
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)

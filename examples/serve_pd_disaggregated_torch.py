@@ -13,18 +13,27 @@ clock (an A100 hardware model), not from the machine running the tokens.
     PYTHONPATH=src python examples/serve_pd_disaggregated_torch.py
     PYTHONPATH=src python examples/serve_pd_disaggregated_torch.py --device cpu
     PYTHONPATH=src python examples/serve_pd_disaggregated_torch.py --profile
+    PYTHONPATH=src python examples/serve_pd_disaggregated_torch.py --tp 2
 
 ``--profile`` (card only) traces the run with ``torch.profiler`` and
 prints device time by kernel and the device's busy share of the run.
+``--tp N`` spawns a world of N ranks (``repro_torch.distributed.
+init_world``: NCCL with a card per rank, gloo on the CPU or when ranks
+share a card), every instance a tensor-parallel slice over all of them;
+each rank builds only its shards of the weights, and rank 0 prints.
 """
 import argparse
 import dataclasses
+import os
+import tempfile
 import time
 
 import torch
+import torch.multiprocessing as mp
 
 from repro_torch.configs.registry import REGISTRY
 from repro_torch.core.power import A100
+from repro_torch.distributed import init_world, make_slice_mesh
 from repro_torch.kernels.decode_attention import ops as dops
 from repro_torch.kernels.flash_attention import ops as fops
 from repro_torch.models import model as M
@@ -49,10 +58,34 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--tp", type=int, default=0,
+                    help="tensor-parallel degree: spawn a world of this "
+                         "many ranks (0: one process, no mesh)")
     args = ap.parse_args()
     if args.profile and args.device != "cuda":
         ap.error("--profile traces the card")
+    if args.tp < 0 or (args.tp and args.profile):
+        ap.error("--tp takes a degree >= 1 and no --profile")
+    if not args.tp:
+        serve(args)
+        return
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.spawn(_rank, args=(args, os.path.join(tmp, "store")),
+                 nprocs=args.tp, join=True)
 
+
+def _rank(rank: int, args, store: str):
+    backend = init_world(rank, args.tp, f"file://{store}", args.device)
+    if rank == 0:
+        print(f"world of {args.tp} ranks, {backend} backend")
+    try:
+        serve(args, rank)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def serve(args, rank: int = 0):
+    say = print if rank == 0 else (lambda *a, **k: None)
     base = REGISTRY["llama-3.1-8b"]
     if args.device == "cpu":
         cfg = dataclasses.replace(base.reduced(), dtype="float32")
@@ -63,10 +96,12 @@ def main():
         max_len, prompts, decodes = 1024, LengthDist(200.0, 150.0, hi=512), \
             LengthDist(32.0, 16.0, lo=16, hi=64)
     gen = torch.Generator(device=args.device).manual_seed(0)
-    params = M.init_params(cfg, gen, device=args.device)
+    mesh = make_slice_mesh(range(args.tp), args.device) if args.tp else None
+    params = M.init_params(cfg, gen, device=args.device, mesh=mesh)
     n = sum(t.numel() for t in _leaves(params))
-    print(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-          f"{cfg.dtype}, {n:,} params on {args.device}")
+    say(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.dtype}, {n:,} params on {args.device}"
+        + (f" (rank 0's shards of a tp={args.tp} slice)" if args.tp else ""))
 
     pred = build_predictor(base, A100, A100.freq_levels_2, kv_cap=400_000)
     reqs = attach_tokens(
@@ -78,8 +113,10 @@ def main():
         model=base, chip=A100, n_prefill=1, n_decode=2,
         policy="voltana", predictor=pred, kv_capacity_tokens=400_000,
         online_adapt=False, decode_max_running=8, seed=0,
+        tp=max(args.tp, 1),
         backend_factory=make_real_backend_factory(
-            cfg, params, slots=8, max_len=max_len, device=args.device
+            cfg, params, slots=8, max_len=max_len, tp=args.tp,
+            device=args.device,
         ),
     )
     cluster = PDCluster(ccfg)
@@ -99,18 +136,21 @@ def main():
 
     s = m.summary()
     restarted = sum(1 for r in reqs if r.restarts)
-    print(f"\nserved {len(reqs)} requests in {wall_s:.2f} s wall, finished "
-          f"{s['finished_frac']:.0%}; kernel launches: flash_prefill "
-          f"{fops.launches}, ring_decode {dops.launches}")
-    print("virtual-clock A100 model: TTFT attain "
-          f"{s['ttft_attain']:.2f}, ITL attain {s['itl_attain']:.2f}, "
-          f"energy {s['energy_j']:.0f} J ({s['epot_mj']:.1f} mJ/token)")
-    print(f"decode instance 0 failed at t=8 s -> {restarted} requests "
-          f"re-prefilled; fleet scaled to {len(cluster.decode)} decode "
-          "instances")
+    sharded = sum(dops.sharded_launches.values())
+    say(f"\nserved {len(reqs)} requests in {wall_s:.2f} s wall, finished "
+        f"{s['finished_frac']:.0%}; kernel launches: flash_prefill "
+        f"{fops.launches}, ring_decode {dops.launches}"
+        + (f" ({sharded} through the head-sharded wrapper)" if args.tp
+           else ""))
+    say("virtual-clock A100 model: TTFT attain "
+        f"{s['ttft_attain']:.2f}, ITL attain {s['itl_attain']:.2f}, "
+        f"energy {s['energy_j']:.0f} J ({s['epot_mj']:.1f} mJ/token)")
+    say(f"decode instance 0 failed at t=8 s -> {restarted} requests "
+        f"re-prefilled; fleet scaled to {len(cluster.decode)} decode "
+        "instances")
     for r in [r for r in reqs if r.finished][:3]:
-        print(f"req {r.rid}: prompt[{r.prompt_len}] -> "
-              f"tokens {r.output_tokens[:8]}...")
+        say(f"req {r.rid}: prompt[{r.prompt_len}] -> "
+            f"tokens {r.output_tokens[:8]}...")
     if args.profile:
         _profile_report(prof, wall_s)
 

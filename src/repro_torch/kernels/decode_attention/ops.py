@@ -6,14 +6,33 @@ A CUDA tensor launches the Hopper kernel (or raises); a CPU tensor takes
 the plain version in ``ref.py``.  ``launches`` counts ring-decode
 launches; ``paged_launches`` maps each query-token count T to the paged
 kernel's launches with it (T == 1 is paged decode).
+
+**Mesh sharding** (``repro/kernels/decode_attention/ops.py:48,86,122``).
+Pass ``mesh=`` (an instance's slice, axes ("data", "model")) and, when
+Hq and Hkv both divide the ``axis`` width
+(:func:`repro_torch.distributed.context.heads_shardable`), each wrapper
+runs as ``shard_map`` runs it: q, K and V are DTensors placed ``Shard``
+on their head dim over ``axis``, each rank runs the unmodified kernel on
+its ``Hkv / tp`` heads (attention decomposes per KV head, so no shard
+talks to another), and the output is a DTensor with q's placement.
+Block tables, lengths and positions are replicated: a page id names the
+same page on every shard, which keeps the host's ``KVPool`` arithmetic
+shard-agnostic.  When the heads do not divide, or the axis has width 1,
+the wrapper makes the unsharded call.  The model, which holds only its
+local heads, calls the sharded branch on them directly
+(:func:`on_local_heads`), with no DTensor.  ``sharded_launches`` counts
+the kernel launches the sharded branch made on this rank, keyed by
+(wrapper, local Hkv).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from repro_torch.distributed.context import heads_shardable, model_width
 from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attention.ref import (
     decode_attention_ref,
@@ -22,8 +41,74 @@ from repro_torch.kernels.decode_attention.ref import (
 
 launches = 0
 paged_launches: Dict[int, int] = {}
+sharded_launches: Dict[Tuple[str, int], int] = {}
 _fn = None
 _paged_fn = None
+
+
+def _launched() -> int:
+    """Kernel launches made on this rank so far (both kernels)."""
+    return launches + sum(paged_launches.values())
+
+
+def on_local_heads(fn: Callable, q: torch.Tensor, k: torch.Tensor,
+                   v: torch.Tensor, *replicated: torch.Tensor, mesh,
+                   axis: str = "model", **kw) -> torch.Tensor:
+    """The sharded branch of the wrapper ``fn`` on this rank's own heads:
+    ``q``, ``k`` and ``v`` hold its Hq/tp and Hkv/tp heads of a layer
+    whose heads divide ``mesh``'s ``axis``; tables, lengths and
+    positions are whole.  Runs the unsharded wrapper on them (the kernel
+    on the card, the plain version on the CPU) and adds the kernel
+    launches it made to ``sharded_launches``."""
+    if model_width(mesh, axis) < 2:
+        raise ValueError(f"{fn.__name__}: the mesh's {axis!r} axis has "
+                         "width 1 and splits no heads")
+    before = _launched()
+    out = fn(q, k, v, *replicated, **kw)
+    made = _launched() - before
+    if made:
+        key = (fn.__name__, k.shape[-2])
+        sharded_launches[key] = sharded_launches.get(key, 0) + made
+    return out
+
+
+def _shard_map(fn: Callable, mesh, axis: str,
+               sharded: Sequence[torch.Tensor],
+               replicated: Sequence[torch.Tensor], kw: dict):
+    """``shard_map`` over a ``DeviceMesh``: ``sharded`` holds q, K and V
+    as DTensors, each placed ``Shard`` on its head dim (``ndim - 2``)
+    over ``axis`` and ``Replicate`` elsewhere; ``replicated`` are plain
+    tensors or replicated DTensors.  Runs :func:`on_local_heads` on this
+    rank's local views; the output is a DTensor placed as q is."""
+    name = fn.__name__
+    md = mesh.mesh_dim_names.index(axis)
+    views = []
+    for t in sharded:
+        want = tuple(Shard(t.dim() - 2) if i == md else Replicate()
+                     for i in range(mesh.ndim))
+        if not isinstance(t, DTensor) or t.device_mesh != mesh \
+                or tuple(t.placements) != want:
+            raise ValueError(
+                f"{name}: the heads shard over {axis!r}; pass DTensors "
+                f"placed {want} on the mesh"
+            )
+        views.append(t.to_local())
+    for t in replicated:
+        if isinstance(t, DTensor):
+            if not all(p.is_replicate() for p in t.placements):
+                raise ValueError(f"{name}: tables, lengths and positions "
+                                 "must be replicated")
+            t = t.to_local()
+        views.append(t)
+    out = on_local_heads(fn, *views, mesh=mesh, axis=axis, **kw)
+    return DTensor.from_local(out, mesh, sharded[0].placements,
+                              run_check=False)
+
+
+def _unsharded(name: str, q) -> None:
+    if isinstance(q, DTensor):
+        raise ValueError(f"{name}: the heads do not shard over the mesh; "
+                         "pass plain tensors")
 
 
 def _kernel():
@@ -51,9 +136,17 @@ def decode_attention(
     *,
     window: Optional[int] = None,
     softcap: Optional[float] = None,
+    mesh=None,
+    axis: str = "model",
 ) -> torch.Tensor:
     """One new token per row over the ring cache; (B, Hq, Dh) in q's dtype."""
     global launches
+    if q.dim() == 3 and k_cache.dim() == 4 and heads_shardable(
+            mesh, q.shape[1], k_cache.shape[2], axis):
+        return _shard_map(decode_attention, mesh, axis, (q, k_cache, v_cache),
+                          (slot_pos, q_pos),
+                          dict(window=window, softcap=softcap))
+    _unsharded("decode_attention", q)
     if q.dim() != 3 or k_cache.dim() != 4 or k_cache.shape != v_cache.shape:
         raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k_cache.shape)}, "
                          f"v {tuple(v_cache.shape)}")
@@ -131,6 +224,8 @@ def paged_verify_attention(
     *,
     window: Optional[int] = None,
     softcap: Optional[float] = None,
+    mesh=None,
+    axis: str = "model",
 ) -> torch.Tensor:
     """T query tokens per sequence over a paged pool, causal within the
     speculation window; (B, T, Hq, Dh) in q's dtype.  The T new tokens'
@@ -138,6 +233,12 @@ def paged_verify_attention(
     the pool page-major with the table, with no gather copy.  On the card
     a ``length == 0`` row returns 0 (the Pallas kernel's behaviour); the
     plain version averages V there."""
+    if q.dim() == 4 and k_pages.dim() == 4 and heads_shardable(
+            mesh, q.shape[2], k_pages.shape[2], axis):
+        return _shard_map(paged_verify_attention, mesh, axis,
+                          (q, k_pages, v_pages), (block_tables, lengths),
+                          dict(window=window, softcap=softcap))
+    _unsharded("paged_verify_attention", q)
     if q.dim() != 4 or k_pages.dim() != 4 or k_pages.shape != v_pages.shape:
         raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k_pages.shape)}"
                          f", v {tuple(v_pages.shape)}")
@@ -202,9 +303,17 @@ def paged_decode_attention(
     *,
     window: Optional[int] = None,
     softcap: Optional[float] = None,
+    mesh=None,
+    axis: str = "model",
 ) -> torch.Tensor:
     """One new token per sequence over a paged pool: the ``T == 1``
     launch of :func:`paged_verify_attention`; (B, Hq, Dh)."""
+    if q.dim() == 3 and k_pages.dim() == 4 and heads_shardable(
+            mesh, q.shape[1], k_pages.shape[2], axis):
+        return _shard_map(paged_decode_attention, mesh, axis,
+                          (q, k_pages, v_pages), (block_tables, lengths),
+                          dict(window=window, softcap=softcap))
+    _unsharded("paged_decode_attention", q)
     if q.dim() != 3:
         raise ValueError(f"q must be (B, Hq, Dh), got {tuple(q.shape)}")
     return paged_verify_attention(

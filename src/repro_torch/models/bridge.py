@@ -3,7 +3,11 @@
 The caller turns a JAX param tree into numpy first
 (``jax.tree.map(np.asarray, params)``), so this module imports no JAX.
 The tree keeps its layout, including the stacked ``params["blocks"]``
-leaves with their leading ``n_blocks`` axis.
+leaves with their leading ``n_blocks`` axis.  On a mesh slice,
+:func:`shard_params` (the local-shard step of
+:func:`repro_torch.distributed.sharding.place_serving_state`) then cuts
+the full tree into this rank's shards, which compute what the JAX model
+computes.
 """
 from __future__ import annotations
 
@@ -13,6 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed.sharding import shard_params  # noqa: F401
 
 
 def _to_tensor(x: np.ndarray) -> torch.Tensor:

@@ -18,6 +18,22 @@ card.  Mamba2 decode (``L.conv_step``, ``L.ssd_decode_step``) is plain
 PyTorch on both paths, as the JAX model computes it outside any Pallas
 kernel.  Caches (ring, recurrent and paged) are updated in place; the
 JAX model returns new ones.
+
+**Mesh slices.**  Under :func:`repro_torch.distributed.mesh_context`
+every function runs on this rank's local shards (cut by
+:mod:`repro_torch.distributed.sharding`) with Megatron tensor
+parallelism made explicit on the slice's ``"model"`` group: an
+all-reduce after ``wo`` and after ``w_out``, a vocab-parallel embedding
+(rows outside the local range give 0, then an all-reduce) and a
+vocab-sharded LM head whose float32 logits are all-gathered before any
+argmax, so every rank sees the full row and emits the same token.
+Whether a weight is a shard is read off its local shape against the
+config's, so a layer whose heads do not divide the axis keeps its
+attention weights and KV cache whole, and at width 1 nothing is split
+and no collective runs: the meshless path, op for op.  Attention runs
+on local heads; the decode-attention wrappers run their sharded branch
+on them (``on_local_heads``, no DTensor) and count its launches (``flash_attention`` needs no wrapper: it has no ``mesh=``
+in the JAX package either).  Mamba2 on a mesh wider than 1 raises.
 """
 from __future__ import annotations
 
@@ -29,10 +45,14 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed import context as ctx
+from repro_torch.distributed import sharding as SH
 from repro_torch.kernels.decode_attention import (
     decode_attention,
+    paged_decode_attention,
     paged_verify_attention,
 )
+from repro_torch.kernels.decode_attention.ops import on_local_heads
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.ssd import ssd_scan
 from repro_torch.models import layers as L
@@ -62,6 +82,15 @@ def check_supported(cfg: ModelConfig) -> None:
             f"model '{cfg.name}': int8 weights and KV are ROADMAP queue 1, "
             "item 6"
         )
+    _check_mesh(cfg, ctx.axis_size("model"))
+
+
+def _check_mesh(cfg: ModelConfig, width: int) -> None:
+    if width > 1 and cfg.has_mamba:
+        raise NotImplementedError(
+            f"model '{cfg.name}': Mamba2 on a mesh wider than 1 (SSD heads "
+            "over 'model') is ROADMAP queue 1, item 8"
+        )
 
 
 def _index(tree, i: int):
@@ -77,27 +106,43 @@ def _index(tree, i: int):
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
-                device: DeviceLike = None) -> Params:
+                device: DeviceLike = None, mesh=None) -> Params:
     """Random weights with the shapes, standard deviations and dtypes of
     ``repro.models.model.init_params``, drawn from ``generator`` (which
     lives on ``device``).  Stacked leaves fill block by block, so the
-    float32 draw never holds more than one block's matrix."""
+    float32 draw never holds more than one block's matrix.  With
+    ``mesh`` (a slice) only this rank's shard of each draw is kept: the
+    same numbers as the meshless call, cut as
+    :func:`repro_torch.distributed.sharding.shard_params` cuts them."""
     check_supported(cfg)
     dev = resolve_device(device)
     dt = _dtype(cfg)
     n = cfg.n_blocks
     std = 0.02
     out_std = std / math.sqrt(2 * cfg.n_layers)
+    if mesh is None:
+        def cut(path, x, stacked):
+            return x
+    else:
+        _check_mesh(cfg, ctx.model_width(mesh))
 
-    def normal(shape, s):
+        def cut(path, x, stacked):
+            return SH.local_shard(x, SH.leaf_placement(cfg, path, mesh), mesh,
+                                  offset=-1 if stacked else 0)
+
+    def normal(shape, s, path=None):
         x = torch.randn(shape, generator=generator, device=dev,
                         dtype=torch.float32)
-        return (x * s).to(dt)
+        x = (x * s).to(dt)
+        return x if path is None else cut(path, x, False)
 
-    def stacked(shape, s):
-        out = torch.empty((n, *shape), dtype=dt, device=dev)
+    def stacked(shape, s, path):
+        out = None
         for i in range(n):
-            out[i] = normal(shape, s)
+            blk = cut(path, normal(shape, s), True)
+            if out is None:
+                out = torch.empty((n, *blk.shape), dtype=dt, device=dev)
+            out[i] = blk
         return out
 
     def zeros(*shape):
@@ -110,20 +155,20 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
     d, qd, kvd, ff = cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.d_ff
 
-    def init_attn():
+    def init_attn(path):
         p = {
             "norm": zeros(n, d),
-            "wq": stacked((d, qd), std),
-            "wk": stacked((d, kvd), std),
-            "wv": stacked((d, kvd), std),
-            "wo": stacked((qd, d), out_std),
+            "wq": stacked((d, qd), std, path + ("wq",)),
+            "wk": stacked((d, kvd), std, path + ("wk",)),
+            "wv": stacked((d, kvd), std, path + ("wv",)),
+            "wo": stacked((qd, d), out_std, path + ("wo",)),
         }
         if cfg.qk_norm:
             p["q_norm"] = zeros(n, cfg.head_dim)
             p["k_norm"] = zeros(n, cfg.head_dim)
         return p
 
-    def init_mamba():
+    def init_mamba(path):
         m = cfg.mamba
         di, nh = m.d_inner(d), m.n_heads(d)
         conv_dim = di + 2 * m.d_state
@@ -132,38 +177,39 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         dt0 = torch.exp(uniform(math.log(1e-3), math.log(0.1), n, nh))
         return {
             "norm": zeros(n, d),
-            "in_proj": stacked((d, in_dim), std),
-            "conv_w": stacked((conv_dim, m.d_conv), std),
+            "in_proj": stacked((d, in_dim), std, path + ("in_proj",)),
+            "conv_w": stacked((conv_dim, m.d_conv), std, path + ("conv_w",)),
             "A_log": torch.log(uniform(1.0, 16.0, n, nh)),
             "dt_bias": dt0 + torch.log(-torch.expm1(-dt0)),
             "D": torch.ones((n, nh), dtype=torch.float32, device=dev),
             "gnorm": zeros(n, di),
-            "out_proj": stacked((di, d), out_std),
+            "out_proj": stacked((di, d), out_std, path + ("out_proj",)),
         }
 
-    def init_mlp():
+    def init_mlp(path):
         return {
             "norm": zeros(n, d),
-            "w_gate": stacked((d, ff), std),
-            "w_in": stacked((d, ff), std),
-            "w_out": stacked((ff, d), out_std),
+            "w_gate": stacked((d, ff), std, path + ("w_gate",)),
+            "w_in": stacked((d, ff), std, path + ("w_in",)),
+            "w_out": stacked((ff, d), out_std, path + ("w_out",)),
         }
 
-    params: Params = {"embed": normal((cfg.vocab_size, d), std)}
+    params: Params = {"embed": normal((cfg.vocab_size, d), std, ("embed",))}
     blocks = {}
     for i, spec in enumerate(cfg.block_pattern):
         lp = {}
+        path = ("blocks", f"layer_{i}")
         if spec.mixer == "attn":
-            lp["attn"] = init_attn()
+            lp["attn"] = init_attn(path + ("attn",))
         else:
-            lp["mamba"] = init_mamba()
+            lp["mamba"] = init_mamba(path + ("mamba",))
         if spec.ffn == "mlp":
-            lp["mlp"] = init_mlp()
+            lp["mlp"] = init_mlp(path + ("mlp",))
         blocks[f"layer_{i}"] = lp
     params["blocks"] = blocks
     params["final_norm"] = zeros(d)
     if not cfg.tie_embeddings:
-        params["lm_head"] = normal((d, cfg.vocab_size), std)
+        params["lm_head"] = normal((d, cfg.vocab_size), std, ("lm_head",))
     return params
 
 
@@ -173,14 +219,32 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
 
 def _attn_qkv(p, cfg: ModelConfig, h: torch.Tensor):
+    """q, K and V at this rank's heads, read off the local weights."""
     B, S, _ = h.shape
-    q = (h @ p["wq"]).reshape(B, S, cfg.n_heads, cfg.head_dim)
-    k = (h @ p["wk"]).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
-    v = (h @ p["wv"]).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+    q = (h @ p["wq"]).reshape(B, S, -1, cfg.head_dim)
+    k = (h @ p["wk"]).reshape(B, S, -1, cfg.head_dim)
+    v = (h @ p["wv"]).reshape(B, S, -1, cfg.head_dim)
     if cfg.qk_norm:
         q = L.rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = L.rms_norm(k, p["k_norm"], cfg.norm_eps)
     return q, k, v
+
+
+def _row_parallel(y: torch.Tensor, w: torch.Tensor, full_in: int):
+    """``y = h @ w``.  Where ``w`` holds a shard of its input dim (``wo``,
+    ``w_out`` on a slice), ``y`` is this rank's partial sum: add the
+    other ranks' over ``"model"``."""
+    return ctx.reduce_model(y) if w.shape[-2] < full_in else y
+
+
+def _attend(fn, cfg: ModelConfig, q, k, v, *rest, **kw):
+    """``fn``, a decode-attention wrapper, on this rank's heads (dim
+    ``ndim - 2`` of q): its sharded branch when the layer's heads are
+    split over the active mesh, else the unsharded call."""
+    if q.shape[-2] == cfg.n_heads:
+        return fn(q, k, v, *rest, **kw)
+    return on_local_heads(fn, q, k, v, *rest, mesh=ctx.current_mesh(),
+                          axis=ctx.MODEL_AXIS, **kw)
 
 
 def _attn_full(p, cfg: ModelConfig, spec: LayerSpec, x, positions, lengths,
@@ -211,7 +275,7 @@ def _attn_full(p, cfg: ModelConfig, spec: LayerSpec, x, positions, lengths,
             q, k, v, causal=cfg.causal, window=spec.window,
             softcap=cfg.attn_softcap, kv_len=lengths,
         )
-    out = o.reshape(B, S, cfg.q_dim) @ p["wo"]
+    out = _row_parallel(o.reshape(B, S, -1) @ p["wo"], p["wo"], cfg.q_dim)
     return out, (k, v)
 
 
@@ -237,10 +301,13 @@ def _attn_decode(p, cfg: ModelConfig, spec: LayerSpec, x, entry, blk: int,
     k_cache[bidx, slot] = k[:, 0]
     v_cache[bidx, slot] = v[:, 0]
     pos[bidx, slot] = q_pos
-    attend = L.decode_attention if plain else decode_attention
-    o = attend(q[:, 0], k_cache, v_cache, pos, q_pos,
-               window=spec.window, softcap=cfg.attn_softcap)
-    return o.reshape(B, cfg.q_dim) @ p["wo"]
+    kw = dict(window=spec.window, softcap=cfg.attn_softcap)
+    if plain:
+        o = L.decode_attention(q[:, 0], k_cache, v_cache, pos, q_pos, **kw)
+    else:
+        o = _attend(decode_attention, cfg, q[:, 0], k_cache, v_cache, pos,
+                    q_pos, **kw)
+    return _row_parallel(o.reshape(B, -1) @ p["wo"], p["wo"], cfg.q_dim)
 
 
 def _mamba_inner_split(p, cfg: ModelConfig, h):
@@ -326,7 +393,24 @@ def _mamba_decode(p, cfg: ModelConfig, x, entry, blk: int):
 def _ffn(lp, cfg: ModelConfig, x):
     p = lp["mlp"]
     h = L.rms_norm(x, p["norm"], cfg.norm_eps)
-    return L.glu_mlp(h, p["w_gate"], p["w_in"], p["w_out"], cfg.act)
+    return _row_parallel(
+        L.glu_mlp(h, p["w_gate"], p["w_in"], p["w_out"], cfg.act),
+        p["w_out"], cfg.d_ff)
+
+
+def _embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor):
+    """Token embeddings.  A vocabulary shard (a slice's ``embed``) gives
+    0 for the rows it does not hold and the sum over ``"model"`` fills
+    them in: exactly the unsharded lookup."""
+    E = params["embed"]
+    ids = tokens.long()
+    if E.shape[0] == cfg.vocab_size:
+        return E[ids]
+    n = E.shape[0]
+    ids = ids - ctx.model_rank() * n
+    hit = (ids >= 0) & (ids < n)
+    x = E[torch.where(hit, ids, 0)] * hit[..., None].to(E.dtype)
+    return ctx.reduce_model(x)
 
 
 # ---------------------------------------------------------------------------
@@ -371,7 +455,7 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     ``plain_attention`` runs every mixer's plain layer (attention and
     the SSD scan) instead of its kernel."""
     check_supported(cfg)
-    x = params["embed"][tokens.long()]
+    x = _embed(params, cfg, tokens)
     B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device).expand(B, S)
     x = _run_blocks(params, cfg, x, positions, None, None, plain_attention)
@@ -381,9 +465,13 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 
 def lm_logits(params: Params, cfg: ModelConfig, hidden: torch.Tensor):
     """Logits in float32 (the JAX model's ``preferred_element_type``):
-    at a 128k vocabulary, bf16 logits make argmax ties common."""
+    at a 128k vocabulary, bf16 logits make argmax ties common.  A
+    vocabulary shard's logits are gathered over ``"model"``, so every
+    rank holds the full row."""
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     logits = hidden.float() @ head.float()
+    if head.shape[-1] < cfg.vocab_size:
+        logits = ctx.gather_model(logits, dim=-1)
     if cfg.logit_softcap is not None:
         logits = L._softcap(logits, cfg.logit_softcap)
     return logits
@@ -400,11 +488,22 @@ def cache_capacity(cfg: ModelConfig, spec: LayerSpec, max_len: int) -> int:
     return max_len
 
 
+def _kv_heads(cfg: ModelConfig) -> int:
+    """KV heads a rank holds: its share when the heads divide the active
+    mesh's ``"model"`` axis (the sharding rules split them then), all of
+    them otherwise."""
+    mesh = ctx.current_mesh()
+    if ctx.heads_shardable(mesh, cfg.n_heads, cfg.n_kv_heads):
+        return cfg.n_kv_heads // ctx.model_width(mesh)
+    return cfg.n_kv_heads
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: DeviceLike = None) -> PyTree:
     """Empty decode cache (zeros; slot_pos=-1 marks empty slots).  An
-    attention layer holds a K/V ring, a Mamba layer its conv tail (model
-    dtype) and SSM state (float32)."""
+    attention layer holds a K/V ring (at this rank's kv heads under a
+    mesh context), a Mamba layer its conv tail (model dtype) and SSM
+    state (float32)."""
     check_supported(cfg)
     dev = resolve_device(device)
     dt = _dtype(cfg)
@@ -414,7 +513,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     for i, spec in enumerate(cfg.block_pattern):
         if spec.mixer == "attn":
             cap = cache_capacity(cfg, spec, max_len)
-            shape = (n, batch, cap, cfg.n_kv_heads, cfg.head_dim)
+            shape = (n, batch, cap, _kv_heads(cfg), cfg.head_dim)
             entry = {
                 "k": torch.zeros(shape, dtype=dt, device=dev),
                 "v": torch.zeros(shape, dtype=dt, device=dev),
@@ -455,7 +554,7 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             )
     dev = tokens.device
     lengths = lengths.to(device=dev, dtype=torch.int32)
-    x = params["embed"][tokens.long()]
+    x = _embed(params, cfg, tokens)
     pos_row = torch.arange(S, device=dev, dtype=torch.int32)
     positions = pos_row.expand(B, S)
     cache = init_cache(cfg, B, max_len, dev)
@@ -479,7 +578,8 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     """One decode iteration: tokens (B,), lengths (B,) = the new token's
     position.  Returns (logits (B, V) float32, cache); the cache is
     updated in place and returned for the JAX call shape."""
-    x = params["embed"][tokens.long()]  # (B, d)
+    check_supported(cfg)
+    x = _embed(params, cfg, tokens)  # (B, d)
     q_pos = lengths.to(device=x.device, dtype=torch.int32)
     for blk in range(cfg.n_blocks):
         bp = _index(params["blocks"], blk)
@@ -547,14 +647,15 @@ def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
                      device: DeviceLike = None) -> PyTree:
     """Paged decode cache: per attention layer, a pool of
     ``(n_blocks, num_pages + 1, page_size, Hkv, Dh)`` K/V pages shared by
-    every resident sequence.  Token position ``i`` of a sequence lives in
+    every resident sequence (at this rank's kv heads under a mesh
+    context).  Token position ``i`` of a sequence lives in
     ``block_table[i // page_size]`` at offset ``i % page_size``.  The
     extra page at index ``num_pages`` is a write scratch: masked and
     padded scatters land there instead of on live pages."""
     _check_paged(cfg)
     check_supported(cfg)
     dev = resolve_device(device)
-    shape = (cfg.n_blocks, num_pages + 1, page_size, cfg.n_kv_heads,
+    shape = (cfg.n_blocks, num_pages + 1, page_size, _kv_heads(cfg),
              cfg.head_dim)
     return {
         f"layer_{i}": {
@@ -611,7 +712,7 @@ def prefill_paged(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     lengths = lengths.to(device=dev, dtype=torch.int32)
     ctx_lens = ctx_lens.to(device=dev, dtype=torch.int32)
     bt = block_tables.to(device=dev, dtype=torch.int32)
-    x = params["embed"][tokens.long()]
+    x = _embed(params, cfg, tokens)
     pos_row = torch.arange(S, device=dev, dtype=torch.int32)
     positions = ctx_lens[:, None] + pos_row[None]  # (B, S) absolute
     valid = pos_row[None] < lengths[:, None]
@@ -657,7 +758,8 @@ def prefill_paged(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                     softcap=cfg.attn_softcap, kv_len=kv_len,
                     q_start=ctx_lens,
                 )
-            x = x + o.reshape(B, S, cfg.q_dim) @ lp["attn"]["wo"]
+            wo = lp["attn"]["wo"]
+            x = x + _row_parallel(o.reshape(B, S, -1) @ wo, wo, cfg.q_dim)
             x = x + _ffn(lp, cfg, x)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     last = torch.clamp(lengths.long() - 1, min=0)
@@ -690,7 +792,7 @@ def verify_step_paged(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     C = Pmax * ps
     lengths = lengths.to(device=dev, dtype=torch.int32)
     bt = block_tables.to(device=dev, dtype=torch.int32)
-    x = params["embed"][tokens.long()]  # (B, T, d)
+    x = _embed(params, cfg, tokens)  # (B, T, d)
     positions = lengths[:, None] + torch.arange(T, device=dev,
                                                 dtype=torch.int32)[None]
     bidx = torch.arange(B, device=dev)[:, None]
@@ -721,12 +823,16 @@ def verify_step_paged(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                     slot_pos, positions, window=spec.window,
                     softcap=cfg.attn_softcap,
                 )
+            elif T == 1:
+                o = _attend(paged_decode_attention, cfg, q[:, 0], kp, vp, bt,
+                            total, window=spec.window,
+                            softcap=cfg.attn_softcap)[:, None]
             else:
-                o = paged_verify_attention(
-                    q, kp, vp, bt, total, window=spec.window,
-                    softcap=cfg.attn_softcap,
-                )
-            x = x + o.reshape(B, T, cfg.q_dim) @ lp["attn"]["wo"]
+                o = _attend(paged_verify_attention, cfg, q, kp, vp, bt,
+                            total, window=spec.window,
+                            softcap=cfg.attn_softcap)
+            wo = lp["attn"]["wo"]
+            x = x + _row_parallel(o.reshape(B, T, -1) @ wo, wo, cfg.q_dim)
             x = x + _ffn(lp, cfg, x)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return lm_logits(params, cfg, x), cache

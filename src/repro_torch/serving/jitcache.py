@@ -10,10 +10,20 @@ exactly where the JAX backend would trace and compile, and a second run
 over the same shapes adds 0 (the contract ``RunMetrics.recompiles``
 pins).  Two backends with the same config get the *same* entry callable
 from :func:`shared_entry`, as they share one jit in the JAX package.
+
+**Mesh identity is part of the key**, as in the JAX package: an entry
+point on a mesh slice runs inside
+:func:`repro_torch.distributed.context.mesh_context` and keys on
+:func:`mesh_fingerprint`, so two slices over the same ranks share an
+entry while a meshless backend and a sliced one never do.  (The JAX key
+also holds the sharding policy; the port's serving policy has no
+fields.)
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Set
+from typing import Callable, Dict, Optional, Set
+
+from repro_torch.distributed.context import mesh_context
 
 _ENTRIES: Dict[tuple, Callable] = {}  # entry key -> handed-out callable
 _SEEN: Set[tuple] = set()  # (entry key, shape signature) first seen
@@ -33,19 +43,37 @@ def _signature(x) -> tuple:
     return (type(x).__name__,)
 
 
-def shared_entry(fn: Callable, cfg, **statics) -> Callable:
+def mesh_fingerprint(mesh) -> Optional[tuple]:
+    """Hashable identity of a mesh slice: axis names, axis sizes, the
+    concrete ranks and the device type.  Two slices over the same ranks
+    with the same axes are interchangeable; ``None`` stays ``None``."""
+    if mesh is None:
+        return None
+    return (
+        tuple(mesh.mesh_dim_names),
+        tuple(mesh.shape),
+        tuple(int(r) for r in mesh.mesh.flatten().tolist()),
+        mesh.device_type,
+    )
+
+
+def shared_entry(fn: Callable, cfg, *, mesh=None, **statics) -> Callable:
     """The process-wide entry point for ``fn`` closed over ``cfg`` (and
     any keyword ``statics``).  Idempotent: same key -> same callable.
     Each call records its shape signature (the params argument, fixed by
-    ``cfg``, is left out) and then runs ``fn`` eagerly."""
-    key = (fn, cfg, tuple(sorted(statics.items())))
+    ``cfg``, is left out) and then runs ``fn`` eagerly; with ``mesh``,
+    inside that slice's mesh context."""
+    key = (fn, cfg, tuple(sorted(statics.items())), mesh_fingerprint(mesh))
     entry = _ENTRIES.get(key)
     if entry is not None:
         return entry
 
     def entry(params, **kwargs):
         _SEEN.add((key, _signature(kwargs)))
-        return fn(params, cfg=cfg, **statics, **kwargs)
+        if mesh is None:
+            return fn(params, cfg=cfg, **statics, **kwargs)
+        with mesh_context(mesh):
+            return fn(params, cfg=cfg, **statics, **kwargs)
 
     _ENTRIES[key] = entry
     return entry

@@ -38,11 +38,24 @@ insert/release, or at the cluster's end-of-run ``flush``.  Control
 decisions never read token content, so deferral reorders nothing.
 
 Caches are updated in place, so the JAX backend's ``donate_kv`` has no
-counterpart here.  Mesh slices (ROADMAP queue 1, item 8) are not ported
-yet and raise.
+counterpart here.
+
+**Mesh slices.**  With ``mesh`` (a ``DeviceMesh`` slice from
+:class:`~repro_torch.distributed.meshslice.MeshSlicer`) the instance
+holds this rank's shards of its weights, ring, page pool and drafter
+(:func:`~repro_torch.distributed.sharding.place_serving_state`) and its
+entry points run in the slice's mesh context.  Every rank of the
+``torch.distributed`` world runs the same cluster, and the instance
+seed is the same on every rank, so all ranks draw the same speculative
+acceptance and take the same decisions.  The port serves slices that
+cover the whole world (``tp`` equal to the world size), where every
+instance sits on the same ranks and the P→D handoff is a shard-local
+copy; disjoint slices, whose handoff crosses ranks, and Mamba2 on a mesh
+wider than 1 raise (ROADMAP queue 1, item 8).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from collections import deque
 from typing import Deque, Dict, List, Optional, Tuple
@@ -53,6 +66,9 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.hwmodel import HardwareModel
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed import sharding as SH
+from repro_torch.distributed.context import mesh_context
+from repro_torch.distributed.meshslice import MeshSlicer
 from repro_torch.models import model as M
 from repro_torch.serving import jitcache
 from repro_torch.serving.engine import SimBackend
@@ -73,10 +89,18 @@ def _bucket(n: int, lo: int = 16, hi: Optional[int] = None) -> int:
     return b
 
 
-def _not_ported(tp: int) -> None:
-    if tp > 0:
+def _not_ported(cfg: ModelConfig, tp: int, n_ranks: int) -> None:
+    """Reject the mesh slices the port does not serve yet."""
+    if 1 <= tp < n_ranks:
         raise NotImplementedError(
-            "mesh-sliced instances are ROADMAP queue 1, item 8 of the port"
+            f"a {tp}-wide slice of a {n_ranks}-rank world puts instances on "
+            "disjoint ranks, whose P→D handoff crosses ranks: ROADMAP queue "
+            "1, item 8 of the port (serve with tp equal to the world size)"
+        )
+    if tp > 1 and cfg.has_mamba:
+        raise NotImplementedError(
+            f"model '{cfg.name}': Mamba2 on a mesh wider than 1 is ROADMAP "
+            "queue 1, item 8 of the port"
         )
 
 
@@ -108,6 +132,7 @@ class RealBackend(SimBackend):
         spec_k: int = 0,
         draft_cfg: Optional[ModelConfig] = None,
         draft_params=None,
+        mesh=None,
         pipeline_depth: int = 1,
         device: DeviceLike = None,
     ):
@@ -118,6 +143,16 @@ class RealBackend(SimBackend):
         self.max_len = max_len
         self.paged = paged
         self.device = resolve_device(device)
+        # mesh slice: this instance's ranks.  None = the meshless path.
+        # Caches are allocated inside the slice's mesh context, at this
+        # rank's kv heads
+        self.mesh = mesh
+
+        def on_slice():
+            return (mesh_context(mesh) if mesh is not None
+                    else contextlib.nullcontext())
+
+        entry_kw = dict(mesh=mesh) if mesh is not None else {}
         # decode slot state (both memory models batch decode over slots).
         # The token chain is device-resident: the previous iteration's
         # greedy ids feed the next step without a host round trip.
@@ -153,8 +188,10 @@ class RealBackend(SimBackend):
             self.pool_pages = pool_pages or (2 * slots + 8) * self.max_pages
             # the cache first: it rejects recurrent (Mamba) and int8-KV
             # configs before a pool exists
-            self.kvcache = M.init_paged_cache(cfg, self.pool_pages,
-                                              page_size, self.device)
+            with on_slice():
+                self.kvcache = M.init_paged_cache(cfg, self.pool_pages,
+                                                  page_size, self.device)
+            self.params = self._place(cfg, params, self.kvcache)
             self.pool = KVPool(self.pool_pages, page_size)
             self.block_tables = np.full((slots, self.max_pages), -1,
                                         np.int32)
@@ -166,18 +203,20 @@ class RealBackend(SimBackend):
             self.reused_tokens = 0
             self.computed_tokens = 0
             self._prefill_fn = jitcache.shared_entry(
-                M.prefill_paged_greedy, cfg
+                M.prefill_paged_greedy, cfg, **entry_kw
             )
             self._decode_fn = jitcache.shared_entry(
-                M.decode_step_paged_greedy, cfg
+                M.decode_step_paged_greedy, cfg, **entry_kw
             )
         else:
-            self.cache = M.init_cache(cfg, slots, max_len, self.device)
+            with on_slice():
+                self.cache = M.init_cache(cfg, slots, max_len, self.device)
+            self.params = self._place(cfg, params, self.cache)
             self._prefill_fn = jitcache.shared_entry(
-                M.prefill_greedy, cfg, max_len=max_len
+                M.prefill_greedy, cfg, max_len=max_len, **entry_kw
             )
             self._decode_fn = jitcache.shared_entry(
-                M.decode_step_greedy, cfg
+                M.decode_step_greedy, cfg, **entry_kw
             )
 
         # speculative draft–verify (needs the paged pool: the rollback of
@@ -197,26 +236,37 @@ class RealBackend(SimBackend):
             if draft_cfg.vocab_size != cfg.vocab_size:
                 raise ValueError("draft and target must share a vocabulary")
             self.draft_cfg = draft_cfg
-            self.draft_params = draft_params
             # the drafter keeps a dense ring cache per decode slot; its
             # "rollback" is implicit (stale positions are masked by the
             # per-slot position array until overwritten)
-            self.draft_cache = M.init_cache(draft_cfg, slots, max_len,
-                                            self.device)
+            with on_slice():
+                self.draft_cache = M.init_cache(draft_cfg, slots, max_len,
+                                                self.device)
+            self.draft_params = self._place(draft_cfg, draft_params,
+                                            self.draft_cache)
             self._prev_dev = torch.zeros(slots, dtype=torch.int32,
                                          device=self.device)  # token at pos-1
             self._draft_prefill_fn = jitcache.shared_entry(
-                M.prefill_greedy, draft_cfg, max_len=max_len
+                M.prefill_greedy, draft_cfg, max_len=max_len, **entry_kw
             )
-            self._draft_fn = jitcache.shared_entry(M.draft_step, draft_cfg)
+            self._draft_fn = jitcache.shared_entry(M.draft_step, draft_cfg,
+                                                   **entry_kw)
             self._verify_fn = jitcache.shared_entry(
-                M.verify_step_paged_greedy, cfg
+                M.verify_step_paged_greedy, cfg, **entry_kw
             )
             # token-match telemetry: what greedy accept-prefix sampling
             # would have accepted (the acceptance *realization* is the
             # engine's, backend-independent, so Sim==Real parity holds)
             self.spec_real_matches = 0
             self.spec_real_drafted = 0
+
+    def _place(self, cfg: ModelConfig, params, cache):
+        """``params`` on this instance's slice: this rank's shards, after
+        a check that ``cache`` was allocated at its local widths."""
+        if self.mesh is None:
+            return params
+        params, _ = SH.place_serving_state(cfg, params, [cache], self.mesh)
+        return params
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -453,6 +503,9 @@ class RealBackend(SimBackend):
         slot = self.free.pop()
         self.slot_of[req.rid] = slot
         handoff, req.kv_handoff = req.kv_handoff, None
+        # on a slice the handoff holds the prefill instance's shards,
+        # which are ours: both slices cover the same ranks and cut the
+        # heads alike, so the copies below stay shard-local
         if self.paged:
             tree, L = handoff
             table = BlockTable(self.pool)
@@ -704,6 +757,7 @@ def make_real_backend_factory(
     draft_cfg: Optional[ModelConfig] = None,
     draft_params=None,
     tp: int = 0,
+    devices=None,
     pipeline_depth: int = 1,
     device: DeviceLike = None,
 ):
@@ -714,20 +768,47 @@ def make_real_backend_factory(
     draft–verify speculation (needs ``paged=True`` and a draft model);
     hybrid instances stay single-token.  ``pipeline_depth`` sets each
     instance's async-dispatch window; token streams are identical at
-    every depth.  ``device`` defaults to the card."""
-    _not_ported(tp)
+    every depth.  ``device`` defaults to the card.
+
+    ``tp > 0`` turns each instance into a **mesh slice**: a
+    :class:`~repro_torch.distributed.meshslice.MeshSlicer` over
+    ``devices`` (ranks; default: the whole ``torch.distributed`` world)
+    carves a ``(1, tp)`` ("data", "model") ``DeviceMesh`` per instance,
+    and the cluster's ``InstanceSpec.tp``, passed through the factory's
+    ``tp`` keyword, overrides the default degree per instance.  Every
+    rank of the world calls the factory in the same order (it runs the
+    same cluster).  ``params`` may be full or already this rank's
+    shards.  ``tp=0`` is the meshless path."""
     dev = resolve_device(device)
+    slicer = None
+    if tp or devices is not None:
+        slicer = MeshSlicer(devices, device_type=dev.type)
+        _not_ported(cfg, tp or 1, slicer.n_devices)
+    default_tp = tp
+    shards: Dict[tuple, tuple] = {}  # slice -> (params, draft params)
 
     def factory(kind: str, idx: int, hw: HardwareModel, seed: int,
                 tp: Optional[int] = None):
-        # tp: the cluster's per-instance degree; one device per instance
         n_slots = slots if kind in ("decode", "hybrid") else 1
         k = spec_k if kind == "decode" else 0
+        mesh, p, dp = None, params, draft_params
+        if slicer is not None:
+            degree = tp if tp else (default_tp or 1)
+            _not_ported(cfg, degree, slicer.n_devices)
+            mesh = slicer.slice(degree)
+            # one cut per slice, shared by its instances
+            key = jitcache.mesh_fingerprint(mesh)
+            if key not in shards:
+                shards[key] = (
+                    SH.shard_params(params, cfg, mesh),
+                    draft_params if draft_params is None or not spec_k
+                    else SH.shard_params(draft_params, draft_cfg, mesh))
+            p, dp = shards[key]
         return RealBackend(
-            hw, cfg, params, slots=n_slots, max_len=max_len, seed=seed,
+            hw, cfg, p, slots=n_slots, max_len=max_len, seed=seed,
             paged=paged, page_size=page_size, pool_pages=pool_pages,
             spec_k=k, draft_cfg=draft_cfg if k else None,
-            draft_params=draft_params if k else None,
+            draft_params=dp if k else None, mesh=mesh,
             pipeline_depth=pipeline_depth, device=dev,
         )
 

@@ -1,14 +1,14 @@
 """Parity probes shared by the port's serving tests
-(``test_torch_serving.py``, ``test_torch_mamba.py``): a run compared bit
-for bit in everything the control plane computes, and the near-argmax
-replay of served tokens through the JAX model."""
+(``test_torch_serving.py``, ``test_torch_mamba.py``,
+``test_torch_mesh.py``): a run compared bit for bit in everything the
+control plane computes, the near-argmax replay of served tokens through
+the JAX model, and the log of speculative acceptances.  JAX is imported
+where a replay runs, so the spawned ranks of ``_mesh_worlds.py`` can use
+:func:`recording` without it."""
 from functools import partial
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 
-from repro.models import model as M
 from repro_torch.serving.realengine import _bucket
 
 
@@ -44,6 +44,11 @@ def replay_near_argmax(rc, params, reqs, max_len, margin=0.05):
     """Each emitted token's reference logit (the JAX model ``rc`` with
     ``params``, the served weights) lies within ``margin`` of the
     reference max (tests/test_perf_invariants.py:206-239)."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.models import model as M
+
     prefill = jax.jit(partial(M.prefill, cfg=rc, max_len=max_len))
     decode = jax.jit(partial(M.decode_step, cfg=rc))
     for r in reqs:
@@ -63,3 +68,71 @@ def replay_near_argmax(rc, params, reqs, max_len, margin=0.05):
                                                               jnp.int32),
                                    cache=cache, lengths=pos)
             pos = pos + 1
+
+
+def recording(factory):
+    """Wrap a factory so each speculative iteration's (rid, accepted)
+    pairs are logged in dispatch order."""
+    log = []
+
+    def wrapped(kind, idx, hw, seed, tp=None):
+        be = factory(kind, idx, hw, seed, tp=tp)
+        if be.spec_k:
+            inner = be._real_spec_step
+
+            def step(reqs, k, accepts):
+                log.extend((r.rid, a) for r, a in zip(reqs, accepts))
+                return inner(reqs, k, accepts)
+
+            be._real_spec_step = step
+        return be
+
+    return wrapped, log
+
+
+def token_kinds(reqs, log):
+    """Per request, which model chose each emitted token: the prefill's
+    first token and each verify pass's bonus/correction token are the
+    target's argmax, accepted draft tokens the drafter's."""
+    kinds = {r.rid: ["target"] for r in reqs}
+    for rid, a in log:
+        kinds[rid] += ["draft"] * a + ["target"]
+    return kinds
+
+
+def replay_by_kind(models, reqs, kinds, max_len, margin=0.05):
+    """Each emitted token within ``margin`` of the max logit of the JAX
+    model that chose it: ``models`` maps "target" and "draft" to
+    (cfg, params) of the served weights."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.models import model as M
+
+    fns = {name: (jax.jit(partial(M.prefill, cfg=c, max_len=max_len)),
+                  jax.jit(partial(M.decode_step, cfg=c)))
+           for name, (c, _) in models.items()}
+    for r in reqs:
+        assert len(kinds[r.rid]) == len(r.output_tokens), r.rid
+        toks = np.asarray(r.prompt_tokens, np.int32)
+        pad = np.zeros((1, _bucket(len(toks), hi=max_len)), np.int32)
+        pad[0, : len(toks)] = toks
+        rows = {}
+        for name, (_, params) in models.items():
+            prefill, decode = fns[name]
+            logits, cache = prefill(params, tokens=jnp.asarray(pad),
+                                    lengths=jnp.asarray([len(toks)],
+                                                        jnp.int32))
+            pos = jnp.asarray([len(toks)], jnp.int32)
+            rows[name] = []
+            for tok in r.output_tokens:
+                rows[name].append(np.asarray(logits[0], np.float64))
+                logits, cache = decode(params,
+                                       tokens=jnp.asarray([tok], jnp.int32),
+                                       cache=cache, lengths=pos)
+                pos = pos + 1
+        for i, (tok, kind) in enumerate(zip(r.output_tokens, kinds[r.rid])):
+            row = rows[kind][i]
+            assert row[tok] >= row.max() - margin, (
+                f"rid {r.rid} token {i} ({kind}): id {tok} has logit "
+                f"{row[tok]:.4f} vs max {row.max():.4f}")

@@ -1,7 +1,8 @@
 """The port on the card: each Hopper kernel against its plain PyTorch
-version, the model's kernel path against its plain path, and served
-clusters (dense llama, paged with speculation, dense Mamba2) that launch
-every kernel.
+version, the head-sharded wrappers on a 2-rank world sharing the card,
+the model's kernel path against its plain path, and served clusters
+(dense llama, paged with speculation, dense Mamba2) that launch every
+kernel.
 
 Every test here needs a CUDA card (marker ``cuda``) and skips without
 one.  The file imports no JAX, so it also runs on a machine without it:
@@ -41,6 +42,7 @@ from repro_torch.serving.realengine import (
 )
 from repro_torch.serving.request import Request
 from repro_torch.serving.workload import DatasetDist, LengthDist, attach_tokens
+import _mesh_worlds as W
 from _mamba_weights import live_state
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # tests/test_kernels.py:18
@@ -252,6 +254,32 @@ def test_wrappers_reject_what_the_kernels_do_not_take(card):
     q = torch.zeros((1, 16, 4, 64), device=card).transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention(q, q, q)
+
+
+def test_sharded_wrappers_two_ranks_on_one_card(card, tmp_path):
+    """The head-sharded wrappers (repro/kernels/decode_attention/ops.py:
+    48, 86, 122) on a 2-rank world that shares the card (gloo): at the
+    main shapes each rank launches its kernel once a call on 4 of the 8
+    kv heads, by DTensors and by the model's local-heads route, and the
+    gathered output matches the plain version on the full tensors, in
+    bf16 and float32.  An empty batch launches nothing and counts
+    nothing."""
+    from repro_torch.kernels import _build
+
+    _build.build(["ring_decode", "paged_attention"])  # once, not per rank
+    ranks = W.start_world(W.card_wrapper_rank, 2, tmp_path,
+                          device_type="cuda").result()
+    for rank, res in enumerate(ranks):
+        assert res.pop("empty") == {}, rank
+        assert set(res) == {"decode", "paged_decode", "paged_verify"}
+        for kind, by_dtype in res.items():
+            for dtype, by_route in by_dtype.items():
+                assert set(by_route) == set(W.ROUTES)
+                for route, (err, ok, launched) in by_route.items():
+                    assert ok, (rank, kind, dtype, route, err)
+                    assert launched == {4: 1}, (rank, kind, dtype, route,
+                                                launched)
+    assert ranks[0] == ranks[1]  # both hold the same gathered output
 
 
 def test_model_kernel_path_matches_plain_path(card):

@@ -6,6 +6,7 @@ import os
 import subprocess
 import sys
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -14,6 +15,7 @@ import torch
 from repro_torch.configs.registry import REGISTRY
 from repro_torch.core.hwmodel import HardwareModel
 from repro_torch.core.power import A100
+from repro_torch.distributed import mesh_context
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import bridge
@@ -60,6 +62,9 @@ def test_port_imports_with_jax_and_repro_blocked():
         "import repro_torch.kernels.flash_attention\n"
         "import repro_torch.kernels.decode_attention\n"
         "import repro_torch.kernels.ssd\n"
+        "import repro_torch.distributed, repro_torch.distributed.context\n"
+        "import repro_torch.distributed.meshslice\n"
+        "import repro_torch.distributed.sharding\n"
         "print('ok')\n"
     )
     env = dict(os.environ)
@@ -96,13 +101,45 @@ def test_wrappers_never_fall_back_off_the_cpu():
         decode_attention(qd, k, k, pos, pos[:, 0])
 
 
-@pytest.mark.parametrize("kw,item", [
-    pytest.param(dict(tp=2), "item 8", id="kw2-item 8"),
+@pytest.mark.parametrize("arch,kw,item", [
+    # disjoint slices: a 2-wide slice of a 4-rank world
+    pytest.param("llama-3.1-8b", dict(tp=2, devices=[0, 1, 2, 3]), "item 8",
+                 id="kw2-item 8"),
+    pytest.param("mamba2-2.7b", dict(tp=2, devices=[0, 1]), "item 8",
+                 id="mamba2-tp2-item 8"),
 ])
-def test_unported_serving_paths_raise(kw, item):
-    rc = MODEL.reduced()
+def test_unported_serving_paths_raise(arch, kw, item):
+    """Mesh slices that the port does not serve raise before any process
+    group is touched (the ranks are given, no world is joined)."""
+    rc = REGISTRY[arch].reduced()
     with pytest.raises(NotImplementedError, match=item):
         make_real_backend_factory(rc, {}, device="cpu", **kw)
+
+
+def test_mamba2_model_on_a_mesh_raises():
+    """The model itself refuses Mamba2 on a mesh wider than 1 (a stand-in
+    mesh: only its axis names and sizes are read before the raise)."""
+    rc = REGISTRY["mamba2-2.7b"].reduced()
+    wide = SimpleNamespace(mesh_dim_names=("data", "model"), shape=(1, 2))
+    with mesh_context(wide):
+        with pytest.raises(NotImplementedError, match="item 8"):
+            TM.init_cache(rc, 1, 32, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 8"):
+        TM.init_params(rc, torch.Generator(), device="cpu", mesh=wide)
+
+
+def test_sharded_weights_need_a_mesh_context():
+    """Weights cut for a slice (here ``w_out`` at half its rows) outside
+    any mesh context raise instead of computing a partial sum."""
+    rc = dataclasses.replace(MODEL.reduced(), dtype="float32")
+    params = TM.init_params(rc, torch.Generator().manual_seed(0),
+                            device="cpu")
+    mlp = params["blocks"]["layer_0"]["mlp"]
+    mlp["w_out"] = mlp["w_out"][:, : rc.d_ff // 2].contiguous()
+    mlp["w_gate"] = mlp["w_gate"][..., : rc.d_ff // 2].contiguous()
+    mlp["w_in"] = mlp["w_in"][..., : rc.d_ff // 2].contiguous()
+    with pytest.raises(RuntimeError, match="mesh_context"):
+        TM.forward(params, rc, torch.zeros((1, 8), dtype=torch.int32))
 
 
 def test_paged_and_spec_serving_paths_are_ported():

@@ -17,11 +17,9 @@
     speculation (tests/test_perf_invariants.py:243).
 """
 import dataclasses
-from functools import partial
 from types import SimpleNamespace
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -43,7 +41,13 @@ from repro_torch.models import model as TM
 from repro_torch.models.bridge import params_from_jax
 from repro_torch.serving import jitcache
 from repro_torch.serving.cluster import build_predictor as t_build_predictor
-from _port_parity import assert_same_run, replay_near_argmax
+from _port_parity import (
+    assert_same_run,
+    recording,
+    replay_by_kind,
+    replay_near_argmax,
+    token_kinds,
+)
 from repro_torch.serving.realengine import (
     RealBackend,
     _bucket,
@@ -382,70 +386,6 @@ def _spec_cluster_cfg(side, sp, **kw):
     return _cluster_cfg(side, "chunked-pd", **base)
 
 
-def _recording(factory):
-    """Wrap a factory so each speculative iteration's (rid, accepted)
-    pairs are logged in dispatch order."""
-    log = []
-
-    def wrapped(kind, idx, hw, seed, tp=None):
-        be = factory(kind, idx, hw, seed, tp=tp)
-        if be.spec_k:
-            inner = be._real_spec_step
-
-            def step(reqs, k, accepts):
-                log.extend((r.rid, a) for r, a in zip(reqs, accepts))
-                return inner(reqs, k, accepts)
-
-            be._real_spec_step = step
-        return be
-
-    return wrapped, log
-
-
-def _token_kinds(reqs, log):
-    """Per request, which model chose each emitted token: the prefill's
-    first token and each verify pass's bonus/correction token are the
-    target's argmax, accepted draft tokens the drafter's."""
-    kinds = {r.rid: ["target"] for r in reqs}
-    for rid, a in log:
-        kinds[rid] += ["draft"] * a + ["target"]
-    return kinds
-
-
-def _replay_by_kind(jax_side, sp, reqs, kinds, margin=0.05):
-    """Each emitted token within ``margin`` of the max logit of the JAX
-    model that chose it (target or drafter, same weights)."""
-    models = {"target": (jax_side.rc, jax_side.params),
-              "draft": (sp.draft_cfg, sp.draft_params)}
-    fns = {name: (jax.jit(partial(M.prefill, cfg=c, max_len=MAX_LEN)),
-                  jax.jit(partial(M.decode_step, cfg=c)))
-           for name, (c, _) in models.items()}
-    for r in reqs:
-        assert len(kinds[r.rid]) == len(r.output_tokens), r.rid
-        toks = np.asarray(r.prompt_tokens, np.int32)
-        pad = np.zeros((1, _bucket(len(toks), hi=MAX_LEN)), np.int32)
-        pad[0, : len(toks)] = toks
-        rows = {}
-        for name, (_, params) in models.items():
-            prefill, decode = fns[name]
-            logits, cache = prefill(params, tokens=jnp.asarray(pad),
-                                    lengths=jnp.asarray([len(toks)],
-                                                        jnp.int32))
-            pos = jnp.asarray([len(toks)], jnp.int32)
-            rows[name] = []
-            for tok in r.output_tokens:
-                rows[name].append(np.asarray(logits[0], np.float64))
-                logits, cache = decode(params,
-                                       tokens=jnp.asarray([tok], jnp.int32),
-                                       cache=cache, lengths=pos)
-                pos = pos + 1
-        for i, (tok, kind) in enumerate(zip(r.output_tokens, kinds[r.rid])):
-            row = rows[kind][i]
-            assert row[tok] >= row.max() - margin, (
-                f"rid {r.rid} token {i} ({kind}): id {tok} has logit "
-                f"{row[tok]:.4f} vs max {row.max():.4f}")
-
-
 def test_torch_paged_real_cluster_matches_jax(jax_side, torch_side):
     """The paged memory model: same workload through a JAX and a torch
     paged real cluster (a hybrid instance exercises the local join)."""
@@ -471,7 +411,7 @@ def test_torch_spec_real_cluster_matches_jax(jax_side, torch_side, spec):
     runs = []
     for side, sp in ((jax_side, spec["jax"]), (torch_side, spec["torch"])):
         reqs = _workload(side)
-        factory, log = _recording(side.factory(**_spec_kw(sp)))
+        factory, log = recording(side.factory(**_spec_kw(sp)))
         cl = side.pkg.PDCluster(_spec_cluster_cfg(side, sp,
                                                   backend_factory=factory))
         m = cl.run(reqs)
@@ -488,7 +428,10 @@ def test_torch_spec_real_cluster_matches_jax(jax_side, torch_side, spec):
         assert (a.spec_iters, a.spec_accepted) == (b.spec_iters,
                                                    b.spec_accepted)
     assert la == lb and any(a > 0 for _, a in lb)
-    _replay_by_kind(jax_side, spec["jax"], rb[:6], _token_kinds(rb, lb))
+    replay_by_kind(
+        {"target": (jax_side.rc, jax_side.params),
+         "draft": (spec["jax"].draft_cfg, spec["jax"].draft_params)},
+        rb[:6], token_kinds(rb, lb), MAX_LEN)
 
 
 def test_sim_and_real_agree_through_speculation(torch_side, spec):
@@ -535,7 +478,8 @@ def test_real_spec_at_slot_capacity(torch_side, spec):
 
 def test_real_spec_requires_paged_and_a_drafter(torch_side, spec):
     """tests/test_backend_parity.py:246, with ValueError for the JAX
-    backend's asserts; tp > 0 still raises."""
+    backend's asserts; a slice narrower than the world (disjoint
+    slices) still raises."""
     side, sp = torch_side, spec["torch"]
     hw = THardwareModel(side.model, side.chip)
     with pytest.raises(ValueError, match="paged"):
@@ -548,8 +492,9 @@ def test_real_spec_requires_paged_and_a_drafter(torch_side, spec):
     with pytest.raises(ValueError, match="multiple of page_size"):
         RealBackend(hw, side.rc, side.params, slots=2, max_len=60,
                     paged=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        t_make_factory(side.rc, side.params, tp=2, device="cpu")
+    with pytest.raises(NotImplementedError, match="disjoint ranks"):
+        t_make_factory(side.rc, side.params, tp=2, devices=[0, 1, 2, 3],
+                       device="cpu")
 
 
 def test_paged_preemption_resume(torch_side):
