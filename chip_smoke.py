@@ -10,11 +10,17 @@ PyTorch built for CUDA:
 Phases, in order; any failure exits non-zero:
 
 1. card identity (``nvidia-smi`` name and power limit);
-2. build of the hand-written kernels from ``src/repro_torch/kernels/csrc``;
+2. build of the hand-written kernels from ``src/repro_torch/kernels/csrc``
+   (registers, shared memory and spills of the tensor-core kernels from
+   ``ptxas -v``), and a check that ``cuobjdump -sass`` of those libraries
+   shows the tensor-core product (HMMA) and the async copy (LDGSTS);
 3. each kernel against its plain PyTorch version on the card, at the
    main path's shapes, with CUDA-event times, the roofline bound and,
    where one PyTorch call computes the same function, its time as a
-   yardstick;
+   yardstick (``vs_library``, ``bound_frac``).  ``ms``, ``plain_ms`` and
+   ``library_ms`` are host-paced (:func:`cuda_ms`); ``device_ms`` and
+   ``library_device_ms`` time the device alone and ``host_ms`` the
+   wrapper's enqueue (:func:`queued_ms`);
 4. serving: llama-3.1-8b at full width and depth in bf16 (random weights
    from a seeded generator) through the port's P/D cluster over the dense
    ring cache, with the kernels' launch counters read around the run;
@@ -46,12 +52,19 @@ Phases, in order; any failure exits non-zero:
    streams, and the parent replays one stream per serve through the
    meshless plain path.
 
-It prints the ``kernels`` JSON line and, last, the device line.  TTFT,
+It prints the ``kernels`` JSON line and, last, the device line.
+
+    python3 chip_smoke.py --kernels-only [--src OTHER_CHECKOUT/src]
+
+runs phases 1-3 alone (no SASS check), on the port's sources under
+``--src`` when given: another checkout's kernels, built in that
+checkout, timed by this script's methods in the same process.  TTFT,
 ITL and energy come from the control plane's virtual clock (an A100
 hardware model), not from the card.
 """
 from __future__ import annotations
 
+import argparse
 import gc
 import json
 import math
@@ -91,6 +104,7 @@ REPLAY_MARGIN = 0.5
 MAX_LEN = 1024
 SLOTS = 8
 L2_BYTES = 50e6
+SLEEP_CYCLES = 100_000_000  # about 50 ms of SM clock: queued_ms's head start
 SPEC_K = 2  # draft proposals per verify pass: T = SPEC_K + 1
 PAGE_SIZE = 16
 PMAX = MAX_LEN // PAGE_SIZE
@@ -115,13 +129,77 @@ def card_identity() -> str:
 
 
 # ---------------------------------------------------------------------------
+# What the compiler made of the redesigned kernels
+# ---------------------------------------------------------------------------
+
+# the kernels rebuilt on the tensor cores with cp.async staging
+REDESIGNED = ("flash_prefill", "paged_attention")
+
+
+def _mangled_name(mangled: str) -> str:
+    """The last of the ``<length><name>`` parts of ``_ZN...``: the
+    kernel's own name after its (anonymous) namespace."""
+    names, i = [], mangled.find("_ZN") + 3
+    while i > 2 and i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        names.append(mangled[j: j + int(mangled[i:j])])
+        i = j + int(mangled[i:j])
+    return names[-1] if names else mangled
+
+
+def ptxas_table(log: str):
+    """Per kernel instantiation in ``ptxas -v`` output: registers, static
+    shared memory and spill bytes (dynamic shared memory is set at the
+    launch, see each source)."""
+    rows = {}
+    for block in log.split("Compiling entry function ")[1:]:
+        mangled = re.match(r"'(\w+)'", block).group(1)
+        kernel = _mangled_name(mangled)
+        args = re.findall(r"Li(\d+)E", mangled)
+        if "IfLi" in mangled:
+            args.insert(0, "float")
+        label = f"{kernel}<{','.join(args)}>"
+        used = re.search(r"Used (\d+) registers", block)
+        smem = re.search(r"(\d+) bytes smem", block)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", block)
+        rows[label] = {
+            "registers": int(used.group(1)) if used else None,
+            "static_smem_bytes": int(smem.group(1)) if smem else 0,
+            "spill_store_bytes": int(spill.group(1)) if spill else None,
+            "spill_load_bytes": int(spill.group(2)) if spill else None,
+        }
+    return rows
+
+
+def sass_check(_build):
+    """Whether ``cuobjdump -sass`` of each redesigned library shows the
+    tensor-core product (HMMA), the async copy (LDGSTS) and ldmatrix
+    (LDSM)."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = {}
+    for name in REDESIGNED:
+        sass = subprocess.run(
+            [tool, "-sass", str(_build.library_path(name))], check=True,
+            capture_output=True, text=True, timeout=300).stdout
+        out[name] = {op: op in sass for op in ("HMMA", "LDGSTS", "LDSM")}
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Timing and bounds
 # ---------------------------------------------------------------------------
 
 
 def cuda_ms(torch, fn, args_sets, iters: int = 20) -> float:
     """Mean milliseconds per call with CUDA events, rotating over copies
-    of the inputs so that repeated calls do not find them in L2."""
+    of the inputs so that repeated calls do not find them in L2.  The
+    host paces the launches, so where a call enqueues slower than the
+    device runs it, this reads the host."""
     for a in args_sets[:2]:
         fn(*a)
     torch.cuda.synchronize()
@@ -135,6 +213,59 @@ def cuda_ms(torch, fn, args_sets, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def queued_ms(torch, fn, args_sets, iters: int = 20):
+    """(device ms, host ms) per call, over the same rotation of copies as
+    :func:`cuda_ms`.  The launches queue behind a sleeping kernel while
+    the host enqueues them, so the events time the device running the
+    calls back to back (the sleep grows until the host finishes
+    enqueueing inside it), and the host's clock times what one call costs
+    the host to enqueue."""
+    for a in args_sets[:2]:
+        fn(*a)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    slept = torch.cuda.Event(enable_timing=True)
+    cycles = SLEEP_CYCLES
+    for _ in range(4):
+        slept.record()
+        torch.cuda._sleep(cycles)
+        start.record()
+        t0 = time.perf_counter()
+        for i in range(iters):
+            fn(*args_sets[i % len(args_sets)])
+        host_ms = (time.perf_counter() - t0) * 1e3
+        end.record()
+        torch.cuda.synchronize()
+        if host_ms < slept.elapsed_time(start):
+            break
+        cycles *= 4
+    return start.elapsed_time(end) / iters, host_ms / iters
+
+
+def device_ms_by_kernel(torch, call, iters: int = 20):
+    """Device milliseconds per call of each kernel that ``call()``
+    launches, from ``torch.profiler``'s CUDA activity, by the kernel's
+    own name (namespaces and template arguments dropped)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            call()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", 0)
+        if us:
+            name = ev.key.replace("(anonymous namespace)::", "")
+            name = re.split(r"[<(]", name.replace("void ", "", 1))[0]
+            name = name.split("::")[-1].strip()
+            out[name] = out.get(name, 0.0) + us / 1e3 / iters
+    return out
+
+
 def copies(torch, tensors, call_bytes: float):
     """Enough copies of ``tensors`` that one round exceeds 2x the L2."""
     n = max(1, min(32, math.ceil(2 * L2_BYTES / max(call_bytes, 1.0))))
@@ -146,6 +277,30 @@ def bound(flops: float, nbytes: float, dtype: str):
     t_ops = flops / PEAK_FLOP_S[dtype] * 1e3
     t_mem = nbytes / PEAK_BYTES_S * 1e3
     return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
+
+
+TIMINGS = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+           "device_ms", "host_ms", "library_device_ms")
+
+
+def timings(row):
+    """A headline row's times, bound and ratios, for the ``kernels`` line.
+    ``ms``, ``plain_ms`` and ``library_ms`` are host-paced
+    (:func:`cuda_ms`); ``device_ms`` and ``library_device_ms`` are the
+    device's back-to-back time and ``host_ms`` the wrapper's enqueue cost
+    per call (:func:`queued_ms`)."""
+    return {**{k: row[k] for k in TIMINGS}, **ratios(row)}
+
+
+def ratios(row):
+    """``vs_library`` (ms / library_ms, null without a library call) and
+    ``bound_frac`` (bound_ms / ms), from one call's host-paced numbers,
+    and the same two from its device times."""
+    lib, dlib = row["library_ms"], row.get("library_device_ms")
+    return {"vs_library": row["ms"] / lib if lib else None,
+            "bound_frac": row["bound_ms"] / row["ms"],
+            "device_vs_library": row["device_ms"] / dlib if dlib else None,
+            "device_bound_frac": row["bound_ms"] / row["device_ms"]}
 
 
 def max_err(torch, got, want, dtype: str):
@@ -220,12 +375,20 @@ def flash_case(torch, F, B, S, Hq, Hkv, Dh, dtype, kv_frac, window, softcap,
     qp = (qs + torch.arange(S, device="cuda"))[:, None]
     j = torch.arange(Skv, device="cuda")[None, :]
     mask = ((qp >= j) & (j < L))[None, None]
-    lib_ms = cuda_ms(torch, lambda a, b, c: F.scaled_dot_product_attention(
-        a.transpose(1, 2), b.transpose(1, 2), c.transpose(1, 2),
-        attn_mask=mask, enable_gqa=True), sets)
+
+    def lib(a, b, c):
+        return F.scaled_dot_product_attention(
+            a.transpose(1, 2), b.transpose(1, 2), c.transpose(1, 2),
+            attn_mask=mask, enable_gqa=True)
+    lib_ms = cuda_ms(torch, lib, sets)
+    dev_ms, host_ms = queued_ms(
+        torch, lambda a, b, c: fops.flash_attention(a, b, c, **kw), sets)
+    lib_dev_ms, _ = queued_ms(torch, lib, sets)
     b_ms, b_by = bound(flops, nbytes, dtype)
     row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-               bound_by=b_by)
+               bound_by=b_by, device_ms=dev_ms, host_ms=host_ms,
+               library_device_ms=lib_dev_ms)
+    row.update(ratios(row))
     return row
 
 
@@ -277,12 +440,20 @@ def decode_case(torch, F, B, C, Hq, Hkv, Dh, dtype, window, softcap,
     plain_ms = cuda_ms(torch, lambda a, b, c: decode_attention_ref(
         a, b, c, slot_pos, q_pos, **kw), sets)
     mask = ((slot_pos >= 0) & (slot_pos <= q_pos[:, None]))[:, None, None]
-    lib_ms = cuda_ms(torch, lambda a, b, c: F.scaled_dot_product_attention(
-        a[:, :, None], b.transpose(1, 2), c.transpose(1, 2),
-        attn_mask=mask, enable_gqa=True), sets)
+
+    def lib(a, b, c):
+        return F.scaled_dot_product_attention(
+            a[:, :, None], b.transpose(1, 2), c.transpose(1, 2),
+            attn_mask=mask, enable_gqa=True)
+    lib_ms = cuda_ms(torch, lib, sets)
+    dev_ms, host_ms = queued_ms(torch, lambda a, b, c: dops.decode_attention(
+        a, b, c, slot_pos, q_pos, **kw), sets)
+    lib_dev_ms, _ = queued_ms(torch, lib, sets)
     b_ms, b_by = bound(flops, nbytes, dtype)
     row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-               bound_by=b_by)
+               bound_by=b_by, device_ms=dev_ms, host_ms=host_ms,
+               library_device_ms=lib_dev_ms)
+    row.update(ratios(row))
     return row
 
 
@@ -353,6 +524,8 @@ def paged_case(torch, F, B, T, Hq, Hkv, Dh, lengths, dtype, window, softcap,
                   * esz)
     ms = cuda_ms(torch, lambda a, b, c: dops.paged_verify_attention(
         a, b, c, bt, ln, **kw), sets)
+    by_kernel = device_ms_by_kernel(torch, lambda: dops.paged_verify_attention(
+        q, kp, vp, bt, ln, **kw))
     plain_ms = cuda_ms(torch, lambda a, b, c: paged_verify_attention_ref(
         a, b, c, bt, ln, **kw), sets)
     # library yardstick (never called by the port): SDPA over the
@@ -365,14 +538,25 @@ def paged_case(torch, F, B, T, Hq, Hkv, Dh, lengths, dtype, window, softcap,
     pos = torch.arange(C, device="cuda")[None, None]
     qpos = ln[:, None] - T + torch.arange(T, device="cuda")[None]
     mask = ((pos < ln[:, None, None]) & (pos <= qpos[..., None]))[:, None]
-    lib_ms = cuda_ms(torch, lambda a, b, c: F.scaled_dot_product_attention(
-        a.transpose(1, 2), b.transpose(1, 2), c.transpose(1, 2),
-        attn_mask=mask, enable_gqa=True), dense)
+
+    def lib(a, b, c):
+        return F.scaled_dot_product_attention(
+            a.transpose(1, 2), b.transpose(1, 2), c.transpose(1, 2),
+            attn_mask=mask, enable_gqa=True)
+    lib_ms = cuda_ms(torch, lib, dense)
+    dev_ms, host_ms = queued_ms(
+        torch, lambda a, b, c: dops.paged_verify_attention(
+            a, b, c, bt, ln, **kw), sets)
+    lib_dev_ms, _ = queued_ms(torch, lib, dense)
     del dense
     b_ms, b_by = bound(flops, nbytes, dtype)
     row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-               bound_by=b_by, library_note="SDPA over the pre-gathered "
-               "dense view, gather not timed")
+               bound_by=b_by, device_ms=dev_ms, host_ms=host_ms,
+               library_device_ms=lib_dev_ms,
+               library_note="SDPA over the pre-gathered "
+               "dense view, gather not timed",
+               device_ms_by_kernel=by_kernel)
+    row.update(ratios(row))
     return row
 
 
@@ -474,10 +658,14 @@ def ssd_case(torch, B, S, H, P, N, chunk, dtype, timed: bool, length=None,
 
     ms = cuda_ms(torch, on_views(partial(sops.ssd_scan, chunk=chunk)), sets)
     plain_ms = cuda_ms(torch, on_views(ssd_ref), sets, iters=5)
+    dev_ms, host_ms = queued_ms(
+        torch, on_views(partial(sops.ssd_scan, chunk=chunk)), sets)
     b_ms, b_by = bound(flops, nbytes, dtype)
     row.update(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
-               bound_by=b_by, bytes=nbytes, flops=flops,
+               bound_by=b_by, device_ms=dev_ms, host_ms=host_ms,
+               library_device_ms=None, bytes=nbytes, flops=flops,
                library_note="no single PyTorch call computes the SSD scan")
+    row.update(ratios(row))
     return row
 
 
@@ -1305,16 +1493,25 @@ WRAPPERS = {
 }
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="phases 1-3 only: build, hold and time the kernels")
+    ap.add_argument("--src", type=Path, default=SRC,
+                    help="the port's sources (with --kernels-only)")
+    args = ap.parse_args(argv)
+    if args.src != SRC and not args.kernels_only:
+        ap.error("--src needs --kernels-only")
+    src = args.src.resolve()
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
-        print(f"chip_smoke: no port sources under {SRC}", file=sys.stderr)
+    if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
+        print(f"chip_smoke: no port sources under {src}", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(SRC))
+    sys.path.insert(0, str(src))
     import torch.nn.functional as F
 
     # plain float32 references run in full float32 on the card
@@ -1340,6 +1537,26 @@ def main() -> int:
         print(f"  {name}: {secs:.1f} s, {len(regs)} instantiations, "
               f"registers {min(regs, default=0)}-{max(regs, default=0)}, "
               f"spill stores up to {max(spills, default=0)} B (ptxas -v)")
+    for name in REDESIGNED:
+        if name in built:
+            print(f"ptxas[{name}]: " + json.dumps(ptxas_table(built[name][1])))
+    if args.kernels_only:
+        head, errs = kernel_phase(torch, F)
+        print(f"total {time.perf_counter() - t_start:.1f} s")
+        print(card)
+        print(json.dumps({"src": str(src), "kernels": [
+            {"name": name, "max_abs_err_by_dtype": errs[name],
+             "shape": h["shape"], **timings(h)}
+            for name, h in head.items()]}))
+        print(json.dumps({"ok": True, "kernels_only": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        }}))
+        return 0
+    sass = sass_check(_build)
+    print("sass: " + json.dumps(sass))
+    check(all(all(ops.values()) for ops in sass.values()),
+          f"a redesigned kernel's SASS lacks HMMA or LDGSTS: {sass}")
 
     head, errs = kernel_phase(torch, F)
     cfg, params, reqs, dense_launches, _ = serve_phase(
@@ -1441,9 +1658,7 @@ def main() -> int:
             "launches_by_phase": {p: by_phase[p].get(name, 0)
                                   for p in by_phase},
             "max_abs_err": max(errs[name].values()),
-            "max_abs_err_by_dtype": errs[name], "ms": h["ms"],
-            "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"],
-            "bound_by": h["bound_by"], "library_ms": h["library_ms"],
+            "max_abs_err_by_dtype": errs[name], **timings(h),
         })
     hkv = 8 // MESH_TP
     for name, (source, replaces, serve, shard_row) in WRAPPERS.items():
@@ -1462,11 +1677,9 @@ def main() -> int:
             "max_abs_err": max(by_dtype.values()),
             "max_abs_err_by_dtype": by_dtype,
             "err_against": "plain version on the full tensors",
-            "ms": h["ms"], "plain_ms": h["plain_ms"],
-            "bound_ms": h["bound_ms"], "bound_by": h["bound_by"],
-            "library_ms": h["library_ms"],
-            "timed_at": "ms, plain_ms, bound_ms and library_ms: the "
-                        "unsharded kernel on one rank's shard, "
+            **timings(h),
+            "timed_at": "the timings and the bound: the unsharded kernel "
+                        "on one rank's shard, "
                         f"{h['shape']}",
             "wrapper_ms": mesh["wrapper_wall"][kind]["local"],
             "wrapper_ms_is": "the sharded branch as the model calls it, "

@@ -5,7 +5,9 @@
 A CUDA tensor launches the Hopper kernel (or raises); a CPU tensor takes
 the plain version in ``ref.py``.  ``launches`` counts ring-decode
 launches; ``paged_launches`` maps each query-token count T to the paged
-kernel's launches with it (T == 1 is paged decode).
+wrapper's calls that launched with it (T == 1 is paged decode).  In
+bfloat16 a paged call is two launches, the split over positions and the
+combine; it counts once.
 
 **Mesh sharding** (``repro/kernels/decode_attention/ops.py:48,86,122``).
 Pass ``mesh=`` (an instance's slice, axes ("data", "model")) and, when
@@ -27,6 +29,7 @@ the kernel launches the sharded branch made on this rank, keyed by
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
@@ -205,14 +208,25 @@ def _paged_kernel():
         lib = _build.load("paged_attention")
         fn = lib.repro_paged_attention
         fn.argtypes = (
-            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
             + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
+        scratch = lib.repro_paged_attention_scratch_floats
+        scratch.argtypes = [ctypes.c_int] * 8
+        scratch.restype = ctypes.c_longlong
         lib.repro_paged_attention_error_string.argtypes = [ctypes.c_int]
         lib.repro_paged_attention_error_string.restype = ctypes.c_char_p
-        _paged_fn = (fn, lib.repro_paged_attention_error_string)
+        _paged_fn = (fn, scratch, lib.repro_paged_attention_error_string)
     return _paged_fn
+
+
+@functools.lru_cache(maxsize=None)
+def _paged_scratch_floats(*shape_and_dtype: int) -> int:
+    """Floats of the partials scratch the paged kernel needs for (B, T,
+    Hq, Hkv, Dh, page_size, Pmax, dtype code): the library sizes its own
+    split over positions (0 in float32)."""
+    return int(_paged_kernel()[1](*shape_and_dtype))
 
 
 def paged_verify_attention(
@@ -275,12 +289,17 @@ def paged_verify_attention(
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    fn, err_str = _paged_kernel()
+    fn, _, err_str = _paged_kernel()
+    Pmax = block_tables.shape[1]
+    n_part = _paged_scratch_floats(B, T, Hq, Hkv, Dh, ps, Pmax, code)
+    part = (torch.empty(n_part, dtype=torch.float32, device=q.device)
+            if n_part else None)
     with torch.cuda.device(q.device):
         err = fn(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            B, T, Hq, Hkv, Dh, P, ps, block_tables.shape[1],
+            part.data_ptr() if part is not None else None,
+            B, T, Hq, Hkv, Dh, P, ps, Pmax,
             int(window) if window is not None else 0,
             float(softcap) if softcap is not None else 0.0,
             1.0 / Dh ** 0.5, code,

@@ -166,6 +166,62 @@ def test_flash_q_start_zero_is_bit_exact_with_no_offset(card):
     assert torch.equal(a, b)
 
 
+# The bf16 flash path: a block holds 64 / G positions of G grouped heads
+# (16 positions at G = 4), 64-key tiles on the tensor cores.
+@pytest.mark.parametrize("Dh,Hq,Hkv,S,q_start,window,softcap", [
+    (128, 32, 8, 200, None, None, None),  # S not a multiple of 16
+    (128, 32, 8, 37, None, None, None),
+    (64, 8, 2, 101, None, 48, 30.0),  # window and softcap
+    (16, 2, 2, 70, None, None, None),  # the drafter's heads: G = 1
+    (16, 4, 2, 512, None, 100, 50.0),
+    (128, 32, 8, 512, 0, None, None),
+    (128, 32, 8, 512, 256, None, None),
+    (128, 32, 8, 512, 496, None, None),
+    (64, 8, 2, 96, 256, 64, 30.0),
+])
+def test_flash_bf16_tensor_core_path_matches_plain(card, Dh, Hq, Hkv, S,
+                                                  q_start, window, softcap):
+    g = torch.Generator(device=card).manual_seed(S + Dh)
+    B = 2
+    Skv = S if q_start is None else 1024
+    q = torch.randn((B, S, Hq, Dh), generator=g, device=card).bfloat16()
+    k = torch.randn((B, Skv, Hkv, Dh), generator=g, device=card).bfloat16()
+    v = torch.randn((B, Skv, Hkv, Dh), generator=g, device=card).bfloat16()
+    qs = None if q_start is None else torch.full(
+        (B,), q_start, dtype=torch.int32, device=card)
+    base = 0 if q_start is None else q_start
+    kl = torch.tensor([base + S, base + S // 2 + 1], dtype=torch.int32,
+                      device=card)
+    kw = dict(causal=True, window=window, softcap=softcap, kv_len=kl,
+              q_start=qs)
+    n0 = fops.launches
+    got = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fops.launches == n0 + 1
+    want = attention_ref(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL["bfloat16"],
+                               rtol=TOL["bfloat16"])
+
+
+@pytest.mark.parametrize("Dh", [16, 64, 128])
+def test_flash_bf16_row_without_keys_averages_v(card, Dh):
+    """kv_len = 0: every key masked, so every query row averages V over
+    all keys, as the plain version's finite -1e30 does."""
+    g = torch.Generator(device=card).manual_seed(Dh)
+    S, Hq, Hkv = 45, 8, 2
+    q = torch.randn((2, S, Hq, Dh), generator=g, device=card).bfloat16()
+    k = torch.randn((2, S, Hkv, Dh), generator=g, device=card).bfloat16()
+    v = torch.randn((2, S, Hkv, Dh), generator=g, device=card).bfloat16()
+    kl = torch.tensor([0, S], dtype=torch.int32, device=card)
+    got = flash_attention(q, k, v, kv_len=kl)
+    mean_v = v[0].float().mean(dim=0).repeat_interleave(Hq // Hkv, dim=0)
+    torch.testing.assert_close(got[0].float(), mean_v.expand(S, Hq, Dh),
+                               atol=TOL["bfloat16"], rtol=TOL["bfloat16"])
+    want = attention_ref(q, k, v, kv_len=kl)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL["bfloat16"],
+                               rtol=TOL["bfloat16"])
+
+
 def _paged_inputs(card, dtype, B, T, Hq, Hkv, Dh, ps, Pmax, lengths, seed):
     """A pool of (2B + 8) * Pmax pages plus scratch, shuffled disjoint
     tables with -1 past each row's last page."""
@@ -221,6 +277,63 @@ def test_paged_t1_is_bit_exact_with_paged_decode(card, dtype):
     ver = paged_verify_attention(q, kp, vp, bt, ln)
     dec = paged_decode_attention(q[:, 0].contiguous(), kp, vp, bt, ln)
     assert torch.equal(ver[:, 0], dec)
+
+
+# The bf16 paged path: splits of SPLIT positions (csrc/paged_attention.cu),
+# then the combine pass.
+_L = 128
+
+
+def test_paged_bf16_scratch_holds_a_partial_per_split(card):
+    """The library sizes the partials by its own split: at the main shape
+    (B=8, Hkv=8, tables of 64 pages of 16) 1,024 / SPLIT splits, each
+    T * G rows of (Dh accumulators, m, l); none in float32."""
+    for T in (1, 3):
+        assert dops._paged_scratch_floats(8, T, 32, 8, 128, 16, 64, 1) == \
+            8 * 8 * (1024 // _L) * T * 4 * 130
+    assert dops._paged_scratch_floats(8, 1, 32, 8, 128, 16, 64, 0) == 0
+
+
+@pytest.mark.parametrize("T,lengths,window", [
+    # one split less one, one split, one split and one more, page
+    # boundaries, the main path's full row, and an empty slot
+    (1, [_L - 1, _L, _L + 1, 144, 145, 1024, 16, 0], None),
+    (3, [_L - 1, _L, _L + 1, 144, 145, 1024, 17, 0], None),
+    # a window that leaves the first splits wholly masked
+    (1, [600, 300, 1000, 129], 100),
+    (3, [600, 300, 1000, 129], 100),
+])
+def test_paged_bf16_splits_match_plain(card, T, lengths, window):
+    q, kp, vp, bt, ln = _paged_inputs(card, "bfloat16", len(lengths), T, 32,
+                                      8, 128, 16, 64, lengths, seed=20 + T)
+    got = paged_verify_attention(q, kp, vp, bt, ln, window=window)
+    torch.cuda.synchronize()
+    want = paged_verify_attention_ref(q, kp, vp, bt, ln, window=window)
+    live = [b for b, n in enumerate(lengths) if n > 0]
+    torch.testing.assert_close(got[live].float(), want[live].float(),
+                               atol=TOL["bfloat16"], rtol=TOL["bfloat16"])
+    for b, n in enumerate(lengths):
+        if n == 0:
+            assert torch.equal(got[b], torch.zeros_like(got[b]))
+    assert torch.isfinite(got.float()).all()
+
+
+@pytest.mark.parametrize("T", [1, 3])
+def test_paged_bf16_is_reproducible_and_row_independent(card, T):
+    """No float atomics and splits fixed in positions: two identical
+    calls agree bitwise, and a row computed alone equals the same row
+    inside a batch of 8."""
+    lengths = [1000, 1, 16, 17, 300, 64, 65, 0]
+    q, kp, vp, bt, ln = _paged_inputs(card, "bfloat16", 8, T, 32, 8, 128,
+                                      16, 64, lengths, seed=30 + T)
+    a = paged_verify_attention(q, kp, vp, bt, ln)
+    b = paged_verify_attention(q, kp, vp, bt, ln)
+    assert torch.equal(a, b)
+    for row in (0, 4):
+        alone = paged_verify_attention(
+            q[row:row + 1].contiguous(), kp, vp, bt[row:row + 1].contiguous(),
+            ln[row:row + 1].contiguous())
+        assert torch.equal(alone[0], a[row])
 
 
 def test_paged_matches_ring_decode_on_the_same_cache(card):

@@ -392,6 +392,23 @@ def test_paged_wrapper_rejects_mismatched_tables():
                                torch.zeros(2, dtype=torch.int32))
 
 
+def test_library_path_changes_with_a_shared_header(tmp_path, monkeypatch):
+    """An edited ``csrc/*.cuh`` names a new library, so it rebuilds."""
+    from repro_torch.kernels import _build
+
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    header = tmp_path / "h.cuh"
+    header.write_text("// v1\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    first = _build.library_path("k")
+    header.write_text("// v2\n")
+    assert _build.library_path("k") != first
+    header.write_text("// v1\n")
+    assert _build.library_path("k") == first
+    (tmp_path / "other.cuh").write_text("// new\n")
+    assert _build.library_path("k") != first
+
+
 # ---------------------------------------------------------------------------
 # SSD chunked scan
 # ---------------------------------------------------------------------------
