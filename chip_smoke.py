@@ -13,7 +13,8 @@ Phases, in order; any failure exits non-zero:
 2. build of the hand-written kernels from ``src/repro_torch/kernels/csrc``
    (registers, shared memory and spills of the tensor-core kernels from
    ``ptxas -v``), and a check that ``cuobjdump -sass`` of those libraries
-   shows the tensor-core product (HMMA) and the async copy (LDGSTS);
+   shows what ``REDESIGNED`` requires of each: the tensor-core product
+   (HMMA), and the async copy (LDGSTS) where a kernel stages by cp.async;
 3. each kernel against its plain PyTorch version on the card, at the
    main path's shapes, with CUDA-event times, the roofline bound and,
    where one PyTorch call computes the same function, its time as a
@@ -132,8 +133,15 @@ def card_identity() -> str:
 # What the compiler made of the redesigned kernels
 # ---------------------------------------------------------------------------
 
-# the kernels rebuilt on the tensor cores with cp.async staging
-REDESIGNED = ("flash_prefill", "paged_attention")
+# the kernels rebuilt on the tensor cores, and what the SASS of each
+# library must show: the tensor-core product (HMMA), the async copy
+# (LDGSTS), ldmatrix (LDSM)
+REDESIGNED = {
+    "flash_prefill": ("HMMA", "LDGSTS", "LDSM"),
+    "paged_attention": ("HMMA", "LDGSTS", "LDSM"),
+    "ring_decode": ("HMMA", "LDGSTS", "LDSM"),
+    "ssd_scan": ("HMMA", "LDGSTS", "LDSM"),
+}
 
 
 def _mangled_name(mangled: str) -> str:
@@ -174,20 +182,22 @@ def ptxas_table(log: str):
     return rows
 
 
-def sass_check(_build):
-    """Whether ``cuobjdump -sass`` of each redesigned library shows the
-    tensor-core product (HMMA), the async copy (LDGSTS) and ldmatrix
-    (LDSM)."""
+def sass_listings(_build):
+    """``cuobjdump -sass`` of each redesigned library: {library: text}."""
     import shutil
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    out = {}
-    for name in REDESIGNED:
-        sass = subprocess.run(
-            [tool, "-sass", str(_build.library_path(name))], check=True,
-            capture_output=True, text=True, timeout=300).stdout
-        out[name] = {op: op in sass for op in ("HMMA", "LDGSTS", "LDSM")}
-    return out
+    return {name: subprocess.run(
+        [tool, "-sass", str(_build.library_path(name))], check=True,
+        capture_output=True, text=True, timeout=300).stdout
+        for name in REDESIGNED}
+
+
+def sass_ops(listings):
+    """{library: {op: shown}}: whether each redesigned library's SASS
+    listing shows each instruction ``REDESIGNED`` requires of it."""
+    return {name: {op: op in listings[name] for op in ops}
+            for name, ops in REDESIGNED.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -259,11 +269,17 @@ def device_ms_by_kernel(torch, call, iters: int = 20):
     for ev in prof.key_averages():
         us = getattr(ev, "device_time_total", 0)
         if us:
-            name = ev.key.replace("(anonymous namespace)::", "")
-            name = re.split(r"[<(]", name.replace("void ", "", 1))[0]
-            name = name.split("::")[-1].strip()
+            name = kernel_name(ev.key)
             out[name] = out.get(name, 0.0) + us / 1e3 / iters
     return out
+
+
+def kernel_name(key: str) -> str:
+    """A profiler event's kernel name without its return type,
+    namespaces, template arguments and parameters."""
+    name = key.replace("(anonymous namespace)::", "")
+    name = re.split(r"[<(]", name.replace("void ", "", 1))[0]
+    return name.split("::")[-1].strip()
 
 
 def copies(torch, tensors, call_bytes: float):
@@ -448,13 +464,46 @@ def decode_case(torch, F, B, C, Hq, Hkv, Dh, dtype, window, softcap,
     lib_ms = cuda_ms(torch, lib, sets)
     dev_ms, host_ms = queued_ms(torch, lambda a, b, c: dops.decode_attention(
         a, b, c, slot_pos, q_pos, **kw), sets)
+    by_kernel = device_ms_by_kernel(torch, lambda: dops.decode_attention(
+        q, kc, vc, slot_pos, q_pos, **kw))
     lib_dev_ms, _ = queued_ms(torch, lib, sets)
     b_ms, b_by = bound(flops, nbytes, dtype)
     row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
                bound_by=b_by, device_ms=dev_ms, host_ms=host_ms,
-               library_device_ms=lib_dev_ms)
+               library_device_ms=lib_dev_ms, device_ms_by_kernel=by_kernel)
     row.update(ratios(row))
     return row
+
+
+def ring_empty_case(torch, dtype, C=1000, Hq=32, Hkv=8, Dh=128):
+    """Rows with no valid slot, over a ring that is not a whole number of
+    the kernel's runs: every slot empty (-1), and every slot holding a
+    position after q's, beside a row that has valid slots.  Each empty
+    row must come out of the combine as the mean of V over the C slots."""
+    from repro_torch.kernels.decode_attention import ops as dops
+
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(C + Dh)
+    q = torch.randn((3, Hq, Dh), generator=g, device="cuda").to(dt)
+    kc = torch.randn((3, C, Hkv, Dh), generator=g, device="cuda").to(dt)
+    vc = torch.randn((3, C, Hkv, Dh), generator=g, device="cuda").to(dt)
+    slots = torch.arange(C, device="cuda")
+    slot_pos = torch.stack([torch.where(slots < 300, slots, -1),
+                            torch.full_like(slots, -1),
+                            slots + 20]).to(torch.int32)
+    q_pos = torch.tensor([299, 0, 10], dtype=torch.int32, device="cuda")
+    got = dops.decode_attention(q, kc, vc, slot_pos, q_pos)
+    torch.cuda.synchronize()
+    errs = []
+    for row in (1, 2):
+        want = vc[row].float().mean(dim=0).repeat_interleave(Hq // Hkv, dim=0)
+        errs.append(float((got[row].float() - want).abs().max()))
+        check(errs[-1] <= TOL[dtype] * (1 + float(want.abs().max())),
+              f"ring_decode: a row with no valid slot (row {row}, C={C}, "
+              f"{dtype}) is not the mean of V: {errs[-1]}")
+    return {"shape": f"B=3 C={C} Hq={Hq} Hkv={Hkv} Dh={Dh}", "dtype": dtype,
+            "empty_rows": "all -1; all after q_pos", "empty_row_errs": errs,
+            "max_abs_err": max(errs)}
 
 
 def paged_case(torch, F, B, T, Hq, Hkv, Dh, lengths, dtype, window, softcap,
@@ -660,11 +709,14 @@ def ssd_case(torch, B, S, H, P, N, chunk, dtype, timed: bool, length=None,
     plain_ms = cuda_ms(torch, on_views(ssd_ref), sets, iters=5)
     dev_ms, host_ms = queued_ms(
         torch, on_views(partial(sops.ssd_scan, chunk=chunk)), sets)
+    by_kernel = device_ms_by_kernel(
+        torch, lambda: sops.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk))
     b_ms, b_by = bound(flops, nbytes, dtype)
     row.update(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
                bound_by=b_by, device_ms=dev_ms, host_ms=host_ms,
                library_device_ms=None, bytes=nbytes, flops=flops,
-               library_note="no single PyTorch call computes the SSD scan")
+               library_note="no single PyTorch call computes the SSD scan",
+               device_ms_by_kernel=by_kernel)
     row.update(ratios(row))
     return row
 
@@ -714,6 +766,7 @@ def kernel_phase(torch, F):
         decode_rows.append(decode_case(
             torch, F, SLOTS, MAX_LEN, dtype=dtype, window=None, softcap=None,
             timed=False, **drafter))
+        decode_rows.append(ring_empty_case(torch, dtype))
     # ragged rows: full, page boundaries, short, and one empty slot
     lengths = [1024, 700, 513, 512, 300, 17, SPEC_K + 2, 0]
     paged_rows = {1: [], SPEC_K + 1: []}
@@ -757,6 +810,10 @@ def kernel_phase(torch, F):
     for name, rs in rows.items():
         for r in rs:
             print(f"  {name}: " + json.dumps(r))
+    print("ssd_scan worst scale-normalised error, y / state, by dtype: "
+          + json.dumps({d: [max(r[k] for r in ssd_rows if r["dtype"] == d)
+                            for k in ("scaled_err_y", "scaled_err_state")]
+                        for d in ("bfloat16", "float32")}))
     head = {name: next(r for r in rs if "ms" in r)
             for name, rs in rows.items()}
     errs = {name: {dtype: max(r["max_abs_err"] for r in rs
@@ -1553,10 +1610,10 @@ def main(argv=None) -> int:
             "count": torch.cuda.device_count(),
         }}))
         return 0
-    sass = sass_check(_build)
+    sass = sass_ops(sass_listings(_build))
     print("sass: " + json.dumps(sass))
     check(all(all(ops.values()) for ops in sass.values()),
-          f"a redesigned kernel's SASS lacks HMMA or LDGSTS: {sass}")
+          f"a redesigned kernel's SASS lacks a required instruction: {sass}")
 
     head, errs = kernel_phase(torch, F)
     cfg, params, reqs, dense_launches, _ = serve_phase(

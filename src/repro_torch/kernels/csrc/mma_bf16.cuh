@@ -1,5 +1,6 @@
 // Warp-level tensor-core and async-copy helpers for Hopper (sm_90a), in
-// inline PTX, shared by flash_prefill.cu and paged_attention.cu.
+// inline PTX, shared by the bf16 bodies of every kernel in csrc/, and the
+// host's per-device opt-in to large dynamic shared memory.
 //
 // No CUTLASS or CuTe header: every build compiles from scratch, and
 // those headers cost minutes of nvcc.
@@ -17,6 +18,8 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stddef.h>
 #include <stdint.h>
 
 namespace mma {
@@ -84,6 +87,24 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// Two floats as a sum of K bf16 pairs, each packed as pack_bf16x2 packs:
+// part k holds what rounding to parts 0 .. k-1 lost (each difference is
+// exact in float32).  K = 3 carries all 24 bits of a float32; a product
+// with an exact bf16 operand then takes K mma_bf16, one a part, smallest
+// part first.
+template <int K>
+__device__ __forceinline__ void split_bf16x2(float a, float b,
+                                             uint32_t (&part)[K]) {
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+    const float2 hf = __bfloat1622float2(h);
+    part[k] = *reinterpret_cast<const uint32_t*>(&h);
+    a -= hf.x;
+    b -= hf.y;
+  }
+}
+
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
@@ -92,6 +113,27 @@ __device__ __forceinline__ float quad_max(float x) {
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Host: let `kernel` use `bytes` of dynamic shared memory on the current
+// device.  The attribute is per device, so `done` (one static array per
+// kernel instantiation, indexed by device) records what each device has
+// been given; a launch on a new device sets it again.
+constexpr int MAX_DEVICES = 64;
+
+inline cudaError_t opt_in_smem(const void* kernel, size_t bytes,
+                               size_t (&done)[MAX_DEVICES]) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (done[dev] >= bytes) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+  if (err == cudaSuccess) done[dev] = bytes;
+  return err;
 }
 
 }  // namespace mma

@@ -4,10 +4,10 @@
 
 A CUDA tensor launches the Hopper kernel (or raises); a CPU tensor takes
 the plain version in ``ref.py``.  ``launches`` counts ring-decode
-launches; ``paged_launches`` maps each query-token count T to the paged
-wrapper's calls that launched with it (T == 1 is paged decode).  In
-bfloat16 a paged call is two launches, the split over positions and the
-combine; it counts once.
+calls that launched; ``paged_launches`` maps each query-token count T to
+the paged wrapper's calls that launched with it (T == 1 is paged
+decode).  In bfloat16 a call of either kernel is two launches, the split
+(over ring slots, or over positions) and the combine; it counts once.
 
 **Mesh sharding** (``repro/kernels/decode_attention/ops.py:48,86,122``).
 Pass ``mesh=`` (an instance's slice, axes ("data", "model")) and, when
@@ -120,14 +120,25 @@ def _kernel():
         lib = _build.load("ring_decode")
         fn = lib.repro_ring_decode
         fn.argtypes = (
-            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
             + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
+        scratch = lib.repro_ring_decode_scratch_floats
+        scratch.argtypes = [ctypes.c_int] * 6
+        scratch.restype = ctypes.c_longlong
         lib.repro_ring_decode_error_string.argtypes = [ctypes.c_int]
         lib.repro_ring_decode_error_string.restype = ctypes.c_char_p
-        _fn = (fn, lib.repro_ring_decode_error_string)
+        _fn = (fn, scratch, lib.repro_ring_decode_error_string)
     return _fn
+
+
+@functools.lru_cache(maxsize=None)
+def _ring_scratch_floats(*shape_and_dtype: int) -> int:
+    """Floats of the partials scratch the ring kernel needs for (B, C, Hq,
+    Hkv, Dh, dtype code): the library sizes its own split over slots (0
+    in float32)."""
+    return int(_kernel()[1](*shape_and_dtype))
 
 
 def decode_attention(
@@ -183,11 +194,15 @@ def decode_attention(
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    fn, err_str = _kernel()
+    fn, _, err_str = _kernel()
+    n_part = _ring_scratch_floats(B, C, Hq, Hkv, Dh, code)
+    part = (torch.empty(n_part, dtype=torch.float32, device=q.device)
+            if n_part else None)
     with torch.cuda.device(q.device):
         err = fn(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             slot_pos.data_ptr(), q_pos.data_ptr(), out.data_ptr(),
+            part.data_ptr() if part is not None else None,
             B, C, Hq, Hkv, Dh,
             int(window) if window is not None else 0,
             float(softcap) if softcap is not None else 0.0,

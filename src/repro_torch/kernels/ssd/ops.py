@@ -1,11 +1,14 @@
 """Wrapper of the Mamba2 SSD chunked-scan kernel (``csrc/ssd_scan.cu``).
 
 A CUDA tensor launches the Hopper kernel (or raises); a CPU tensor takes
-the plain version in ``ref.py``.  ``launches`` counts kernel launches.
+the plain version in ``ref.py``.  ``launches`` counts the calls that
+launched.  In bfloat16 a call is two launches, the C.B^T pre-pass and the
+scan; it counts once.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -25,14 +28,24 @@ def _kernel():
         lib = _build.load("ssd_scan")
         fn = lib.repro_ssd_scan
         fn.argtypes = (
-            [ctypes.c_void_p] * 7 + [ctypes.c_longlong] * 6
+            [ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 6
             + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
+        scratch = lib.repro_ssd_scan_scratch_floats
+        scratch.argtypes = [ctypes.c_int] * 3
+        scratch.restype = ctypes.c_longlong
         lib.repro_ssd_scan_error_string.argtypes = [ctypes.c_int]
         lib.repro_ssd_scan_error_string.restype = ctypes.c_char_p
-        _fn = (fn, lib.repro_ssd_scan_error_string)
+        _fn = (fn, scratch, lib.repro_ssd_scan_error_string)
     return _fn
+
+
+@functools.lru_cache(maxsize=None)
+def _cb_scratch_floats(B: int, S: int, code: int) -> int:
+    """Floats of the C.B^T scratch the kernel needs for (B, S, dtype
+    code): the library sizes its own sub-chunks (0 in float32)."""
+    return int(_kernel()[1](B, S, code))
 
 
 def ssd_scan(
@@ -90,15 +103,25 @@ def ssd_scan(
         raise ValueError("B and C must have contiguous rows")
     if not (dt.is_contiguous() and A.is_contiguous()):
         raise ValueError("dt and A must be contiguous")
+    if code == 1:  # copied in 16-byte pieces through their strides
+        for name, t in (("x", x), ("B", Bm), ("C", Cm)):
+            if t.data_ptr() % 16 or any(st * t.element_size() % 16
+                                        for st in t.stride()[:2]):
+                raise ValueError(f"{name} must be 16-byte aligned, its "
+                                 "batch and sequence strides too")
     y = torch.empty((B, S, H, P), dtype=x.dtype, device=x.device)
     state = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
     if y.numel() == 0:
         return y, state
-    fn, err_str = _kernel()
+    fn, _, err_str = _kernel()
+    n_cb = _cb_scratch_floats(B, S, code)
+    cb = (torch.empty(n_cb, dtype=torch.float32, device=x.device)
+          if n_cb else None)
     with torch.cuda.device(x.device):
         err = fn(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
             Cm.data_ptr(), y.data_ptr(), state.data_ptr(),
+            cb.data_ptr() if cb is not None else None,
             x.stride(0), x.stride(1), Bm.stride(0), Bm.stride(1),
             Cm.stride(0), Cm.stride(1), B, S, H, P, N, code,
             torch.cuda.current_stream(x.device).cuda_stream,

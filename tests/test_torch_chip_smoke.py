@@ -80,3 +80,83 @@ def test_ratios_compare_within_one_method(library_ms, library_device_ms,
     assert got.keys() == want.keys()
     for k, v in want.items():
         assert got[k] == (pytest.approx(v) if v is not None else None)
+
+
+# ptxas -v of the ring and SSD libraries' redesigned kernels and the
+# float32 bodies they keep beside them
+PTXAS_RING_SSD = """\
+ptxas info    : Compiling entry function '_ZN47_GLOBAL__N__caccf2de_14_ring_decode_cu_5ce215f817ring_split_kernelILi128ELi1EEEvNS_6ParamsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN47_GLOBAL__N__caccf2de_14_ring_decode_cu_5ce215f817ring_split_kernelILi128ELi1EEEvNS_6ParamsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 96 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN47_GLOBAL__N__caccf2de_14_ring_decode_cu_5ce215f819ring_combine_kernelENS_6ParamsEi' for 'sm_90a'
+ptxas info    : Function properties for _ZN47_GLOBAL__N__caccf2de_14_ring_decode_cu_5ce215f819ring_combine_kernelENS_6ParamsEi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 30 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN44_GLOBAL__N__caccf2de_11_ssd_scan_cu_5ce215f816ssd_chunk_kernelILi128EEEvNS_6ParamsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN44_GLOBAL__N__caccf2de_11_ssd_scan_cu_5ce215f816ssd_chunk_kernelILi128EEEvNS_6ParamsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN44_GLOBAL__N__caccf2de_11_ssd_scan_cu_5ce215f815ssd_scan_kernelIfLi128EEEvNS_6ParamsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN44_GLOBAL__N__caccf2de_11_ssd_scan_cu_5ce215f815ssd_scan_kernelIfLi128EEEvNS_6ParamsE
+    8 bytes stack frame, 20 bytes spill stores, 20 bytes spill loads
+ptxas info    : Used 64 registers, used 1 barriers
+"""
+
+
+@pytest.mark.parametrize("label,registers,spill", [
+    ("ring_split_kernel<128,1>", 96, 0),
+    ("ring_combine_kernel<>", 30, 0),
+    ("ssd_chunk_kernel<128>", 128, 0),
+    ("ssd_scan_kernel<float,128>", 64, 20),
+])
+def test_ptxas_table_reads_the_ring_and_ssd_kernels(label, registers,
+                                                    spill):
+    rows = cs.ptxas_table(PTXAS_RING_SSD)
+    assert len(rows) == 4
+    assert rows[label]["registers"] == registers
+    assert rows[label]["spill_store_bytes"] == spill
+
+
+# a SASS listing with every instruction the redesigned kernels use
+_SASS = ("/*0050*/ HMMA.16816.F32.BF16 R4, R8, R12, R4 ;\n"
+         "/*0090*/ @P0 LDGSTS.E.BYPASS.128 [R3], desc[UR4][R4.64] ;\n"
+         "/*00a0*/ LDSM.16.M88.4 R8, [R2] ;\n")
+
+
+@pytest.mark.parametrize("lib,drop", [
+    (None, None),  # all present
+    ("ring_decode", "HMMA"),
+    ("ring_decode", "LDGSTS"),
+    ("ssd_scan", "HMMA"),
+    ("flash_prefill", "LDSM"),
+])
+def test_sass_ops_flag_a_library_missing_its_instructions(lib, drop):
+    """Every redesigned library must show the tensor-core product; the
+    ring's must show the async copy too."""
+    assert cs.REDESIGNED["ring_decode"][:2] == ("HMMA", "LDGSTS")
+    assert "HMMA" in cs.REDESIGNED["ssd_scan"]
+    listings = {name: _SASS for name in cs.REDESIGNED}
+    if lib is not None:
+        listings[lib] = "\n".join(
+            line for line in _SASS.splitlines() if drop not in line)
+    got = cs.sass_ops(listings)
+    assert set(got) == set(cs.REDESIGNED)
+    missing = {name: [op for op, shown in ops.items() if not shown]
+               for name, ops in got.items()}
+    want = {name: [] for name in cs.REDESIGNED}
+    if lib is not None:
+        want[lib] = [drop]
+    assert missing == want
+
+
+@pytest.mark.parametrize("key,name", [
+    ("void (anonymous namespace)::ring_split_kernel<128, 1>((anonymous "
+     "namespace)::Params)", "ring_split_kernel"),
+    ("(anonymous namespace)::ring_combine_kernel((anonymous "
+     "namespace)::Params, int)", "ring_combine_kernel"),
+    ("void (anonymous namespace)::ssd_cb_kernel<128>((anonymous "
+     "namespace)::Params)", "ssd_cb_kernel"),
+])
+def test_kernel_name_drops_namespaces_and_templates(key, name):
+    assert cs.kernel_name(key) == name

@@ -357,6 +357,141 @@ def test_paged_matches_ring_decode_on_the_same_cache(card):
     torch.testing.assert_close(paged, ring, atol=2e-5, rtol=2e-5)
 
 
+# The bf16 ring path: runs of SPLIT ring slots (csrc/ring_decode.cu), a run
+# with no valid slot skipped unless its whole row has none, then the
+# combine pass.
+_RUN = 128
+
+
+def _ring_inputs(card, rows, C, Hq, Hkv, Dh, seed):
+    """bf16 q, K and V and the ring's slot positions, one row per entry of
+    ``rows``: ("fill", n) is the main path's identity layout (slot i holds
+    position i for i < n, the rest empty; q at n - 1, n = 0 an empty row);
+    ("wrap", n) a ring that has wrapped, slot c holding the last position
+    p < n with p = c mod C (q at n - 1); ("future", n) every slot holding
+    a position after q's n, so that none is valid."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    B = len(rows)
+    q = torch.randn((B, Hq, Dh), generator=g, device=card).bfloat16()
+    k = torch.randn((B, C, Hkv, Dh), generator=g, device=card).bfloat16()
+    v = torch.randn((B, C, Hkv, Dh), generator=g, device=card).bfloat16()
+    c = torch.arange(C, device=card)
+    pos, qpos = [], []
+    for kind, n in rows:
+        if kind == "fill":
+            pos.append(torch.where(c < n, c, -1))
+            qpos.append(max(n - 1, 0))
+        elif kind == "wrap":
+            last = n - 1 - torch.remainder(n - 1 - c, C)
+            pos.append(torch.where(last >= 0, last, -1))
+            qpos.append(n - 1)
+        else:
+            pos.append(c + n + 1)
+            qpos.append(n)
+    slot_pos = torch.stack(pos).to(torch.int32)
+    q_pos = torch.tensor(qpos, dtype=torch.int32, device=card)
+    return q, k, v, slot_pos, q_pos
+
+
+def _mean_of_v(v, row, G):
+    """A row with no valid slot: the mean of V over every slot, per q head."""
+    return v[row].float().mean(dim=0).repeat_interleave(G, dim=0)
+
+
+@pytest.mark.parametrize("C,rows,window,softcap", [
+    # valid slots ending one before, at and one after a run boundary, at
+    # the next one, the main path's full row, one slot, an empty slot
+    (1024, [("fill", _RUN - 1), ("fill", _RUN), ("fill", _RUN + 1),
+            ("fill", 2 * _RUN), ("fill", 2 * _RUN - 1), ("fill", 1024),
+            ("fill", 1), ("fill", 0)], None, None),
+    (1024, [("fill", _RUN - 1), ("fill", _RUN), ("fill", _RUN + 1),
+            ("fill", 700), ("fill", 0)], None, 30.0),
+    # wrapped rings: positions out of slot order, every slot written, or
+    # written part of the way round; a row whose slots all lie ahead of q
+    (512, [("wrap", 600), ("wrap", 513), ("wrap", 1000), ("wrap", 300),
+           ("fill", 0), ("future", 10)], None, None),
+    # a window of 100 leaves whole runs empty in rows that have valid
+    # slots: 600 keeps slots 0..87 and 500..511 (runs 0 and 3), 1000
+    # slots 388..487 (run 3), the identity row 300 slots 200..299
+    (512, [("wrap", 600), ("wrap", 513), ("wrap", 1000), ("fill", 300),
+           ("fill", 0)], 100, None),
+])
+def test_ring_bf16_runs_match_plain(card, C, rows, window, softcap):
+    q, k, v, sp, qp = _ring_inputs(card, rows, C, 32, 8, 128, seed=C + len(rows))
+    kw = dict(window=window, softcap=softcap)
+    n0 = dops.launches
+    got = decode_attention(q, k, v, sp, qp, **kw)
+    torch.cuda.synchronize()
+    assert dops.launches == n0 + 1  # split + combine count once
+    want = decode_attention_ref(q, k, v, sp, qp, **kw)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL["bfloat16"],
+                               rtol=TOL["bfloat16"])
+    for row, (kind, n) in enumerate(rows):
+        if (kind, n) == ("fill", 0) or kind == "future":
+            torch.testing.assert_close(got[row].float(), _mean_of_v(v, row, 4),
+                                       atol=TOL["bfloat16"],
+                                       rtol=TOL["bfloat16"])
+
+
+@pytest.mark.parametrize("Dh", [16, 64, 128])
+@pytest.mark.parametrize("G", [1, 3, 4, 12, 32])
+def test_ring_bf16_head_shapes_match_plain(card, G, Dh):
+    """G grouped heads a kv head (3 and 12 are not powers of two; 32 takes
+    two row fragments) at every head dim, over a ring of 1000 slots (not
+    a whole number of runs) with an empty row."""
+    Hkv = 2
+    rows = [("fill", 1000), ("fill", _RUN + 1), ("fill", 0), ("wrap", 1500)]
+    q, k, v, sp, qp = _ring_inputs(card, rows, 1000, G * Hkv, Hkv, Dh,
+                                   seed=G * 1000 + Dh)
+    got = decode_attention(q, k, v, sp, qp)
+    torch.cuda.synchronize()
+    want = decode_attention_ref(q, k, v, sp, qp)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL["bfloat16"],
+                               rtol=TOL["bfloat16"])
+    torch.testing.assert_close(got[2].float(), _mean_of_v(v, 2, G),
+                               atol=TOL["bfloat16"], rtol=TOL["bfloat16"])
+
+
+def test_ring_bf16_tp2_shard_shape(card):
+    """One rank's shard at tp=2 (Hq=16, Hkv=4: G=2), the main path's rows."""
+    rows = [("fill", n) for n in (1024, 700, 513, 512, 300, 129, 74, 0)]
+    q, k, v, sp, qp = _ring_inputs(card, rows, 1024, 16, 4, 128, seed=16)
+    got = decode_attention(q, k, v, sp, qp)
+    torch.cuda.synchronize()
+    want = decode_attention_ref(q, k, v, sp, qp)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL["bfloat16"],
+                               rtol=TOL["bfloat16"])
+
+
+def test_ring_bf16_is_reproducible_and_row_independent(card):
+    """No float atomics and runs fixed in slots: two identical calls agree
+    bitwise, and a row computed alone equals the same row inside a batch
+    of 8."""
+    rows = [("fill", 1000), ("fill", 1), ("wrap", 1300), ("fill", 129),
+            ("fill", 300), ("fill", 0), ("future", 5), ("fill", 512)]
+    q, k, v, sp, qp = _ring_inputs(card, rows, 1024, 32, 8, 128, seed=31)
+    a = decode_attention(q, k, v, sp, qp)
+    b = decode_attention(q, k, v, sp, qp)
+    assert torch.equal(a, b)
+    for row in (0, 2, 5):
+        alone = decode_attention(
+            q[row:row + 1].contiguous(), k[row:row + 1].contiguous(),
+            v[row:row + 1].contiguous(), sp[row:row + 1].contiguous(),
+            qp[row:row + 1].contiguous())
+        assert torch.equal(alone[0], a[row])
+
+
+def test_ring_bf16_scratch_holds_a_partial_per_run(card):
+    """The library sizes the partials by its own runs: at the main shape
+    (B=8, C=1024, Hq=32, Hkv=8, Dh=128) 1,024 / SPLIT runs, each G rows
+    of (Dh accumulators, m, l); none in float32."""
+    assert dops._ring_scratch_floats(8, 1024, 32, 8, 128, 1) == \
+        8 * 8 * (1024 // _RUN) * 4 * 130
+    assert dops._ring_scratch_floats(8, 1000, 32, 8, 128, 1) == \
+        8 * 8 * 8 * 4 * 130
+    assert dops._ring_scratch_floats(8, 1024, 32, 8, 128, 0) == 0
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(card):
     q = torch.zeros((1, 16, 4, 48), device=card)  # head_dim 48
     with pytest.raises(ValueError, match="head_dim"):
@@ -612,6 +747,40 @@ def test_ssd_wrapper_rejects_what_the_kernel_does_not_take(card):
         ssd_scan(x, dt.to(torch.bfloat16), A, Bm, Cm)
     with pytest.raises(ValueError, match="chunk must divide"):
         ssd_scan(x, dt, A, Bm, Cm, chunk=48)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_kernel_is_reproducible_and_row_independent(card, dtype):
+    """No float atomics, and no state shared between batch rows (the bf16
+    C.B^T pre-pass is per row): two identical calls agree bitwise, and
+    row 1 of a B=2 call equals a B=1 call on that row."""
+    x, dt, A, Bm, Cm = _ssd_inputs(card, dtype, 2, 320, 8, 64, 128, seed=41,
+                                   law=True)
+    y, st = ssd_scan(x, dt, A, Bm, Cm, chunk=64)
+    y2, st2 = ssd_scan(x, dt, A, Bm, Cm, chunk=64)
+    assert torch.equal(y, y2) and torch.equal(st, st2)
+    y1, st1 = ssd_scan(x[1:].contiguous(), dt[1:].contiguous(), A,
+                       Bm[1:].contiguous(), Cm[1:].contiguous(), chunk=64)
+    assert torch.equal(y1[0], y[1]) and torch.equal(st1[0], st[1])
+
+
+def test_ssd_bf16_scratch_holds_c_bt_per_sub_chunk(card):
+    """The library sizes the C.B^T scratch by its own 64-row sub-chunks:
+    one 64 x 64 float32 tile per (batch row, sub-chunk); none in
+    float32."""
+    assert sops._cb_scratch_floats(1, 512, 1) == 8 * 64 * 64
+    assert sops._cb_scratch_floats(2, 100, 1) == 2 * 2 * 64 * 64
+    assert sops._cb_scratch_floats(1, 512, 0) == 0
+
+
+def test_ssd_bf16_rejects_unaligned_rows(card):
+    """The bf16 scan copies x, B and C in 16-byte pieces: a B that starts
+    mid-piece is refused, not read misaligned."""
+    x, dt, A, Bm, Cm = _ssd_inputs(card, "bfloat16", 1, 64, 2, 16, 16, 0)
+    wide = torch.zeros((1, 64, 17), dtype=torch.bfloat16, device=card)
+    wide[..., 1:] = Bm
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ssd_scan(x, dt, A, wide[..., 1:], Cm)
 
 
 def test_mamba_model_kernel_path_matches_plain_path(card):
