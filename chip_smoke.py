@@ -21,10 +21,19 @@ Phases, in order; any failure exits non-zero:
    yardstick (``vs_library``, ``bound_frac``).  ``ms``, ``plain_ms`` and
    ``library_ms`` are host-paced (:func:`cuda_ms`); ``device_ms`` and
    ``library_device_ms`` time the device alone and ``host_ms`` the
-   wrapper's enqueue (:func:`queued_ms`);
+   wrapper's enqueue (:func:`queued_ms`).  Beside them the LM head's
+   bf16 x bf16 -> float32 product at a decode step's shape, against the
+   float32 upcast it replaced and its bytes bound (:func:`lm_head_case`);
 4. serving: llama-3.1-8b at full width and depth in bf16 (random weights
    from a seeded generator) through the port's P/D cluster over the dense
-   ring cache, with the kernels' launch counters read around the run;
+   ring cache, with the kernels' launch counters read around the run.
+   The decode instance replays its steps from CUDA graphs (the default on
+   the card); every serve phase checks one capture per step entry it
+   used and a replay for every later step, and prints the loop's
+   dispatch / device-wait split (``serving.loopprof``) and each graph's
+   device time a replay (:func:`step_device_ms`).  The same
+   workload is then served with ``cuda_graphs=False`` and must emit the
+   same token streams;
 5. replay of the first served stream through the port's plain-attention
    path, each emitted token within ``REPLAY_MARGIN`` of the max logit;
 6. paged serving of the same weights: a multi-turn workload over the
@@ -42,6 +51,7 @@ Phases, in order; any failure exits non-zero:
    plain ``L.ssd_chunked`` path, and that stream's prefill state, every
    layer, held against the plain path's: on the served weights, and
    with x/B/C rescaled so that the scan dominates the mixer's output;
+   served again eagerly, with the same streams, as phase 4;
 9. with Mamba2 freed, a world of ``MESH_TP`` = 2 ranks spawned on the one
    card (gloo: NCCL refuses two ranks on one device), every rank holding
    its shards of llama-3.1-8b at full width and depth (the phase 4
@@ -50,8 +60,8 @@ Phases, in order; any failure exits non-zero:
    on the full tensors, then serves through a tp=2 P/D cluster (one
    prefill and one decode instance on the same two ranks) dense, paged
    and speculative, as phases 4, 6 and 7; both ranks must emit the same
-   streams, and the parent replays one stream per serve through the
-   meshless plain path.
+   streams, no rank captures a graph (mesh slices run eagerly), and the
+   parent replays one stream per serve through the meshless plain path.
 
 It prints the ``kernels`` JSON line and, last, the device line.
 
@@ -721,6 +731,50 @@ def ssd_case(torch, B, S, H, P, N, chunk, dtype, timed: bool, length=None,
     return row
 
 
+def lm_head_case(torch):
+    """The LM head at a decode step's shape (8 slots, llama-3.1-8b's
+    4096 x 128256 bf16 head), through the model's ``lm_logits``, held
+    against the float32 upcast of both operands that it replaced (timed
+    too, as ``upcast_ms``), with the bytes bound of reading the head."""
+    from repro_torch.configs.registry import REGISTRY
+    from repro_torch.models import model as M
+
+    cfg = REGISTRY["llama-3.1-8b"]
+    g = torch.Generator(device="cuda").manual_seed(5)
+    head = (torch.randn((cfg.d_model, cfg.vocab_size), generator=g,
+                        device="cuda") * 0.02).to(torch.bfloat16)
+    h = torch.randn((SLOTS, cfg.d_model), generator=g,
+                    device="cuda").to(torch.bfloat16)
+    params = {"lm_head": head}
+    got = M.lm_logits(params, cfg, h)
+    want = h.float() @ head.float()
+    torch.cuda.synchronize()
+    err, ok = max_err(torch, got, want, "bfloat16")
+    check(ok and got.dtype == torch.float32,
+          f"lm_logits disagrees with the float32 upcast: max abs err {err}")
+    sets = [(h,)]
+    nbytes = head.numel() * 2 + h.numel() * 2 + got.numel() * 4
+    flops = 2.0 * SLOTS * cfg.d_model * cfg.vocab_size
+    b_ms, b_by = bound(flops, nbytes, "bfloat16")
+    ms = cuda_ms(torch, lambda x: M.lm_logits(params, cfg, x), sets)
+    dev_ms, host_ms = queued_ms(torch, lambda x: M.lm_logits(params, cfg, x),
+                                sets)
+    upcast_ms = cuda_ms(torch, lambda x: x.float() @ head.float(), sets)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    M.lm_logits(params, cfg, h)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    row = {"shape": f"B={SLOTS} d={cfg.d_model} V={cfg.vocab_size} bf16 -> "
+                    "float32", "max_abs_err": err, "ms": ms,
+           "device_ms": dev_ms, "host_ms": host_ms, "upcast_ms": upcast_ms,
+           "bound_ms": b_ms, "bound_by": b_by,
+           "extra_memory_gb": extra / 1e9,
+           "head_gb": head.numel() * 2 / 1e9}
+    print("lm_head: " + json.dumps(row))
+    return row
+
+
 def kernel_phase(torch, F):
     """Every kernel at the main paths' shapes, both dtypes; returns the
     headline row per kernel (bf16 at the largest shape) and the largest
@@ -828,15 +882,17 @@ def kernel_phase(torch, F):
 # ---------------------------------------------------------------------------
 
 
-def serve_phase(torch, arch, label, per_iter, params=None, tp=0):
+def serve_phase(torch, arch, label, per_iter, params=None, tp=0,
+                cuda_graphs=None):
     """``arch`` at full width and depth in bf16 (random weights from a
     seeded generator) through the dense P/D cluster, one prefill and one
     decode instance, on 8 Poisson requests.  ``per_iter`` maps each
     kernel the path runs to the iteration kind ("prefill" or "decode")
     that launches it once per layer; every other kernel must stay at 0.
     With ``tp`` the instances are tp-wide slices of the world and
-    ``params`` this rank's shards.  Returns the config, params, requests,
-    this run's launch counts and the printed stats."""
+    ``params`` this rank's shards.  ``cuda_graphs`` goes to the backends
+    (None: graphs for a meshless decode instance).  Returns the config,
+    params, requests, this run's launch counts and the printed stats."""
     from repro_torch.configs.registry import REGISTRY
     from repro_torch.core.power import A100
     from repro_torch.kernels.decode_attention import ops as dops
@@ -844,6 +900,7 @@ def serve_phase(torch, arch, label, per_iter, params=None, tp=0):
     from repro_torch.kernels.ssd import ops as sops
     from repro_torch.models import model as M
     from repro_torch.serving import ClusterConfig, PDCluster, poisson_workload
+    from repro_torch.serving import jitcache, loopprof
     from repro_torch.serving.cluster import build_predictor
     from repro_torch.serving.realengine import make_real_backend_factory
     from repro_torch.serving.workload import (
@@ -878,7 +935,8 @@ def serve_phase(torch, arch, label, per_iter, params=None, tp=0):
 
     walls = {"prefill": [], "decode": []}
     base = make_real_backend_factory(cfg, params, slots=SLOTS,
-                                     max_len=MAX_LEN, tp=tp, device="cuda")
+                                     max_len=MAX_LEN, tp=tp, device="cuda",
+                                     cuda_graphs=cuda_graphs)
 
     def factory(kind, idx, hw, seed, tp=None):
         be = base(kind, idx, hw, seed, tp=tp)
@@ -894,16 +952,22 @@ def serve_phase(torch, arch, label, per_iter, params=None, tp=0):
         backend_factory=factory,
     )
     cluster = PDCluster(ccfg)
+    prof = loopprof.install(cluster)
+    gc.collect()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     fops.launches = fops.q_offset_launches = 0
     dops.launches = 0
     dops.paged_launches.clear()
     dops.sharded_launches.clear()
     sops.launches = 0
+    graphs0 = (jitcache.capture_count(), jitcache.replay_count())
     t0 = time.perf_counter()
     m = cluster.run(reqs)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
+    graphs = graph_counts(jitcache, graphs0, cuda_graphs, tp, 1,
+                          len(walls["decode"]), label)
     launches = {"flash_prefill": fops.launches,
                 "flash_prefill_q_offset": fops.q_offset_launches,
                 "ring_decode": dops.launches,
@@ -944,12 +1008,73 @@ def serve_phase(torch, arch, label, per_iter, params=None, tp=0):
         "max_memory_allocated_gb": peak / 1e9,
         "launches": launches,
         "sharded_launches": sharded_counts(dops),
+        **graphs, **loop_split(prof),
+        "step_device_ms": (step_device_ms(torch, cluster)
+                           if graphs["cuda_graphs"] else None),
     }
     print(f"serve[{label}]: " + json.dumps(stats))
     print(f"{label}: virtual-clock A100 model (not measured on this card): "
           f"ttft_p50_ms={s['ttft_p50_ms']} itl_p50_ms={s['itl_p50_ms']} "
           f"energy_j={s['energy_j']} epot_mj={s['epot_mj']}")
     return cfg, params, reqs, launches, stats
+
+
+def graph_counts(jitcache, before, cuda_graphs, tp, entries, steps, label):
+    """The run's graph captures and replays (``before``: the counts at its
+    start), checked: a meshless decode instance with graphs on captures
+    one graph per step entry it used (``entries``) and replays every
+    later step (``steps`` in all); otherwise nothing is captured."""
+    captures = jitcache.capture_count() - before[0]
+    replays = jitcache.replay_count() - before[1]
+    on = cuda_graphs is not False and not tp
+    want = (entries, steps - entries) if on else (0, 0)
+    check((captures, replays) == want and (replays > 0 or not on),
+          f"{label}: {captures} graph captures and {replays} replays, "
+          f"expected {want[0]} and {want[1]}")
+    return {"cuda_graphs": on, "captures": captures, "replays": replays}
+
+
+def step_device_ms(torch, cluster):
+    """Device ms of one replay of each step graph the decode instances
+    captured, replayed back to back behind a sleep (:func:`queued_ms`)
+    on the inputs of the run's last step, after the run: the device time
+    of a step, which its iteration wall holds beside the host's part.
+    {entry: ms}."""
+    out = {}
+    for e in cluster.decode:
+        be = e.backend
+        names = {id(be._decode_fn): "decode"}
+        if be.spec_k:
+            names.update({id(be._draft_fn): "draft",
+                          id(be._verify_fn): "verify"})
+        for (entry, _), graph in be._graphs._graphs.items():
+            out[names[id(entry)]] = queued_ms(
+                torch, graph.graph.replay, [()])[0]
+    return out
+
+
+def loop_split(prof):
+    """loopprof's dispatch / device-wait split of the run, seconds."""
+    bd = prof.breakdown()
+    return {"dispatch_s": bd["dispatch_s"],
+            "device_wait_s": bd["device_wait_s"]}
+
+
+def same_streams_eagerly(torch, reqs, arch, label, per_iter, params):
+    """Serve the workload of ``reqs`` again with every step eager
+    (``cuda_graphs=False``, the graphs' oracle) on the same weights: the
+    token streams must be equal, since the same kernels run on the same
+    inputs."""
+    _, _, eager, _, _ = serve_phase(torch, arch, f"{label}-eager", per_iter,
+                                    params=params, cuda_graphs=False)
+    same = [r.output_tokens == e.output_tokens for r, e in zip(reqs, eager)]
+    check(len(eager) == len(reqs) and all(same),
+          f"{label}: graph replay and eager steps emitted different streams "
+          f"(requests {[r.rid for r, ok in zip(reqs, same) if not ok]})")
+    print(f"{label}: the eager serve emitted the same {len(reqs)} streams "
+          "as the graph replays")
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def sharded_counts(dops):
@@ -1154,6 +1279,7 @@ def paged_serve_phase(torch, cfg, params, pred, drafter=None, tp=0,
     from repro_torch.kernels.decode_attention import ops as dops
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.serving import ClusterConfig, PDCluster, Request
+    from repro_torch.serving import jitcache, loopprof
     from repro_torch.serving.realengine import make_real_backend_factory
 
     phase = label or ("spec" if drafter else "paged")
@@ -1190,6 +1316,7 @@ def paged_serve_phase(torch, cfg, params, pred, drafter=None, tp=0,
         prefix_cache_capacity=8_192, spec_decode=bool(drafter),
         spec_k=SPEC_K, tp=max(tp, 1), backend_factory=factory,
     ))
+    prof = loopprof.install(cluster)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1197,10 +1324,16 @@ def paged_serve_phase(torch, cfg, params, pred, drafter=None, tp=0,
     dops.launches = 0
     dops.paged_launches.clear()
     dops.sharded_launches.clear()
+    graphs0 = (jitcache.capture_count(), jitcache.replay_count())
     t0 = time.perf_counter()
     m = cluster.run(reqs)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
+    # a speculative iteration steps the drafter k + 1 times, then verifies
+    graphs = graph_counts(
+        jitcache, graphs0, None, tp, 2 if drafter else 1,
+        len(walls["spec"]) * (SPEC_K + 2) if drafter
+        else len(walls["decode"]), phase)
     launches = {
         "flash_prefill": fops.launches,
         "flash_prefill_q_offset": fops.q_offset_launches,
@@ -1268,6 +1401,9 @@ def paged_serve_phase(torch, cfg, params, pred, drafter=None, tp=0,
         "max_memory_allocated_gb": peak / 1e9,
         "launches": launches,
         "sharded_launches": sharded_counts(dops),
+        **graphs, **loop_split(prof),
+        "step_device_ms": (step_device_ms(torch, cluster)
+                           if graphs["cuda_graphs"] else None),
     }
     print(f"serve[{phase}]: " + json.dumps(stats))
     print(f"{phase}: virtual-clock A100 model (not measured on this card): "
@@ -1501,10 +1637,13 @@ def mesh_phase(torch, pred):
         for r, (_, _, st) in enumerate(per):
             check(st["sharded_launches"].get(key, 0) > 0,
                   f"mesh-{name}: rank {r} never launched sharded {key}")
+            check(st["captures"] == 0,
+                  f"mesh-{name}: rank {r} captured {st['captures']} graphs")
         cols = ("prefill_ms_median",
                 "decode_ms_median" if name == "dense" else "iter_ms_median",
                 "decode_tok_s", "max_memory_allocated_gb", "launches",
-                "sharded_launches")
+                "sharded_launches", "captures", "dispatch_s",
+                "device_wait_s")
         print(f"serve[mesh-{name}] per rank: " + json.dumps(
             {c: [st[c] for _, _, st in per] for c in cols}))
     return ranks[0]
@@ -1599,6 +1738,7 @@ def main(argv=None) -> int:
             print(f"ptxas[{name}]: " + json.dumps(ptxas_table(built[name][1])))
     if args.kernels_only:
         head, errs = kernel_phase(torch, F)
+        lm_head_case(torch)
         print(f"total {time.perf_counter() - t_start:.1f} s")
         print(card)
         print(json.dumps({"src": str(src), "kernels": [
@@ -1616,10 +1756,13 @@ def main(argv=None) -> int:
           f"a redesigned kernel's SASS lacks a required instruction: {sass}")
 
     head, errs = kernel_phase(torch, F)
+    lm_head_case(torch)
+    dense_kernels = {"flash_prefill": "prefill", "ring_decode": "decode"}
     cfg, params, reqs, dense_launches, _ = serve_phase(
-        torch, "llama-3.1-8b", "dense",
-        {"flash_prefill": "prefill", "ring_decode": "decode"})
+        torch, "llama-3.1-8b", "dense", dense_kernels)
     replay_phase(torch, {"target": (cfg, params)}, reqs[0])
+    same_streams_eagerly(torch, reqs, "llama-3.1-8b", "dense", dense_kernels,
+                         params)
     del reqs
     gc.collect()
     torch.cuda.empty_cache()  # the dense phase's ring caches
@@ -1658,6 +1801,8 @@ def main(argv=None) -> int:
     mcfg, params, reqs, mamba_launches, _ = serve_phase(
         torch, "mamba2-2.7b", "mamba", {"ssd_scan": "prefill"})
     replay_phase(torch, {"target": (mcfg, params)}, reqs[0])
+    same_streams_eagerly(torch, reqs, "mamba2-2.7b", "mamba",
+                         {"ssd_scan": "prefill"}, params)
     # with the seeded init the scan's share of y lies below bf16's
     # rounding of y + D*x, so neither the replay nor the logits can see
     # the SSD path; the state can.  Then again with x/B/C rescaled to

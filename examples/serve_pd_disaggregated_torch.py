@@ -7,8 +7,10 @@ On the card (the default) it serves llama-3.1-8b at full width in bf16
 with random weights from a seeded generator; prefill and decode
 attention run in the port's hand-written Hopper kernels.  ``--device
 cpu`` serves the reduced float32 model through the kernels' plain
-versions.  Latency and energy come from the control plane's virtual
-clock (an A100 hardware model), not from the machine running the tokens.
+versions.  On the card each decode instance replays its decode step
+from a CUDA graph after the first.  Latency and energy come from the
+control plane's virtual clock (an A100 hardware model), not from the
+machine running the tokens.
 
     PYTHONPATH=src python examples/serve_pd_disaggregated_torch.py
     PYTHONPATH=src python examples/serve_pd_disaggregated_torch.py --device cpu
@@ -38,6 +40,7 @@ from repro_torch.kernels.decode_attention import ops as dops
 from repro_torch.kernels.flash_attention import ops as fops
 from repro_torch.models import model as M
 from repro_torch.serving import ClusterConfig, PDCluster, poisson_workload
+from repro_torch.serving import jitcache
 from repro_torch.serving.cluster import build_predictor
 from repro_torch.serving.realengine import make_real_backend_factory
 from repro_torch.serving.workload import DatasetDist, LengthDist, attach_tokens
@@ -142,6 +145,8 @@ def serve(args, rank: int = 0):
         f"{fops.launches}, ring_decode {dops.launches}"
         + (f" ({sharded} through the head-sharded wrapper)" if args.tp
            else ""))
+    say(f"step graphs: {jitcache.capture_count()} captured, "
+        f"{jitcache.replay_count()} replays")
     say("virtual-clock A100 model: TTFT attain "
         f"{s['ttft_attain']:.2f}, ITL attain {s['itl_attain']:.2f}, "
         f"energy {s['energy_j']:.0f} J ({s['epot_mj']:.1f} mJ/token)")

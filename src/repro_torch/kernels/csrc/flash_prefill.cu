@@ -497,14 +497,11 @@ __global__ void __launch_bounds__(TC_THREADS)
 template <int DH>
 cudaError_t launch_bf16(const Params& p, cudaStream_t stream) {
   constexpr size_t smem = tc_smem_bytes<DH>();
-  static bool configured = false;
-  if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_prefill_bf16_kernel<DH>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    configured = true;
-  }
+  static size_t done[mma::MAX_DEVICES] = {};
+  const cudaError_t err = mma::opt_in_smem(
+      reinterpret_cast<const void*>(flash_prefill_bf16_kernel<DH>), smem,
+      done);
+  if (err != cudaSuccess) return err;
   const int bqp = TC_ROWS / (p.Hq / p.Hkv);
   const dim3 grid((p.Sq + bqp - 1) / bqp, p.Hkv, p.B);
   flash_prefill_bf16_kernel<DH><<<grid, TC_THREADS, smem, stream>>>(p);
@@ -516,14 +513,11 @@ cudaError_t launch_bf16(const Params& p, cudaStream_t stream) {
 template <int DH>
 cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
   constexpr size_t smem = smem_floats<DH>() * sizeof(float);
-  static bool configured = false;
-  if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_prefill_kernel<float, DH>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    configured = true;
-  }
+  static size_t done[mma::MAX_DEVICES] = {};
+  const cudaError_t err = mma::opt_in_smem(
+      reinterpret_cast<const void*>(flash_prefill_kernel<float, DH>), smem,
+      done);
+  if (err != cudaSuccess) return err;
   const dim3 grid((p.Sq + BQ - 1) / BQ, p.Hq, p.B);
   flash_prefill_kernel<float, DH><<<grid, THREADS, smem, stream>>>(p);
   return cudaGetLastError();

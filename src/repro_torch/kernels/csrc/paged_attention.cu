@@ -553,14 +553,10 @@ __global__ void __launch_bounds__(CB_THREADS) paged_combine_kernel(Params p,
 template <int DH, int MF>
 cudaError_t launch_split(const Params& p, cudaStream_t stream) {
   constexpr size_t smem = split_smem_bytes<DH, MF>();
-  static bool configured = false;
-  if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(
-        paged_split_kernel<DH, MF>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    configured = true;
-  }
+  static size_t done[mma::MAX_DEVICES] = {};
+  const cudaError_t err = mma::opt_in_smem(
+      reinterpret_cast<const void*>(paged_split_kernel<DH, MF>), smem, done);
+  if (err != cudaSuccess) return err;
   const dim3 grid(p.Hkv, p.B, p.n_split);
   paged_split_kernel<DH, MF><<<grid, SP_THREADS, smem, stream>>>(p);
   return cudaGetLastError();
@@ -572,12 +568,11 @@ template <int DH>
 cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
   const int rows = p.n_tok * (p.Hq / p.Hkv);
   const size_t smem = smem_bytes<DH>(rows);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        paged_attention_kernel<float, DH>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
+  static size_t done[mma::MAX_DEVICES] = {};
+  const cudaError_t err = mma::opt_in_smem(
+      reinterpret_cast<const void*>(paged_attention_kernel<float, DH>), smem,
+      done);
+  if (err != cudaSuccess) return err;
   const dim3 grid(p.Hkv, p.B);
   paged_attention_kernel<float, DH><<<grid, 32 * rows, smem, stream>>>(p);
   return cudaGetLastError();
@@ -587,12 +582,10 @@ cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
 cudaError_t launch_combine(const Params& p, int dh, cudaStream_t stream) {
   const int R = p.n_tok * (p.Hq / p.Hkv);
   const size_t smem = sizeof(float) * (2 * p.n_split + 1) * R;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        paged_combine_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return err;
-  }
+  static size_t done[mma::MAX_DEVICES] = {};
+  const cudaError_t err = mma::opt_in_smem(
+      reinterpret_cast<const void*>(paged_combine_kernel), smem, done);
+  if (err != cudaSuccess) return err;
   const dim3 grid(p.Hkv, p.B, (R * dh + CB_THREADS - 1) / CB_THREADS);
   paged_combine_kernel<<<grid, CB_THREADS, smem, stream>>>(p, dh);
   return cudaGetLastError();

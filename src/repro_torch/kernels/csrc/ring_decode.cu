@@ -231,12 +231,11 @@ template <int DH>
 cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
   const int G = p.Hq / p.Hkv;
   const size_t smem = smem_bytes<DH>(G);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        ring_decode_kernel<float, DH>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
+  static size_t done[mma::MAX_DEVICES] = {};
+  const cudaError_t err = mma::opt_in_smem(
+      reinterpret_cast<const void*>(ring_decode_kernel<float, DH>), smem,
+      done);
+  if (err != cudaSuccess) return err;
   const dim3 grid(p.Hkv, p.B);
   ring_decode_kernel<float, DH><<<grid, 32 * G, smem, stream>>>(p);
   return cudaGetLastError();

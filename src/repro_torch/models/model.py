@@ -467,9 +467,19 @@ def lm_logits(params: Params, cfg: ModelConfig, hidden: torch.Tensor):
     """Logits in float32 (the JAX model's ``preferred_element_type``):
     at a 128k vocabulary, bf16 logits make argmax ties common.  A
     vocabulary shard's logits are gathered over ``"model"``, so every
-    rank holds the full row."""
+    rank holds the full row.
+
+    On the card a bf16 head multiplies bf16 hidden states into float32
+    (``aten::mm.dtype``), as the JAX model's ``preferred_element_type``
+    does, with no float32 copy of the head; elsewhere both operands are
+    upcast."""
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = hidden.float() @ head.float()
+    if hidden.is_cuda and head.dtype == hidden.dtype == torch.bfloat16:
+        logits = torch.mm(hidden.reshape(-1, hidden.shape[-1]), head,
+                          out_dtype=torch.float32)
+        logits = logits.reshape(*hidden.shape[:-1], head.shape[-1])
+    else:
+        logits = hidden.float() @ head.float()
     if head.shape[-1] < cfg.vocab_size:
         logits = ctx.gather_model(logits, dim=-1)
     if cfg.logit_softcap is not None:

@@ -40,6 +40,17 @@ decisions never read token content, so deferral reorders nothing.
 Caches are updated in place, so the JAX backend's ``donate_kv`` has no
 counterpart here.
 
+**Step graphs.**  On the card a meshless backend replays its
+decode-shaped steps (decode, paged decode, draft, verify) from CUDA
+graphs, one per entry point, captured on first use
+(:class:`~repro_torch.serving.jitcache.StepGraph`): the port's
+counterpart of the JAX backend's jitted step executables.  Every step
+runs all ``slots`` rows at one shape, so a backend holds one graph, or
+two when it speculates (the drafter's step and the verify pass).  Prefill stays eager (its shape follows the prompt's bucket), as
+do mesh slices (their collectives go through gloo in host memory).
+``cuda_graphs=False`` runs every step eagerly: the graphs' parity
+oracle.
+
 **Mesh slices.**  With ``mesh`` (a ``DeviceMesh`` slice from
 :class:`~repro_torch.distributed.meshslice.MeshSlicer`) the instance
 holds this rank's shards of its weights, ring, page pool and drafter
@@ -57,6 +68,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import time
 from collections import deque
 from typing import Deque, Dict, List, Optional, Tuple
 
@@ -135,6 +147,7 @@ class RealBackend(SimBackend):
         mesh=None,
         pipeline_depth: int = 1,
         device: DeviceLike = None,
+        cuda_graphs: Optional[bool] = None,
     ):
         super().__init__(hw, noise_sigma, seed)
         self.cfg = cfg
@@ -174,6 +187,20 @@ class RealBackend(SimBackend):
         # occupancy telemetry: ring depth summed over dispatches
         self.pipeline_depth_sum = 0
         self.pipeline_dispatches = 0
+        self.device_wait_s = 0.0  # host time blocked reading step results
+        # decode-shaped steps replay from CUDA graphs (None: on the card
+        # without a mesh)
+        on_card = jitcache.graphs_available(self.device)
+        if cuda_graphs is None:
+            cuda_graphs = on_card and mesh is None
+        elif cuda_graphs and (mesh is not None or not on_card):
+            raise ValueError(
+                "cuda_graphs=True needs a meshless backend on the card: a "
+                "mesh slice's collectives go through gloo in host memory, "
+                "and there are no graphs off the card"
+            )
+        self._graphs = jitcache.StepGraph(self.device) if cuda_graphs \
+            else None
 
         if paged:
             if max_len % page_size:
@@ -271,6 +298,19 @@ class RealBackend(SimBackend):
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
+    def _step(self, entry, params, **kwargs):
+        """One decode-shaped step: replayed from this backend's graph of
+        ``entry`` (host arrays copied straight into the graph's buffers),
+        or run eagerly."""
+        if self._graphs is None:
+            return entry(params, **{
+                k: self._dev(v) if isinstance(v, np.ndarray) else v
+                for k, v in kwargs.items()})
+        return self._graphs(entry, params, **{
+            k: torch.from_numpy(np.ascontiguousarray(v))
+            if isinstance(v, np.ndarray) else v
+            for k, v in kwargs.items()})
+
     # ------------------------------------------------------------------
     # Paged plumbing
     # ------------------------------------------------------------------
@@ -355,9 +395,11 @@ class RealBackend(SimBackend):
         insert/release, or the end-of-run flush.  Oldest-first order
         keeps each request's stream append-ordered."""
         p = self._ring.popleft()
+        t0 = time.perf_counter()
         if p[0] == "decode":
             _, pairs, ids = p
             nxt = ids.cpu().numpy()
+            self.device_wait_s += time.perf_counter() - t0
             for r, s in pairs:
                 r.output_tokens.append(int(nxt[s]))
         else:  # spec: accepted draft prefix + bonus/correction token
@@ -365,6 +407,7 @@ class RealBackend(SimBackend):
             drafts = drafts_dev.cpu().numpy()
             tgt = tgt_dev.cpu().numpy()
             match = match_dev.cpu().numpy()
+            self.device_wait_s += time.perf_counter() - t0
             for r, s, a in entries:
                 r.output_tokens.extend(int(drafts[s, j]) for j in range(a))
                 r.output_tokens.append(int(tgt[s, a]))
@@ -583,19 +626,19 @@ class RealBackend(SimBackend):
             # grow tail pages where the next write crosses a boundary
             for r in reqs:
                 self._ensure_pages(r, int(self.pos[self.slot_of[r.rid]]) + 1)
-            ids, self.kvcache = self._decode_fn(
-                self.params,
+            ids, self.kvcache = self._step(
+                self._decode_fn, self.params,
                 tokens=self._next_dev,
                 cache=self.kvcache,
-                lengths=self._dev(self.pos),
-                block_tables=self._dev(self.block_tables),
+                lengths=self.pos,
+                block_tables=self.block_tables,
             )
         else:
-            ids, self.cache = self._decode_fn(
-                self.params,
+            ids, self.cache = self._step(
+                self._decode_fn, self.params,
                 tokens=self._next_dev,
                 cache=self.cache,
-                lengths=self._dev(self.pos),
+                lengths=self.pos,
             )
         # chain on device; emission of `ids` waits for the next drain
         self._next_dev = ids
@@ -644,11 +687,11 @@ class RealBackend(SimBackend):
             self._grow_for_verify(r, k)
         # drafting, batched over every slot (free slots write masked
         # garbage into their own rows, never read)
-        _, _, self.draft_cache = self._draft_fn(
-            self.draft_params,
+        _, _, self.draft_cache = self._step(
+            self._draft_fn, self.draft_params,
             tokens=self._prev_dev,
             cache=self.draft_cache,
-            lengths=self._dev(np.maximum(self.pos - 1, 0)),
+            lengths=np.maximum(self.pos - 1, 0),
         )
         props = []
         cur = self._next_dev
@@ -656,23 +699,23 @@ class RealBackend(SimBackend):
             # clamp so a near-capacity slot's ring never wraps: an
             # over-the-end write parks on the last slot, whose true
             # content the next iteration's sync step restores
-            prop, _, self.draft_cache = self._draft_fn(
-                self.draft_params,
+            prop, _, self.draft_cache = self._step(
+                self._draft_fn, self.draft_params,
                 tokens=cur,
                 cache=self.draft_cache,
-                lengths=self._dev(np.minimum(self.pos + j, self.max_len - 1)),
+                lengths=np.minimum(self.pos + j, self.max_len - 1),
             )
             props.append(prop)
             cur = prop
         drafts = torch.stack(props, dim=1)  # (slots, k), on the device
         # verify: one multi-token forward of [pending, d_1..d_k]
         toks = torch.cat([self._next_dev[:, None], drafts], dim=1)
-        tgt, self.kvcache = self._verify_fn(
-            self.params,
+        tgt, self.kvcache = self._step(
+            self._verify_fn, self.params,
             tokens=toks,
             cache=self.kvcache,
-            lengths=self._dev(self.pos),
-            block_tables=self._dev(self.block_tables),
+            lengths=self.pos,
+            block_tables=self.block_tables,
         )
         match = M.accept_prefix(drafts, tgt)
         # chain update on the device with the host-known acceptance
@@ -760,6 +803,7 @@ def make_real_backend_factory(
     devices=None,
     pipeline_depth: int = 1,
     device: DeviceLike = None,
+    cuda_graphs: Optional[bool] = None,
 ):
     """Factory for ClusterConfig.backend_factory: every instance gets its
     own slot/pool state but shares the (read-only) weights and — via
@@ -768,7 +812,10 @@ def make_real_backend_factory(
     draft–verify speculation (needs ``paged=True`` and a draft model);
     hybrid instances stay single-token.  ``pipeline_depth`` sets each
     instance's async-dispatch window; token streams are identical at
-    every depth.  ``device`` defaults to the card.
+    every depth.  ``device`` defaults to the card.  ``cuda_graphs``
+    (default: on for meshless instances on the card) replays each
+    instance's decode-shaped steps from CUDA graphs; ``False`` runs them
+    eagerly.
 
     ``tp > 0`` turns each instance into a **mesh slice**: a
     :class:`~repro_torch.distributed.meshslice.MeshSlicer` over
@@ -810,6 +857,7 @@ def make_real_backend_factory(
             spec_k=k, draft_cfg=draft_cfg if k else None,
             draft_params=dp if k else None, mesh=mesh,
             pipeline_depth=pipeline_depth, device=dev,
+            cuda_graphs=cuda_graphs,
         )
 
     return factory

@@ -459,6 +459,44 @@ def tp1_rank(rank, world, rc, np_params, pred):
             slicer_rank(rank, world))
 
 
+def graphs_rank(rank, world, rc, params, pred):
+    """With CUDA graphs made available on the CPU and a capture that
+    fails the rank if it ever runs: a tp=``world`` cluster on the
+    reduced model, and a sliced backend asked for ``cuda_graphs=True``.
+    Returns (finished fraction, graphs captured, the decode backends'
+    step graphs, the refusal's message or None)."""
+    import repro_torch.serving as TS
+    from repro_torch.configs.registry import REGISTRY
+    from repro_torch.core.hwmodel import HardwareModel
+    from repro_torch.core.power import A100
+    from repro_torch.distributed import MeshSlicer
+    from repro_torch.serving import jitcache
+    from repro_torch.serving.realengine import (
+        RealBackend, make_real_backend_factory,
+    )
+
+    def no_capture(*a, **k):
+        raise AssertionError("a mesh slice captured a step")
+
+    jitcache.graphs_available = lambda device: True
+    jitcache._capture = no_capture
+    model = REGISTRY["llama-3.1-8b"]
+    cl = TS.PDCluster(cluster_cfg(
+        TS, model, A100, pred, tp=world,
+        backend_factory=make_real_backend_factory(
+            rc, params, slots=8, max_len=MAX_LEN, tp=world, device="cpu")))
+    m = cl.run(workload(TS, rc.vocab_size))
+    refused = None
+    try:
+        RealBackend(HardwareModel(model, A100), rc, params, slots=2,
+                    max_len=64, device="cpu", cuda_graphs=True,
+                    mesh=MeshSlicer(range(world), "cpu").slice(world))
+    except ValueError as e:
+        refused = str(e)
+    return (m.finished_frac(), jitcache.capture_count(),
+            [e.backend._graphs for e in cl.decode], refused)
+
+
 def slicer_rank(rank, world):
     """MeshSlicer round-robin, restart and mesh sharing over the world's
     ranks, and ``mesh_fingerprint`` identity

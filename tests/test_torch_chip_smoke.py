@@ -160,3 +160,35 @@ def test_sass_ops_flag_a_library_missing_its_instructions(lib, drop):
 ])
 def test_kernel_name_drops_namespaces_and_templates(key, name):
     assert cs.kernel_name(key) == name
+
+
+@pytest.mark.parametrize("graphs,tp,captured,replayed,ok", [
+    (None, 0, 2, 28, True),  # one graph per entry, then every step replays
+    (None, 0, 2, 27, False),  # a step ran neither eagerly nor from a graph
+    (None, 0, 3, 27, False),  # a graph captured twice
+    (None, 0, 0, 0, False),  # graphs on, none used
+    (False, 0, 0, 0, True),  # eager: nothing captured
+    (False, 0, 1, 29, False),
+    (None, 2, 0, 0, True),  # a mesh slice: eager
+    (None, 2, 2, 28, False),
+])
+def test_graph_counts_hold_a_serve_to_its_captures_and_replays(
+        graphs, tp, captured, replayed, ok):
+    """A serve with 30 steps over 2 entries: graphs on a meshless
+    instance capture 2 and replay 28; eager and mesh serves capture
+    nothing."""
+    class Counts:
+        def capture_count(self):
+            return 10 + captured
+
+        def replay_count(self):
+            return 100 + replayed
+
+    call = lambda: cs.graph_counts(Counts(), (10, 100), graphs, tp, 2, 30,
+                                   "serve")
+    if ok:
+        assert call() == {"cuda_graphs": graphs is not False and not tp,
+                          "captures": captured, "replays": replayed}
+    else:
+        with pytest.raises(RuntimeError, match="graph captures"):
+            call()

@@ -873,3 +873,250 @@ def test_served_mamba_cluster_launches_ssd_scan_and_replays(card):
                 params, cfg, torch.tensor([tok], device=card), cache, pos,
                 plain_attention=True)
             pos = pos + 1
+
+
+# ---------------------------------------------------------------------------
+# Step graphs (serving/jitcache.StepGraph) and the LM head
+# ---------------------------------------------------------------------------
+
+
+def _tree_clone(tree):
+    if isinstance(tree, dict):
+        return {k: _tree_clone(v) for k, v in tree.items()}
+    return tree.clone()
+
+
+def _tree_equal(a, b):
+    if isinstance(a, dict):
+        return all(_tree_equal(a[k], b[k]) for k in a)
+    return torch.equal(a, b)
+
+
+def _ptrs(tree):
+    if isinstance(tree, dict):
+        return {k: _ptrs(v) for k, v in tree.items()}
+    return tree.data_ptr()
+
+
+def _graph_vs_eager(entry, params, cache, inputs, chain=None):
+    """Run ``entry`` over ``inputs`` (one dict of tensors a step) eagerly on
+    one copy of ``cache`` and through a :class:`StepGraph` on another:
+    every step's outputs and the caches must be bitwise equal, the graph's
+    cache and params must stay where they were, and the launch counters
+    must tick alike.  ``chain`` feeds a step's first output to the next
+    step's ``tokens``.  Returns the graph's launch counts of the run."""
+    from repro_torch import kernels
+    from repro_torch.serving import jitcache
+
+    ca, cb = _tree_clone(cache), _tree_clone(cache)
+    ptrs, pptrs = _ptrs(cb), _ptrs(params)
+    runs = {}
+    for side, c in (("eager", ca), ("graph", cb)):
+        graph = jitcache.StepGraph(torch.device("cuda"))
+        call = entry if side == "eager" else (
+            lambda *a, **k: graph(entry, *a, **k))
+        before = kernels.launch_counts()
+        captures = jitcache.capture_count()
+        outs, tok = [], None
+        for inp in inputs:
+            if chain and tok is not None:
+                inp = dict(inp, tokens=tok)
+            out = call(params, cache=c, **inp)
+            outs.append([o.clone() for o in out if torch.is_tensor(o)])
+            tok = out[0]
+        torch.cuda.synchronize()
+        runs[side] = (outs, kernels.launches_since(before),
+                      jitcache.capture_count() - captures)
+    (eo, el, ec), (go, gl, gc_) = runs["eager"], runs["graph"]
+    for i, (e, g) in enumerate(zip(eo, go)):
+        assert all(torch.equal(x, y) for x, y in zip(e, g)), f"step {i}"
+    assert _tree_equal(ca, cb)
+    assert _ptrs(cb) == ptrs and _ptrs(params) == pptrs
+    assert el == gl
+    assert (ec, gc_) == (0, 1)
+    return gl
+
+
+def _reduced(arch, dtype):
+    cfg = dataclasses.replace(REGISTRY[arch].reduced(), dtype=dtype)
+    params = TM.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                            device="cuda")
+    return cfg, params
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("paged", [False, True])
+def test_graph_replay_equals_eager_decode(card, dtype, paged):
+    """Reduced llama: 16 decode steps replayed from a CUDA graph equal
+    16 eager steps bit for bit, in ids and cache, dense and paged; the
+    counters count one ring or paged launch a layer a step."""
+    from functools import partial
+
+    cfg, params = _reduced("llama-3.1-8b", dtype)
+    B, steps = 8, 16
+    g = torch.Generator(device=card).manual_seed(3)
+    toks = torch.randint(0, cfg.vocab_size, (B, 48), device=card,
+                         generator=g, dtype=torch.int32)
+    lengths = torch.tensor([48, 30, 17, 48, 5, 40, 1, 33], dtype=torch.int32,
+                           device=card)
+    if not paged:
+        _, cache = TM.prefill(params, cfg, toks, lengths, max_len=128)
+        entry = partial(TM.decode_step_greedy, cfg=cfg)
+        extra = {}
+    else:
+        ps, pmax = 16, 8
+        cache = TM.init_paged_cache(cfg, B * pmax, ps, card)
+        for e in cache.values():
+            for t in e.values():
+                t.copy_(torch.randn(t.shape, device=card, generator=g))
+        bt = torch.arange(B * pmax, dtype=torch.int32,
+                          device=card).reshape(B, pmax)
+        entry = partial(TM.decode_step_paged_greedy, cfg=cfg)
+        extra = dict(block_tables=bt)
+    inputs = [dict(tokens=toks[:, 0], lengths=lengths + i, **extra)
+              for i in range(steps)]
+    counts = _graph_vs_eager(entry, params, cache, inputs, chain=True)
+    key = (("decode_attention", "paged_launches", 1) if paged
+           else ("decode_attention", "launches"))
+    assert counts == {key: cfg.n_layers * steps}
+
+
+def test_graph_replay_equals_eager_draft_and_verify(card):
+    """Reduced llama in bf16: the drafter's step (ring at Dh=16) and the
+    verify pass (paged at T=3) replay bitwise as eager."""
+    from functools import partial
+
+    cfg, params = _reduced("llama-3.1-8b", "bfloat16")
+    dcfg = make_draft_config(cfg)
+    dparams = TM.init_params(dcfg,
+                             torch.Generator(device=card).manual_seed(1),
+                             device=card)
+    B = 8
+    g = torch.Generator(device=card).manual_seed(4)
+    toks = torch.randint(0, cfg.vocab_size, (B, 32), device=card,
+                         generator=g, dtype=torch.int32)
+    lengths = torch.full((B,), 32, dtype=torch.int32, device=card)
+    _, dcache = TM.prefill(dparams, dcfg, toks, lengths, max_len=128)
+    counts = _graph_vs_eager(
+        partial(TM.draft_step, cfg=dcfg), dparams, dcache,
+        [dict(tokens=toks[:, 0], lengths=lengths + i) for i in range(6)],
+        chain=True)
+    assert counts == {("decode_attention", "launches"): dcfg.n_layers * 6}
+    ps, pmax = 16, 8
+    pool = TM.init_paged_cache(cfg, B * pmax, ps, card)
+    for e in pool.values():
+        for t in e.values():
+            t.copy_(torch.randn(t.shape, device=card, generator=g))
+    bt = torch.arange(B * pmax, dtype=torch.int32,
+                      device=card).reshape(B, pmax)
+    inputs = [dict(tokens=torch.randint(0, cfg.vocab_size, (B, 3),
+                                        device=card, generator=g,
+                                        dtype=torch.int32),
+                   lengths=lengths + 3 * i, block_tables=bt)
+              for i in range(6)]
+    counts = _graph_vs_eager(partial(TM.verify_step_paged_greedy, cfg=cfg),
+                             params, pool, inputs)
+    assert counts == {("decode_attention", "paged_launches", 3):
+                      cfg.n_layers * 6}
+
+
+def test_graph_replay_equals_eager_mamba_decode(card):
+    """Reduced mamba2 with ``live_state`` weights: 16 decode steps from a
+    graph equal eager ones in ids, SSM state and conv tail, bit for bit
+    (the step is not idempotent, so a capture that ran it would show)."""
+    from functools import partial
+
+    cfg, params = _reduced("mamba2-2.7b", "bfloat16")
+    params = live_state(params, cfg)
+    g = torch.Generator(device=card).manual_seed(5)
+    toks = torch.randint(0, cfg.vocab_size, (8, 64), device=card,
+                         generator=g, dtype=torch.int32)
+    lengths = torch.tensor([64, 30, 17, 64, 5, 40, 1, 33], dtype=torch.int32,
+                           device=card)
+    _, cache = TM.prefill(params, cfg, toks, lengths, max_len=128)
+    assert float(cache["layer_0"]["ssm"].abs().max()) > 0.1
+    counts = _graph_vs_eager(
+        partial(TM.decode_step_greedy, cfg=cfg), params, cache,
+        [dict(tokens=toks[:, 0], lengths=lengths + i) for i in range(16)],
+        chain=True)
+    assert counts == {}  # the Mamba2 step launches no kernel of ours
+
+
+@pytest.mark.parametrize("kind", ["dense", "paged", "spec", "mamba"])
+def test_served_graphs_equal_eager_streams(card, kind):
+    """The same workload through a cluster whose decode instances replay
+    graphs (the default on the card) and one with ``cuda_graphs=False``:
+    equal streams, one capture per decode backend and entry it used, and
+    the same first-seen shapes."""
+    from repro_torch.serving import jitcache
+
+    arch = "mamba2-2.7b" if kind == "mamba" else "llama-3.1-8b"
+    base = REGISTRY[arch]
+    cfg, params = _reduced(arch, "bfloat16")
+    kw, ckw = {}, {}
+    if kind != "dense" and kind != "mamba":
+        kw = dict(paged=True, page_size=16, pool_pages=256)
+        ckw = dict(paged=True, kv_page_size=16, prefix_cache=True,
+                   prefix_cache_capacity=2_048)
+    if kind == "spec":
+        dcfg = make_draft_config(cfg)
+        kw.update(spec_k=2, draft_cfg=dcfg, draft_params=TM.init_params(
+            dcfg, torch.Generator(device=card).manual_seed(1), device=card))
+        ckw.update(spec_decode=True, spec_k=2)
+    pred = build_predictor(base, A100, A100.freq_levels_2, kv_cap=400_000,
+                           spec_k=2 if kind == "spec" else 0)
+    runs = {}
+    for graphs in (None, False):
+        jitcache.clear()
+        reqs = (_multiturn(cfg.vocab_size) if kw.get("paged") else
+                attach_tokens(poisson_workload(
+                    DatasetDist("tiny", LengthDist(24.0, 10.0, hi=60),
+                                LengthDist(6.0, 3.0, hi=12)), 2.0, 4.0,
+                    seed=3), cfg.vocab_size, seed=4))
+        cl = PDCluster(ClusterConfig(
+            model=base, chip=A100, n_prefill=1, n_decode=2,
+            policy="voltana", predictor=pred, kv_capacity_tokens=400_000,
+            online_adapt=False, decode_max_running=8, seed=2,
+            prefill_chunk_tokens=64, **ckw,
+            backend_factory=make_real_backend_factory(
+                cfg, params, slots=8, max_len=128, cuda_graphs=graphs,
+                **kw)))
+        m = cl.run(reqs)
+        assert m.finished_frac() == 1.0
+        used = sum(e.backend.pipeline_dispatches > 0 for e in cl.decode)
+        runs[graphs] = ([r.output_tokens for r in reqs],
+                        jitcache.compile_count(), jitcache.capture_count(),
+                        jitcache.replay_count(), used)
+    (gs, gcomp, gcap, grep, used), (es, ecomp, ecap, _, _) = \
+        runs[None], runs[False]
+    assert gs == es
+    assert gcomp == ecomp and ecap == 0
+    assert gcap == used * (2 if kind == "spec" else 1) > 0
+    assert grep > 0
+
+
+def test_lm_head_multiplies_bf16_into_float32_without_a_float32_head(card):
+    """On the card a bf16 head takes bf16 operands into float32 logits
+    (``aten::mm.dtype``): close to the float32 upcast, also for tied
+    embeddings, and no float32 copy of the head is made."""
+    cfg = dataclasses.replace(REGISTRY["llama-3.1-8b"].reduced(),
+                              dtype="bfloat16", vocab_size=32_000)
+    g = torch.Generator(device=card).manual_seed(6)
+    head = (torch.randn((cfg.d_model, cfg.vocab_size), generator=g,
+                        device=card) * 0.02).to(torch.bfloat16)
+    h = torch.randn((3, 2, cfg.d_model), generator=g,
+                    device=card).to(torch.bfloat16)
+    for tied, params in ((False, {"lm_head": head}),
+                         (True, {"embed": head.T.contiguous()})):
+        c = dataclasses.replace(cfg, tie_embeddings=tied)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        got = TM.lm_logits(params, c, h)
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated() - base
+        assert got.dtype == torch.float32 and got.shape == (3, 2,
+                                                            cfg.vocab_size)
+        torch.testing.assert_close(got, h.float() @ head.float(),
+                                   atol=2e-2, rtol=2e-2)
+        assert extra < head.numel() * 2, (tied, extra)

@@ -409,6 +409,24 @@ def test_library_path_changes_with_a_shared_header(tmp_path, monkeypatch):
     assert _build.library_path("k") != first
 
 
+def test_shared_memory_opt_in_is_per_device():
+    """The dynamic shared-memory attribute is per device: every kernel
+    sets it through ``mma::opt_in_smem``, which records each device, and
+    no source guards ``cudaFuncSetAttribute`` with a once-per-process
+    flag."""
+    from repro_torch.kernels import _build
+
+    calls = {}
+    for src in sorted(_build.CSRC.glob("*.cu*")):
+        text = src.read_text()
+        assert "static bool configured" not in text, src.name
+        calls[src.name] = text.count("cudaFuncSetAttribute(")
+    assert calls.pop("mma_bf16.cuh") == 1  # inside opt_in_smem
+    assert not any(calls.values()), calls
+    for name in _build.KERNELS:
+        assert "mma::opt_in_smem(" in (_build.CSRC / f"{name}.cu").read_text()
+
+
 # ---------------------------------------------------------------------------
 # SSD chunked scan
 # ---------------------------------------------------------------------------
