@@ -61,7 +61,20 @@ Phases, in order; any failure exits non-zero:
    prefill and one decode instance on the same two ranks) dense, paged
    and speculative, as phases 4, 6 and 7; both ranks must emit the same
    streams, no rank captures a graph (mesh slices run eagerly), and the
-   parent replays one stream per serve through the meshless plain path.
+   parent replays one stream per serve through the meshless plain path;
+10. with llama freed, ministral-3b (G = 3) at full width and depth in
+   bf16, served as phase 4 (dense ring, step graphs) with a replay, then
+   as phase 7 (paged pool, prefix reuse, speculative verify at
+   T = SPEC_K + 1 over 9 rows a kv head) with a replay by token kind;
+11. qwen3-32b (q/k norm, 64 layers, G = 8, 65.5 GB of weights) served as
+   phase 4 with a replay;
+12. phi4-mini-3.8b, minicpm-2b (tied odd-width head, head dim 64, MHA)
+   and chameleon-34b (68.6 GB): one prefill of a ``FAMILY_PROMPT``-token
+   prompt and ``FAMILY_STEPS`` greedy decode steps through the kernel
+   path, one flash_prefill and one ring_decode launch a layer a call,
+   and the same tokens teacher-forced through the plain path, each
+   within ``REPLAY_MARGIN`` of its max logit.  Each of phases 10-12
+   frees its weights before the next and prints its peak memory.
 
 It prints the ``kernels`` JSON line and, last, the device line.
 
@@ -836,6 +849,29 @@ def kernel_phase(torch, F):
             paged_rows[T].append(paged_case(
                 torch, F, 3, T, 8, 2, 64, [40, 0, 17], dtype=dtype,
                 window=24, softcap=30.0, timed=False, Pmax=4, pool_pages=24))
+    # the dense family's heads (phases 10-12), untimed: ministral-3b and
+    # phi4-mini (G = 3; also a query offset and the paged kernel at the
+    # spec phase's T), qwen3-32b and chameleon (G = 8), minicpm (MHA at
+    # head dim 64); command-r-plus's G = 12, which the paged wrapper runs
+    # as two sub-groups of heads at T = SPEC_K + 1
+    family = [dict(Hq=24, Hkv=8, Dh=128), dict(Hq=64, Hkv=8, Dh=128),
+              dict(Hq=36, Hkv=36, Dh=64)]
+    for dtype in ("bfloat16", "float32"):
+        for heads in family:
+            flash_rows.append(flash_case(
+                torch, F, 1, 512, dtype=dtype, kv_frac=2 / 3, window=None,
+                softcap=None, timed=False, **heads))
+            decode_rows.append(decode_case(
+                torch, F, SLOTS, MAX_LEN, dtype=dtype, window=None,
+                softcap=None, timed=False, **heads))
+        flash_rows.append(flash_case(
+            torch, F, 1, 512, dtype=dtype, kv_frac=2 / 3, window=None,
+            softcap=None, timed=False, q_start=256, **family[0]))
+        for T in paged_rows:
+            for heads in (family[0], dict(Hq=96, Hkv=8, Dh=128)):
+                paged_rows[T].append(paged_case(
+                    torch, F, SLOTS, T, lengths=lengths, dtype=dtype,
+                    window=None, softcap=None, timed=False, **heads))
     # the SSD scan: the sweep of tests/test_kernels.py:237, the reduced
     # config's dims, and mamba2-2.7b's prefill at S=512 (x, B and C
     # slices of one tensor, as the model passes them; timed), also with
@@ -898,7 +934,6 @@ def serve_phase(torch, arch, label, per_iter, params=None, tp=0,
     from repro_torch.kernels.decode_attention import ops as dops
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.ssd import ops as sops
-    from repro_torch.models import model as M
     from repro_torch.serving import ClusterConfig, PDCluster, poisson_workload
     from repro_torch.serving import jitcache, loopprof
     from repro_torch.serving.cluster import build_predictor
@@ -909,20 +944,7 @@ def serve_phase(torch, arch, label, per_iter, params=None, tp=0,
 
     cfg = REGISTRY[arch]
     if params is None:
-        t0 = time.perf_counter()
-        gen = torch.Generator(device="cuda").manual_seed(0)
-        params = M.init_params(cfg, gen, device="cuda")
-        torch.cuda.synchronize()
-        n_params = sum(t.numel() for t in _leaves(params))
-        ssm = ""
-        if cfg.mamba is not None:
-            m = cfg.mamba
-            ssm = (f"d_inner {m.d_inner(cfg.d_model)}, "
-                   f"{m.n_heads(cfg.d_model)} SSM heads of {m.head_dim}, "
-                   f"state {m.d_state}, ")
-        print(f"model {cfg.name}: {cfg.n_layers} layers, d_model "
-              f"{cfg.d_model}, {ssm}{cfg.dtype}, {n_params:,} params, init "
-              f"{time.perf_counter() - t0:.1f} s")
+        cfg, params = init_model(torch, arch)
     pred = build_predictor(cfg, A100, A100.freq_levels_2, kv_cap=400_000)
     ds = DatasetDist(
         "smoke",
@@ -953,8 +975,7 @@ def serve_phase(torch, arch, label, per_iter, params=None, tp=0,
     )
     cluster = PDCluster(ccfg)
     prof = loopprof.install(cluster)
-    gc.collect()
-    torch.cuda.empty_cache()
+    free(torch)
     torch.cuda.reset_peak_memory_stats()
     fops.launches = fops.q_offset_launches = 0
     dops.launches = 0
@@ -1073,8 +1094,7 @@ def same_streams_eagerly(torch, reqs, arch, label, per_iter, params):
           f"(requests {[r.rid for r, ok in zip(reqs, same) if not ok]})")
     print(f"{label}: the eager serve emitted the same {len(reqs)} streams "
           "as the graph replays")
-    gc.collect()
-    torch.cuda.empty_cache()
+    free(torch)
 
 
 def sharded_counts(dops):
@@ -1093,6 +1113,13 @@ def timed(torch, fn, out):
         out.append((time.perf_counter() - t) * 1e3)
         return res
     return run
+
+
+def free(torch):
+    """Return freed tensors' memory to the card (the caching allocator
+    keeps it otherwise)."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def _leaves(tree):
@@ -1317,8 +1344,7 @@ def paged_serve_phase(torch, cfg, params, pred, drafter=None, tp=0,
         spec_k=SPEC_K, tp=max(tp, 1), backend_factory=factory,
     ))
     prof = loopprof.install(cluster)
-    gc.collect()
-    torch.cuda.empty_cache()
+    free(torch)
     torch.cuda.reset_peak_memory_stats()
     fops.launches = fops.q_offset_launches = 0
     dops.launches = 0
@@ -1650,6 +1676,204 @@ def mesh_phase(torch, pred):
 
 
 # ---------------------------------------------------------------------------
+# Phases 10-12: the dense family at full width
+# ---------------------------------------------------------------------------
+
+# phase 10 serves ministral-3b dense then paged + speculative, phase 11
+# qwen3-32b dense (the paper's other evaluation models); phase 12 runs
+# the kernel path of three assigned configs against their plain path
+FAMILY_SERVED = ("ministral-3b", "qwen3-32b")
+FAMILY_CHECKED = ("phi4-mini-3.8b", "minicpm-2b", "chameleon-34b")
+FAMILY_PROMPT = 300  # phase 12's prompt tokens
+FAMILY_STEPS = 16  # phase 12's greedy decode steps
+
+
+def reckon_gb(cfg) -> dict:
+    """What a dense serve of ``cfg`` holds on the card before the run, GB:
+    its bf16 weights and the decode instance's ring (``SLOTS`` slots of
+    ``MAX_LEN`` positions, K and V of every layer)."""
+    ring = (SLOTS * MAX_LEN * cfg.n_layers * 2 * cfg.n_kv_heads
+            * cfg.head_dim * 2)
+    return {"weights_gb": cfg.param_count() * 2 / 1e9, "ring_gb": ring / 1e9}
+
+
+def family_launches(cfg, prefills: int, steps: int) -> dict:
+    """The launches of ``prefills`` prompt prefills and ``steps`` decode
+    steps of a dense config over the ring: one flash_prefill and one
+    ring_decode per layer per call, no other kernel."""
+    return {"flash_prefill": cfg.n_layers * prefills,
+            "flash_prefill_q_offset": 0,
+            "ring_decode": cfg.n_layers * steps, "paged": 0, "ssd_scan": 0}
+
+
+def spec_kinds(r, log):
+    """Which model chose each token of ``r``'s speculative stream: the
+    prefill's and each verify pass's token the target, accepted drafts
+    the drafter (``log``: the (rid, accepted) pairs in dispatch order)."""
+    kinds = ["target"]
+    for rid, a in log:
+        if rid == r.rid:
+            kinds += ["draft"] * a + ["target"]
+    return kinds
+
+
+def init_model(torch, arch):
+    """``arch`` at full width and depth in bf16, random weights from a
+    seeded generator; prints its shape, size and the init's peak."""
+    from repro_torch.configs.registry import REGISTRY
+    from repro_torch.models import model as M
+
+    cfg = REGISTRY[arch]
+    free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           device="cuda")
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in _leaves(params))
+    if cfg.mamba is not None:
+        m = cfg.mamba
+        mixer = (f"d_inner {m.d_inner(cfg.d_model)}, "
+                 f"{m.n_heads(cfg.d_model)} SSM heads of {m.head_dim}, "
+                 f"state {m.d_state}")
+        reckoned = ""
+    else:
+        mixer = (f"{cfg.n_heads} q heads over {cfg.n_kv_heads} kv heads of "
+                 f"{cfg.head_dim} (G={cfg.n_heads // cfg.n_kv_heads})")
+        reckoned = "; reckoned " + json.dumps(reckon_gb(cfg))
+    extras = "".join(x for x, on in ((", tied head", cfg.tie_embeddings),
+                                     (", q/k norm", cfg.qk_norm)) if on)
+    print(f"model {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{mixer}, vocab {cfg.vocab_size}{extras}, {cfg.dtype}, {n:,} "
+          f"params, init {time.perf_counter() - t0:.1f} s, init peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB{reckoned}")
+    return cfg, params
+
+
+def family_serve_phase(torch, arch, spec: bool):
+    """Phases 10 and 11: ``arch`` served as phase 4 serves llama (dense
+    ring, step graphs, every launch and graph check) and one stream
+    replayed through the plain path; with ``spec``, then served as
+    phase 7 (paged pool, radix prefix reuse, ``SPEC_K`` drafts from the
+    drafter recipe, one verify launch at T = SPEC_K + 1) with a stream
+    replayed by token kind.  Frees its weights; returns the launch
+    counts and stats by phase label."""
+    from repro_torch.core.power import A100
+    from repro_torch.models import model as M
+    from repro_torch.serving.cluster import build_predictor
+    from repro_torch.serving.realengine import make_draft_config
+
+    cfg, params = init_model(torch, arch)
+    label = arch.split("-")[0]
+    _, _, reqs, launches, stats = serve_phase(
+        torch, arch, label, {"flash_prefill": "prefill",
+                             "ring_decode": "decode"}, params=params)
+    replay_phase(torch, {"target": (cfg, params)}, reqs[0])
+    out = {label: (launches, stats)}
+    del reqs
+    free(torch)
+    if spec:
+        t0 = time.perf_counter()
+        pred = build_predictor(cfg, A100, A100.freq_levels_2, kv_cap=400_000,
+                               spec_k=SPEC_K)
+        print(f"{label}: predictor (decode + verify at k={SPEC_K}) fit in "
+              f"{time.perf_counter() - t0:.1f} s")
+        dcfg = make_draft_config(cfg)
+        dparams = M.init_params(
+            dcfg, torch.Generator(device="cuda").manual_seed(1),
+            device="cuda")
+        reqs, log, spec_launches, spec_stats = paged_serve_phase(
+            torch, cfg, params, pred, drafter=(dcfg, dparams),
+            label=f"{label}-spec")
+        r = reqs[-1]
+        kinds = spec_kinds(r, log)
+        check("draft" in kinds,
+              f"{label}-spec: no accepted draft token in rid {r.rid}")
+        replay_phase(torch, {"target": (cfg, params),
+                             "draft": (dcfg, dparams)}, r, kinds)
+        out[f"{label}-spec"] = (spec_launches, spec_stats)
+        del dparams, reqs, log, r
+    del params
+    free(torch)
+    return out
+
+
+def kernel_path_phase(torch, arch):
+    """Phase 12 for ``arch``: one prefill of a ``FAMILY_PROMPT``-token
+    prompt and ``FAMILY_STEPS`` greedy decode steps through the kernel
+    path (``M.prefill``, ``M.decode_step``), with exactly one
+    flash_prefill and one ring_decode launch per layer a call; then the
+    same tokens teacher-forced through the plain path, each greedy token
+    within ``REPLAY_MARGIN`` of its max logit.  Frees its weights;
+    returns the launch counts and stats."""
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.ssd import ops as sops
+    from repro_torch.models import model as M
+    from repro_torch.serving.realengine import _bucket
+
+    cfg, params = init_model(torch, arch)
+    label = arch.split("-")[0]
+    g = torch.Generator().manual_seed(7)
+    prompt = torch.randint(0, cfg.vocab_size, (FAMILY_PROMPT,),
+                           generator=g).tolist()
+    buf = torch.zeros((1, _bucket(FAMILY_PROMPT, hi=MAX_LEN)),
+                      dtype=torch.int32, device="cuda")
+    buf[0, :FAMILY_PROMPT] = torch.tensor(prompt, dtype=torch.int32)
+    lengths = torch.tensor([FAMILY_PROMPT], dtype=torch.int32, device="cuda")
+
+    def counts():
+        return {"flash_prefill": fops.launches,
+                "flash_prefill_q_offset": fops.q_offset_launches,
+                "ring_decode": dops.launches,
+                "paged": sum(dops.paged_launches.values()),
+                "ssd_scan": sops.launches}
+
+    fops.launches = fops.q_offset_launches = 0
+    dops.launches = 0
+    dops.paged_launches.clear()
+    sops.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    walls = {"prefill": [], "decode": []}
+    logits, cache = timed(torch, M.prefill, walls["prefill"])(
+        params, cfg, buf, lengths, max_len=MAX_LEN)
+    after_prefill = counts()
+    toks = [int(logits[0].argmax())]
+    pos = lengths.clone()
+    step = timed(torch, M.decode_step, walls["decode"])
+    finite = bool(torch.isfinite(logits).all())
+    for _ in range(FAMILY_STEPS):
+        t = torch.tensor([toks[-1]], dtype=torch.int32, device="cuda")
+        logits, cache = step(params, cfg, t, cache, pos)
+        finite &= bool(torch.isfinite(logits).all())
+        toks.append(int(logits[0].argmax()))
+        pos = pos + 1
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(after_prefill == family_launches(cfg, 1, 0),
+          f"{label}: the prefill launched {after_prefill}")
+    check(launches == family_launches(cfg, 1, FAMILY_STEPS),
+          f"{label}: launched {launches}, expected "
+          f"{family_launches(cfg, 1, FAMILY_STEPS)}")
+    check(finite and all(0 <= t < cfg.vocab_size for t in toks),
+          f"{label}: non-finite logits or a token id out of range")
+    del cache
+    replay_phase(torch, {"target": (cfg, params)}, SimpleNamespace(
+        rid=f"{label} (kernel path)", prompt_tokens=prompt,
+        output_tokens=toks))
+    check(counts() == launches, f"{label}: the plain path launched a kernel")
+    stats = {"prompt": FAMILY_PROMPT, "bucket": buf.shape[1],
+             "prefill_ms": walls["prefill"][0],
+             "decode_ms_median": statistics.median(walls["decode"]),
+             "decode_steps": FAMILY_STEPS,
+             "max_memory_allocated_gb": peak / 1e9, "launches": launches}
+    print(f"kernel-path[{label}]: " + json.dumps(stats))
+    del params
+    free(torch)
+    return launches, stats
+
+
+# ---------------------------------------------------------------------------
 
 
 # name -> (source, the Pallas kernel it replaces, the serve phase whose
@@ -1764,8 +1988,7 @@ def main(argv=None) -> int:
     same_streams_eagerly(torch, reqs, "llama-3.1-8b", "dense", dense_kernels,
                          params)
     del reqs
-    gc.collect()
-    torch.cuda.empty_cache()  # the dense phase's ring caches
+    free(torch)  # the dense phase's ring caches
 
     from repro_torch.core.power import A100
     from repro_torch.models import model as M
@@ -1786,17 +2009,13 @@ def main(argv=None) -> int:
     reqs, log, spec_launches, _ = paged_serve_phase(
         torch, cfg, params, pred, drafter=(dcfg, dparams))
     r = reqs[-1]
-    kinds = ["target"]
-    for rid, a in log:
-        if rid == r.rid:
-            kinds += ["draft"] * a + ["target"]
+    kinds = spec_kinds(r, log)
     check("draft" in kinds, f"spec: no accepted draft token in rid {r.rid}")
     replay_phase(torch, {"target": (cfg, params), "draft": (dcfg, dparams)},
                  r, kinds)
     # free the llama weights (16 GB) and the drafter before phase 8
     del params, dparams, reqs, log, r
-    gc.collect()
-    torch.cuda.empty_cache()
+    free(torch)
 
     mcfg, params, reqs, mamba_launches, _ = serve_phase(
         torch, "mamba2-2.7b", "mamba", {"ssd_scan": "prefill"})
@@ -1815,8 +2034,7 @@ def main(argv=None) -> int:
     state_phase(torch, mcfg, live_state(params, mcfg), reqs[0], "live",
                 whole_path=False)
     del params, reqs  # free Mamba2 before phase 9
-    gc.collect()
-    torch.cuda.empty_cache()
+    free(torch)
 
     mesh = mesh_phase(torch, pred)
     # replay one stream per serve through the meshless plain path, on the
@@ -1831,14 +2049,21 @@ def main(argv=None) -> int:
         r.rid = f"{r.rid} (mesh-{name})"
         models, kinds = {"target": (cfg, params)}, None
         if name == "spec":
-            kinds = ["target"]
-            for rid, a in log:
-                if rid == streams[-1]["rid"]:
-                    kinds += ["draft"] * a + ["target"]
+            kinds = spec_kinds(SimpleNamespace(**streams[-1]), log)
             check("draft" in kinds, "mesh-spec: no accepted draft token in "
                                     f"rid {r.rid}")
             models["draft"] = (dcfg, dparams)
         replay_phase(torch, models, r, kinds)
+    # free llama and the drafter before phases 10-12
+    del params, dparams, models, r
+    free(torch)
+
+    family = {}
+    for arch in FAMILY_SERVED:
+        family.update(family_serve_phase(torch, arch,
+                                         spec=arch == "ministral-3b"))
+    for arch in FAMILY_CHECKED:
+        family[arch.split("-")[0]] = kernel_path_phase(torch, arch)
 
     leaked = [m for m in sys.modules
               if m == "jax" or m.startswith("jax.") or m == "repro"
@@ -1849,6 +2074,8 @@ def main(argv=None) -> int:
                 "spec": spec_launches, "mamba": mamba_launches}
     by_phase.update({f"mesh-{name}": mesh["serves"][name][2]["launches"]
                      for name in ("dense", "paged", "spec")})
+    by_phase.update({name: launches
+                     for name, (launches, _) in family.items()})
     rows = []
     for name, (source, replaces, phase) in KERNELS.items():
         h = head[name]

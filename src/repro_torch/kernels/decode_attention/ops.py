@@ -9,6 +9,16 @@ the paged wrapper's calls that launched with it (T == 1 is paged
 decode).  In bfloat16 a call of either kernel is two launches, the split
 (over ring slots, or over positions) and the combine; it counts once.
 
+The paged kernel holds at most ``PAGED_ROWS`` = 32 query rows (T · G)
+per kv head, as one or two m16 fragments in bfloat16 and one warp a row
+in float32.  The reference groups any T · G.  So for wider groups (G =
+12 at T = 3 is 36 rows) the wrapper splits each kv head's G query heads
+into sub-groups of G' heads, G' the largest divisor of G with T · G' <=
+32, runs the kernel on each sub-group (Hq' = Hkv · G', the heads gathered
+contiguous) and scatters the outputs back (:func:`by_head_subgroups`).
+Attention is independent per query head, so each row is what an
+unsplit kernel would give it, and a split call still counts once.
+
 **Mesh sharding** (``repro/kernels/decode_attention/ops.py:48,86,122``).
 Pass ``mesh=`` (an instance's slice, axes ("data", "model")) and, when
 Hq and Hkv both divide the ``axis`` width
@@ -41,6 +51,8 @@ from repro_torch.kernels.decode_attention.ref import (
     decode_attention_ref,
     paged_verify_attention_ref,
 )
+
+PAGED_ROWS = 32  # query rows (T * G) per kv head one paged launch holds
 
 launches = 0
 paged_launches: Dict[int, int] = {}
@@ -244,6 +256,35 @@ def _paged_scratch_floats(*shape_and_dtype: int) -> int:
     return int(_paged_kernel()[1](*shape_and_dtype))
 
 
+def head_subgroup(T: int, G: int) -> int:
+    """G', the largest divisor of the group G with T · G' <= PAGED_ROWS:
+    the query heads per kv head of one paged launch."""
+    fits = [g for g in range(1, G + 1) if G % g == 0 and T * g <= PAGED_ROWS]
+    if not fits:
+        raise ValueError(f"at most {PAGED_ROWS} query tokens per sequence, "
+                         f"got T={T}")
+    return fits[-1]
+
+
+def by_head_subgroups(fn: Callable, q: torch.Tensor, Hkv: int,
+                      sub: int) -> torch.Tensor:
+    """``fn`` on each sub-group of ``sub`` query heads per kv head of
+    ``q`` (B, T, Hq, Dh): sub-group s of kv head j is heads
+    ``j * G + s * sub ...``, gathered contiguous as (B, T, Hkv * sub, Dh);
+    ``fn`` maps it to an output of that shape, which is scattered back
+    into a (B, T, Hq, Dh) tensor."""
+    B, T, Hq, Dh = q.shape
+    G = Hq // Hkv
+    if sub == G:
+        return fn(q)
+    out = torch.empty_like(q)
+    qg, og = q.view(B, T, Hkv, G, Dh), out.view(B, T, Hkv, G, Dh)
+    for s in range(0, G, sub):
+        part = fn(qg[:, :, :, s:s + sub].reshape(B, T, Hkv * sub, Dh))
+        og[:, :, :, s:s + sub] = part.view(B, T, Hkv, sub, Dh)
+    return out
+
+
 def paged_verify_attention(
     q: torch.Tensor,  # (B, T, Hq, Dh)
     k_pages: torch.Tensor,  # (P, page_size, Hkv, Dh), the whole pool
@@ -292,38 +333,40 @@ def paged_verify_attention(
     code = _build.dtype_code(q)
     if Dh not in _build.HEAD_DIMS:
         raise ValueError(f"head_dim {Dh} not in {_build.HEAD_DIMS}")
-    if T * (Hq // Hkv) > 32:
-        raise ValueError(f"at most 32 query rows per kv head, got T={T} x "
-                         f"G={Hq // Hkv}")
+    sub = head_subgroup(T, Hq // Hkv)
     if block_tables.dtype != torch.int32 or lengths.dtype != torch.int32:
         raise TypeError("block_tables and lengths must be int32")
     for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
         _build.check_operand(name, t, q.device)
     for name, t in (("block_tables", block_tables), ("lengths", lengths)):
         _build.check_operand(name, t, q.device, align=4)
-    out = torch.empty_like(q)
-    if out.numel() == 0:
-        return out
+    if q.numel() == 0:
+        return torch.empty_like(q)
     fn, _, err_str = _paged_kernel()
     Pmax = block_tables.shape[1]
-    n_part = _paged_scratch_floats(B, T, Hq, Hkv, Dh, ps, Pmax, code)
+    n_part = _paged_scratch_floats(B, T, Hkv * sub, Hkv, Dh, ps, Pmax, code)
     part = (torch.empty(n_part, dtype=torch.float32, device=q.device)
             if n_part else None)
-    with torch.cuda.device(q.device):
-        err = fn(
-            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            part.data_ptr() if part is not None else None,
-            B, T, Hq, Hkv, Dh, P, ps, Pmax,
-            int(window) if window is not None else 0,
-            float(softcap) if softcap is not None else 0.0,
-            1.0 / Dh ** 0.5, code,
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
-    if err:
-        raise RuntimeError(
-            f"paged_attention launch failed: {err_str(err).decode()} ({err})"
-        )
+
+    def launch(qs: torch.Tensor) -> torch.Tensor:
+        out = torch.empty_like(qs)
+        with torch.cuda.device(q.device):
+            err = fn(
+                qs.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+                part.data_ptr() if part is not None else None,
+                B, T, qs.shape[2], Hkv, Dh, P, ps, Pmax,
+                int(window) if window is not None else 0,
+                float(softcap) if softcap is not None else 0.0,
+                1.0 / Dh ** 0.5, code,
+                torch.cuda.current_stream(q.device).cuda_stream,
+            )
+        if err:
+            raise RuntimeError(f"paged_attention launch failed: "
+                               f"{err_str(err).decode()} ({err})")
+        return out
+
+    out = by_head_subgroups(launch, q, Hkv, sub)
     paged_launches[T] = paged_launches.get(T, 0) + 1
     return out
 

@@ -74,8 +74,9 @@ def check_supported(cfg: ModelConfig) -> None:
     if other:
         raise NotImplementedError(
             f"model '{cfg.name}': the port serves attention and Mamba2 "
-            "mixers with an MLP or no FFN; MoE, hybrid-MoE and encoder "
-            "models are ROADMAP queue 1, item 7"
+            "mixers with an MLP or no FFN (the dense family and mamba2); "
+            "MoE (qwen3-moe, dbrx), hybrid-MoE (jamba) and encoder "
+            "(hubert) models are ROADMAP queue 1, item 7"
         )
     if cfg.kv_dtype == "int8" or cfg.weight_dtype == "int8":
         raise NotImplementedError(
@@ -261,7 +262,7 @@ def _attn_full(p, cfg: ModelConfig, spec: LayerSpec, x, positions, lengths,
         k = L.apply_rope(k, sin, cos)
     if spec.window is not None and cfg.causal:
         raise NotImplementedError(
-            "sliding-window attention is ROADMAP queue 1, item 7"
+            "sliding-window attention (gemma2) is ROADMAP queue 1, item 7"
         )
     if plain:
         valid = None if lengths is None else positions < lengths[:, None]
@@ -559,8 +560,8 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     for spec in cfg.block_pattern:
         if spec.mixer == "attn" and cache_capacity(cfg, spec, max_len) < S:
             raise NotImplementedError(
-                "a ring cache smaller than the prompt (windowed configs) is "
-                "ROADMAP queue 1, item 7"
+                "a ring cache smaller than the prompt (windowed configs: "
+                "gemma2) is ROADMAP queue 1, item 7"
             )
     dev = tokens.device
     lengths = lengths.to(device=dev, dtype=torch.int32)

@@ -47,3 +47,33 @@ from repro_torch.serving.workload import (  # noqa: F401
     synthetic_pd_ratio,
     tiered_workload,
 )
+from repro_torch.serving.traces import (  # noqa: F401
+    AgenticSegment,
+    DiurnalSegment,
+    FlashCrowdSegment,
+    TieredSegment,
+    Trace,
+    TraceRecord,
+    load_azure_trace,
+    load_burstgpt_trace,
+    load_trace,
+    rescale,
+    rescale_to_rps,
+    resample,
+    synthetic_trace,
+    tile,
+    trace_from_requests,
+)
+from repro_torch.serving.loadgen import (  # noqa: F401
+    FIFOServer,
+    LoadPoint,
+    OpenLoopDriver,
+    attainment_knee,
+    detect_knee,
+    qps_sweep,
+)
+from repro_torch.serving.scenarios import (  # noqa: F401
+    SCENARIOS,
+    Scenario,
+    run_scenario,
+)

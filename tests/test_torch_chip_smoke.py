@@ -192,3 +192,50 @@ def test_graph_counts_hold_a_serve_to_its_captures_and_replays(
     else:
         with pytest.raises(RuntimeError, match="graph captures"):
             call()
+
+
+@pytest.mark.parametrize("arch,weights_gb,ring_gb", [
+    ("ministral-3b", 7.335837696, 0.872415232),
+    ("qwen3-32b", 65.5228928, 2.147483648),
+    ("chameleon-34b", 68.585259008, 1.610612736),
+])
+def test_reckon_gb_counts_weights_and_the_decode_ring(arch, weights_gb,
+                                                      ring_gb):
+    """bf16 weights from the config's parameter count, and the ring's 8
+    slots x 1024 positions x layers x K and V x kv heads x head dim."""
+    from repro_torch.configs.registry import REGISTRY
+
+    got = cs.reckon_gb(REGISTRY[arch])
+    assert got == pytest.approx({"weights_gb": weights_gb,
+                                 "ring_gb": ring_gb}, rel=1e-12)
+
+
+def test_family_launches_are_one_a_layer_a_call():
+    from repro_torch.configs.registry import REGISTRY
+
+    cfg = REGISTRY["qwen3-32b"]
+    assert cs.family_launches(cfg, 1, 16) == {
+        "flash_prefill": 64, "flash_prefill_q_offset": 0,
+        "ring_decode": 64 * 16, "paged": 0, "ssd_scan": 0}
+    assert cs.family_launches(cfg, 1, 0)["ring_decode"] == 0
+
+
+def test_spec_kinds_follow_the_verify_log():
+    """The prefill's token and each verify pass's last token are the
+    target's; accepted drafts the drafter's; other requests' entries
+    are skipped."""
+    from types import SimpleNamespace
+
+    r = SimpleNamespace(rid=3)
+    log = [(3, 2), (1, 1), (3, 0), (3, 1)]
+    assert cs.spec_kinds(r, log) == [
+        "target", "draft", "draft", "target", "target", "draft", "target"]
+    assert cs.spec_kinds(SimpleNamespace(rid=9), log) == ["target"]
+
+
+def test_dense_family_phases_name_served_configs():
+    from repro_torch.configs.registry import REGISTRY
+
+    for arch in cs.FAMILY_SERVED + cs.FAMILY_CHECKED:
+        assert arch in REGISTRY
+    assert "command-r-plus-104b" not in cs.FAMILY_SERVED + cs.FAMILY_CHECKED

@@ -1120,3 +1120,124 @@ def test_lm_head_multiplies_bf16_into_float32_without_a_float32_head(card):
         torch.testing.assert_close(got, h.float() @ head.float(),
                                    atol=2e-2, rtol=2e-2)
         assert extra < head.numel() * 2, (tied, extra)
+
+
+# ---------------------------------------------------------------------------
+# The dense family's head shapes and vocabularies: ministral-3b and
+# phi4-mini (G = 3), qwen3-32b and chameleon-34b (G = 8), command-r-plus
+# (G = 12), minicpm-2b (MHA at head dim 64)
+# ---------------------------------------------------------------------------
+
+DENSE_HEADS = [  # (Dh, Hq, Hkv)
+    pytest.param(128, 24, 8, id="G3"), pytest.param(128, 64, 8, id="G8"),
+    pytest.param(128, 96, 8, id="G12"), pytest.param(64, 36, 36, id="Dh64-G1"),
+]
+
+
+@pytest.mark.parametrize("q_start", [None, 256], ids=["prompt", "q_offset"])
+@pytest.mark.parametrize("Dh,Hq,Hkv", DENSE_HEADS)
+def test_flash_bf16_dense_family_heads_match_plain(card, Dh, Hq, Hkv,
+                                                   q_start):
+    """A bf16 flash block holds 64 // G positions of G heads: 21 at G = 3
+    (63 rows), 8 at G = 8, 5 at G = 12 (60 rows), 64 at G = 1; with and
+    without a query offset over a 1024-key view."""
+    g = torch.Generator(device=card).manual_seed(Hq + Dh)
+    B, S = 2, 300
+    Skv = S if q_start is None else 1024
+    q = torch.randn((B, S, Hq, Dh), generator=g, device=card).bfloat16()
+    k = torch.randn((B, Skv, Hkv, Dh), generator=g, device=card).bfloat16()
+    v = torch.randn((B, Skv, Hkv, Dh), generator=g, device=card).bfloat16()
+    base = 0 if q_start is None else q_start
+    qs = None if q_start is None else torch.tensor(
+        [q_start, 100], dtype=torch.int32, device=card)
+    kl = torch.tensor([base + S, S // 2 + 1 + (0 if q_start is None else 100)],
+                      dtype=torch.int32, device=card)
+    kw = dict(causal=True, kv_len=kl, q_start=qs)
+    n0 = fops.launches
+    got = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fops.launches == n0 + 1
+    want = attention_ref(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL["bfloat16"],
+                               rtol=TOL["bfloat16"])
+
+
+@pytest.mark.parametrize("Dh,Hq,Hkv", DENSE_HEADS)
+def test_ring_bf16_dense_family_heads_match_plain(card, Dh, Hq, Hkv):
+    """The main path's ring (8 slots of 1024) at the family's groups."""
+    rows = [("fill", n) for n in (1024, 700, 513, 512, 300, 129, 74, 0)]
+    q, k, v, sp, qp = _ring_inputs(card, rows, 1024, Hq, Hkv, Dh,
+                                   seed=Hq * 7 + Dh)
+    n0 = dops.launches
+    got = decode_attention(q, k, v, sp, qp)
+    torch.cuda.synchronize()
+    assert dops.launches == n0 + 1
+    want = decode_attention_ref(q, k, v, sp, qp)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL["bfloat16"],
+                               rtol=TOL["bfloat16"])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("T", [1, 3, 5])
+@pytest.mark.parametrize("G", [3, 8, 12])
+def test_paged_dense_family_groups_match_plain(card, dtype, G, T):
+    """Paged decode and verify at Hkv = 8, Dh = 128 and G = 3, 8, 12.
+    T * G above 32 rows (G = 12 at T = 3 and 5; G = 8 at T = 5) runs the
+    kernel once per sub-group of heads, and the call counts once; G = 12
+    is command-r-plus-104b's shape."""
+    lengths = [1024, 700, 513, 512, 100, 17, T + 1, 16]
+    q, kp, vp, bt, ln = _paged_inputs(card, dtype, 8, T, 8 * G, 8, 128, 16,
+                                      64, lengths, seed=G * 10 + T)
+    n0 = dops.paged_launches.get(T, 0)
+    got = (paged_decode_attention(q[:, 0], kp, vp, bt, ln)[:, None] if T == 1
+           else paged_verify_attention(q, kp, vp, bt, ln))
+    torch.cuda.synchronize()
+    assert dops.paged_launches[T] == n0 + 1
+    want = paged_verify_attention_ref(q, kp, vp, bt, ln)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("T", [3, 5])
+def test_paged_head_split_is_reproducible_and_row_independent(card, T):
+    """A call split over head sub-groups (G = 12) repeats bitwise, and a
+    row alone equals that row in the batch."""
+    lengths = [1024, 700, 513, 100]
+    q, kp, vp, bt, ln = _paged_inputs(card, "bfloat16", 4, T, 96, 8, 128,
+                                      16, 64, lengths, seed=T + 96)
+    a = paged_verify_attention(q, kp, vp, bt, ln)
+    b = paged_verify_attention(q, kp, vp, bt, ln)
+    assert torch.equal(a, b)
+    for row in (0, 2):
+        alone = paged_verify_attention(q[row:row + 1].contiguous(), kp, vp,
+                                       bt[row:row + 1].contiguous(),
+                                       ln[row:row + 1].contiguous())
+        assert torch.equal(alone[0], a[row])
+
+
+@pytest.mark.parametrize("arch", ["ministral-3b", "qwen3-32b",
+                                  "phi4-mini-3.8b", "minicpm-2b"])
+def test_lm_head_at_dense_family_vocabularies(card, arch):
+    """The bf16 LM head at the family's full vocabularies and widths
+    (131072, 151936, 200064 tied, 122753 tied and odd): float32 logits
+    close to the upcast product, and no float32 copy of the head."""
+    cfg = dataclasses.replace(REGISTRY[arch], dtype="bfloat16")
+    g = torch.Generator(device=card).manual_seed(cfg.vocab_size)
+    w = (torch.randn((cfg.vocab_size, cfg.d_model), generator=g,
+                     device=card) * 0.02).to(torch.bfloat16)
+    params = ({"embed": w} if cfg.tie_embeddings
+              else {"lm_head": w.T.contiguous()})
+    head = w.T
+    del w
+    h = torch.randn((8, cfg.d_model), generator=g,
+                    device=card).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    got = TM.lm_logits(params, cfg, h)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    assert got.dtype == torch.float32 and got.shape == (8, cfg.vocab_size)
+    torch.testing.assert_close(got, h.float() @ head.float(), atol=2e-2,
+                               rtol=2e-2)
+    assert extra < head.numel() * 2, extra

@@ -392,6 +392,50 @@ def test_paged_wrapper_rejects_mismatched_tables():
                                torch.zeros(2, dtype=torch.int32))
 
 
+@pytest.mark.parametrize("T,G,sub", [
+    (1, 4, 4), (3, 3, 3), (3, 8, 8), (1, 12, 12), (3, 12, 6), (5, 12, 6),
+    (5, 8, 4), (2, 32, 16), (1, 36, 18), (32, 3, 1),
+])
+def test_paged_head_subgroup_fits_the_kernel(T, G, sub):
+    """G', the query heads a kv head gives one paged launch: the largest
+    divisor of G with T * G' <= 32 rows."""
+    assert dops.head_subgroup(T, G) == sub
+    assert G % sub == 0 and T * sub <= dops.PAGED_ROWS
+
+
+def test_paged_head_subgroup_rejects_too_many_tokens():
+    with pytest.raises(ValueError, match="query tokens"):
+        dops.head_subgroup(33, 1)
+
+
+@pytest.mark.parametrize("T", [1, 3, 5])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_head_subgroups_rebuild_the_whole_call(T, dtype):
+    """The wrapper's split over head sub-groups, run with the plain
+    version as its kernel at command-r-plus's group (Hq 24 over Hkv 2:
+    G = 12), equals the whole call and the JAX reference: each sub-group
+    gathers the right heads and each output lands where it belongs."""
+    rng = np.random.default_rng(T)
+    B, P, ps, Hq, Hkv, Dh, Pmax = 3, 24, 8, 24, 2, 16, 4
+    lengths = [ps * Pmax - 1, 9, T + 1]
+    (qj, qt), (kj, kt), (vj, vt), (bj, bt), (lj, lt) = _paged(
+        rng, B, T, P, ps, Hq, Hkv, Dh, Pmax, lengths, dtype)
+    sub = dops.head_subgroup(T, Hq // Hkv)
+    seen = []
+
+    def plain(qs):
+        seen.append(qs.shape[2])
+        return paged_verify_attention(qs, kt, vt, bt, lt)
+
+    got = dops.by_head_subgroups(plain, qt, Hkv, sub)
+    assert seen == [Hkv * sub] * (Hq // Hkv // sub)
+    assert got.dtype == qt.dtype and got.shape == qt.shape
+    torch.testing.assert_close(got, paged_verify_attention(qt, kt, vt, bt,
+                                                           lt),
+                               atol=0, rtol=0)
+    _close(jax_paged_verify_ref(qj, kj, vj, bj, lj), got, dtype)
+
+
 def test_library_path_changes_with_a_shared_header(tmp_path, monkeypatch):
     """An edited ``csrc/*.cuh`` names a new library, so it rebuilds."""
     from repro_torch.kernels import _build
