@@ -73,8 +73,28 @@ Phases, in order; any failure exits non-zero:
    prompt and ``FAMILY_STEPS`` greedy decode steps through the kernel
    path, one flash_prefill and one ring_decode launch a layer a call,
    and the same tokens teacher-forced through the plain path, each
-   within ``REPLAY_MARGIN`` of its max logit.  Each of phases 10-12
-   frees its weights before the next and prints its peak memory.
+   within ``REPLAY_MARGIN`` of its max logit.  Each of phases 10-15
+   frees its weights before the next and prints its peak memory;
+13. gemma2-27b (alternating 4,096-window local and global attention,
+   softcaps 50 and 30, tied 256,000-row head, 54.5 GB) at full depth,
+   served dense with step graphs in ``GEMMA_SLOTS`` slots of
+   ``GEMMA_MAX_LEN`` on 4 requests with prompts of 4,500-7,500 tokens:
+   the window masks in every local layer's prefill and every local ring
+   wraps in decode; one stream replayed through the plain path
+   (``L.sliding_attention``) at the same max_len;
+14. qwen3-moe-30b-a3b (128 experts, top-8, 61.1 GB) at full depth:
+   phase 4's requests dense with step graphs and again eagerly (equal
+   streams), then the multi-turn workload paged + speculative; a MoE
+   token depends on its batch-mates through capacity drops, so every
+   serve is replayed batch for batch (:func:`batch_replay`: the recorded
+   prefill, insert and step calls re-run through the plain path), with
+   the dropped entries a decode step;
+15. jamba-v0.1-52b at full width cut to one super-block (8 layers:
+   7 Mamba2 + 1 attention, 4 MoE of 16 experts top-2 + 4 MLP, 26.5 GB):
+   phase 4's requests dense with step graphs, seven ssd_scan and one
+   flash_prefill launches a prefill and one ring_decode a step, a batch
+   replay, and every Mamba2 layer's prefill state held against the plain
+   path's.
 
 It prints the ``kernels`` JSON line and, last, the device line.
 
@@ -125,6 +145,16 @@ SSD_TOL = {"bfloat16": 3e-2, "float32": 1e-5}
 # init the scan's share of y is far below bf16's rounding of y + D*x,
 # so the kernel and the state are checked through ``state_phase``.
 REPLAY_MARGIN = 0.5
+# A MoE router's near-tie, in router-logit units (:class:`Routes`).  The
+# kernel path and the plain path round the residual stream differently,
+# so router logits move by hundredths between them and the k-th and
+# (k+1)-th experts swap where they were that close: on an H100, 61 of
+# jamba's 9,824 routed rows in phase 15, one of which moved an emitted
+# token's logit by 0.556, and 5.8% of qwen3-moe's rows (top-8 of 128) in
+# phase 14; the served expert then lay at most 0.055 below the plain
+# top-k.  Neighbouring order statistics of 16 or 128 router logits of
+# spread about 1 lie tenths apart; a wrong routing misses by more.
+ROUTE_MARGIN = 0.1
 MAX_LEN = 1024
 SLOTS = 8
 L2_BYTES = 50e6
@@ -134,6 +164,11 @@ PAGE_SIZE = 16
 PMAX = MAX_LEN // PAGE_SIZE
 POOL_PAGES = (2 * SLOTS + 8) * PMAX  # the backend's default pool
 MESH_TP = 2  # phase 9: ranks of the world, each instance's slice width
+# phase 13: gemma2-27b past its window, 4 slots of 8,192 + 64 positions
+GEMMA_WINDOW = 4096
+GEMMA_BUCKET = 8192
+GEMMA_MAX_LEN = GEMMA_BUCKET + 64
+GEMMA_SLOTS = 4
 MESH_TIMEOUT_S = 600.0  # the parent's wait for the phase 9 world
 
 
@@ -407,22 +442,31 @@ def flash_case(torch, F, B, S, Hq, Hkv, Dh, dtype, kv_frac, window, softcap,
     sets = copies(torch, (q, k, v), (q.numel() + 2 * k.numel()) * esz)
     ms = cuda_ms(torch, lambda a, b, c: fops.flash_attention(a, b, c, **kw),
                  sets)
+    # the plain version materialises (Hq, S, Skv) float32 scores
     plain_ms = cuda_ms(torch, lambda a, b, c: attention_ref(a, b, c, **kw),
-                       sets)
-    # library yardstick (never called by the port): SDPA on the same
-    # inputs (head-major views) with the same mask
-    qp = (qs + torch.arange(S, device="cuda"))[:, None]
-    j = torch.arange(Skv, device="cuda")[None, :]
-    mask = ((qp >= j) & (j < L))[None, None]
-
-    def lib(a, b, c):
-        return F.scaled_dot_product_attention(
-            a.transpose(1, 2), b.transpose(1, 2), c.transpose(1, 2),
-            attn_mask=mask, enable_gqa=True)
-    lib_ms = cuda_ms(torch, lib, sets)
+                       sets, iters=5 if S * Skv > 2 ** 24 else 20)
     dev_ms, host_ms = queued_ms(
         torch, lambda a, b, c: fops.flash_attention(a, b, c, **kw), sets)
-    lib_dev_ms, _ = queued_ms(torch, lib, sets)
+    lib_ms = lib_dev_ms = None
+    if softcap is None:
+        # library yardstick (never called by the port): SDPA on the same
+        # inputs (head-major views) with the same mask; SDPA has no
+        # softcap, so a softcapped case has none
+        qp = (qs + torch.arange(S, device="cuda"))[:, None]
+        j = torch.arange(Skv, device="cuda")[None, :]
+        mask = (qp >= j) & (j < L)
+        if window is not None:
+            mask &= qp - j < window
+        mask = mask[None, None]
+
+        def lib(a, b, c):
+            return F.scaled_dot_product_attention(
+                a.transpose(1, 2), b.transpose(1, 2), c.transpose(1, 2),
+                attn_mask=mask, enable_gqa=True)
+        lib_ms = cuda_ms(torch, lib, sets)
+        lib_dev_ms, _ = queued_ms(torch, lib, sets)
+    else:
+        row["library_note"] = "SDPA has no softcap: no library call"
     b_ms, b_by = bound(flops, nbytes, dtype)
     row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
                bound_by=b_by, device_ms=dev_ms, host_ms=host_ms,
@@ -432,7 +476,11 @@ def flash_case(torch, F, B, S, Hq, Hkv, Dh, dtype, kv_frac, window, softcap,
 
 
 def decode_case(torch, F, B, C, Hq, Hkv, Dh, dtype, window, softcap,
-                timed: bool):
+                timed: bool, written=None):
+    """One ring decode case: partly filled rows and a last row all empty
+    (a free decode slot); with ``written`` (a length per row), rows whose
+    ring has taken that many positions, position p at slot p % C, so a
+    row past C has wrapped (no empty row then)."""
     from repro_torch.kernels.decode_attention import ops as dops
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
@@ -441,12 +489,17 @@ def decode_case(torch, F, B, C, Hq, Hkv, Dh, dtype, window, softcap,
     q = torch.randn((B, Hq, Dh), generator=g, device="cuda").to(dt)
     kc = torch.randn((B, C, Hkv, Dh), generator=g, device="cuda").to(dt)
     vc = torch.randn((B, C, Hkv, Dh), generator=g, device="cuda").to(dt)
-    # partly filled rows, the last row all empty (a free decode slot)
-    filled = torch.randint(C // 4, C, (B,), generator=g, device="cuda")
-    filled[-1] = 0
     slots = torch.arange(C, device="cuda")
-    slot_pos = torch.where(slots[None] < filled[:, None], slots[None],
-                           -1).to(torch.int32)
+    if written is None:
+        filled = torch.randint(C // 4, C, (B,), generator=g, device="cuda")
+        filled[-1] = 0
+        slot_pos = torch.where(slots[None] < filled[:, None], slots[None],
+                               -1).to(torch.int32)
+    else:  # the latest position p < n with p % C == s, or -1
+        filled = torch.tensor(written, device="cuda")
+        last = slots[None] + C * torch.div(filled[:, None] - 1 - slots[None],
+                                           C, rounding_mode="floor")
+        slot_pos = torch.where(last >= 0, last, -1).to(torch.int32)
     q_pos = torch.clamp(filled - 1, min=0).to(torch.int32)
     kw = dict(window=window, softcap=softcap)
     got = dops.decode_attention(q, kc, vc, slot_pos, q_pos, **kw)
@@ -454,23 +507,30 @@ def decode_case(torch, F, B, C, Hq, Hkv, Dh, dtype, window, softcap,
     torch.cuda.synchronize()
     err, ok = max_err(torch, got, want, dtype)
     check(ok, f"ring_decode disagrees with its plain version at B={B} C={C} "
-              f"{dtype} window={window} softcap={softcap}: max abs err {err}")
-    empty_mean = vc[-1].float().mean(dim=0)  # (Hkv, Dh)
-    G = Hq // Hkv
-    want_empty = empty_mean.repeat_interleave(G, dim=0).to(dt).float()
-    empty_err = float((got[-1].float() - want_empty).abs().max())
-    check(empty_err <= TOL[dtype] * (1 + float(want_empty.abs().max())),
-          f"ring_decode all-empty row is not the mean of V: {empty_err}")
+              f"{dtype} window={window} softcap={softcap} written="
+              f"{written}: max abs err {err}")
     row = {"shape": f"B={B} C={C} Hq={Hq} Hkv={Hkv} Dh={Dh}", "dtype": dtype,
-           "window": window, "softcap": softcap, "max_abs_err": err,
-           "empty_row_err": empty_err}
+           "window": window, "softcap": softcap, "written": written,
+           "max_abs_err": err}
+    if written is None:
+        empty_mean = vc[-1].float().mean(dim=0)  # (Hkv, Dh)
+        G = Hq // Hkv
+        want_empty = empty_mean.repeat_interleave(G, dim=0).to(dt).float()
+        empty_err = float((got[-1].float() - want_empty).abs().max())
+        check(empty_err <= TOL[dtype] * (1 + float(want_empty.abs().max())),
+              f"ring_decode all-empty row is not the mean of V: {empty_err}")
+        row["empty_row_err"] = empty_err
     if not timed:
         return row
-    # bytes this data needs: valid slots' K and V, all of V for the empty
-    # row (its mean), slot positions, q and out
-    valid = int(filled[:-1].sum())
+    # bytes this data needs: unmasked slots' K and V, all of V for an
+    # empty row (its mean), slot positions, q and out
+    live = (slot_pos >= 0) & (slot_pos <= q_pos[:, None])
+    if window is not None:
+        live &= q_pos[:, None] - slot_pos < window
+    valid = int(live.sum())
+    empty = int((live.sum(dim=1) == 0).sum())
     esz = q.element_size()
-    nbytes = (2 * q.numel() + (2 * valid + C) * Hkv * Dh) * esz \
+    nbytes = (2 * q.numel() + (2 * valid + empty * C) * Hkv * Dh) * esz \
         + slot_pos.numel() * 4 + q_pos.numel() * 4
     flops = 4.0 * valid * Hq * Dh
     sets = copies(torch, (q, kc, vc), (q.numel() + 2 * kc.numel()) * esz)
@@ -478,18 +538,22 @@ def decode_case(torch, F, B, C, Hq, Hkv, Dh, dtype, window, softcap,
         a, b, c, slot_pos, q_pos, **kw), sets)
     plain_ms = cuda_ms(torch, lambda a, b, c: decode_attention_ref(
         a, b, c, slot_pos, q_pos, **kw), sets)
-    mask = ((slot_pos >= 0) & (slot_pos <= q_pos[:, None]))[:, None, None]
-
-    def lib(a, b, c):
-        return F.scaled_dot_product_attention(
-            a[:, :, None], b.transpose(1, 2), c.transpose(1, 2),
-            attn_mask=mask, enable_gqa=True)
-    lib_ms = cuda_ms(torch, lib, sets)
     dev_ms, host_ms = queued_ms(torch, lambda a, b, c: dops.decode_attention(
         a, b, c, slot_pos, q_pos, **kw), sets)
     by_kernel = device_ms_by_kernel(torch, lambda: dops.decode_attention(
         q, kc, vc, slot_pos, q_pos, **kw))
-    lib_dev_ms, _ = queued_ms(torch, lib, sets)
+    lib_ms = lib_dev_ms = None
+    if softcap is None:
+        mask = live[:, None, None]
+
+        def lib(a, b, c):
+            return F.scaled_dot_product_attention(
+                a[:, :, None], b.transpose(1, 2), c.transpose(1, 2),
+                attn_mask=mask, enable_gqa=True)
+        lib_ms = cuda_ms(torch, lib, sets)
+        lib_dev_ms, _ = queued_ms(torch, lib, sets)
+    else:
+        row["library_note"] = "SDPA has no softcap: no library call"
     b_ms, b_by = bound(flops, nbytes, dtype)
     row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
                bound_by=b_by, device_ms=dev_ms, host_ms=host_ms,
@@ -872,6 +936,26 @@ def kernel_phase(torch, F):
                 paged_rows[T].append(paged_case(
                     torch, F, SLOTS, T, lengths=lengths, dtype=dtype,
                     window=None, softcap=None, timed=False, **heads))
+    # gemma2-27b's attention where its window and softcap bind (phase 13):
+    # an 8,192-token prefill of a local layer (window 4,096, softcap 50),
+    # decode over a wrapped 4,096-slot local ring and over the 8,256-slot
+    # global ring (softcap 50); timed in bf16
+    gemma = dict(Hq=32, Hkv=16, Dh=128)
+    for dtype in ("bfloat16", "float32"):
+        flash_rows.append(dict(flash_case(
+            torch, F, 1, GEMMA_BUCKET, dtype=dtype, kv_frac=None,
+            window=GEMMA_WINDOW, softcap=50.0, timed=dtype == "bfloat16",
+            **gemma), case="gemma2 local prefill"))
+        decode_rows.append(dict(decode_case(
+            torch, F, GEMMA_SLOTS, GEMMA_WINDOW, dtype=dtype,
+            window=GEMMA_WINDOW, softcap=50.0, timed=dtype == "bfloat16",
+            written=[4500, 5600, 6700, 7800], **gemma),
+            case="gemma2 local ring, wrapped"))
+        decode_rows.append(dict(decode_case(
+            torch, F, GEMMA_SLOTS, GEMMA_MAX_LEN, dtype=dtype, window=None,
+            softcap=50.0, timed=dtype == "bfloat16",
+            written=[4500, 5600, 6700, 7800], **gemma),
+            case="gemma2 global ring"))
     # the SSD scan: the sweep of tests/test_kernels.py:237, the reduced
     # config's dims, and mamba2-2.7b's prefill at S=512 (x, B and C
     # slices of one tensor, as the model passes them; timed), also with
@@ -904,8 +988,10 @@ def kernel_phase(torch, F):
           + json.dumps({d: [max(r[k] for r in ssd_rows if r["dtype"] == d)
                             for k in ("scaled_err_y", "scaled_err_state")]
                         for d in ("bfloat16", "float32")}))
-    head = {name: next(r for r in rs if "ms" in r)
+    head = {name: next(r for r in rs if "ms" in r and "case" not in r)
             for name, rs in rows.items()}
+    head.update({f"{name}@{r['case']}": r for name, rs in rows.items()
+                 for r in rs if "ms" in r and "case" in r})
     errs = {name: {dtype: max(r["max_abs_err"] for r in rs
                               if r["dtype"] == dtype)
                    for dtype in ("bfloat16", "float32")}
@@ -918,46 +1004,80 @@ def kernel_phase(torch, F):
 # ---------------------------------------------------------------------------
 
 
-def serve_phase(torch, arch, label, per_iter, params=None, tp=0,
-                cuda_graphs=None):
-    """``arch`` at full width and depth in bf16 (random weights from a
-    seeded generator) through the dense P/D cluster, one prefill and one
-    decode instance, on 8 Poisson requests.  ``per_iter`` maps each
-    kernel the path runs to the iteration kind ("prefill" or "decode")
-    that launches it once per layer; every other kernel must stay at 0.
-    With ``tp`` the instances are tp-wide slices of the world and
-    ``params`` this rank's shards.  ``cuda_graphs`` goes to the backends
-    (None: graphs for a meshless decode instance).  Returns the config,
-    params, requests, this run's launch counts and the printed stats."""
-    from repro_torch.configs.registry import REGISTRY
-    from repro_torch.core.power import A100
-    from repro_torch.kernels.decode_attention import ops as dops
-    from repro_torch.kernels.flash_attention import ops as fops
-    from repro_torch.kernels.ssd import ops as sops
-    from repro_torch.serving import ClusterConfig, PDCluster, poisson_workload
-    from repro_torch.serving import jitcache, loopprof
-    from repro_torch.serving.cluster import build_predictor
-    from repro_torch.serving.realengine import make_real_backend_factory
+def phase4_requests(cfg):
+    """Phase 4's workload: 8 Poisson requests, prompts of 64-512 tokens
+    and 16-64 decode steps, at the config's vocabulary."""
+    from repro_torch.serving import poisson_workload
     from repro_torch.serving.workload import (
         DatasetDist, LengthDist, attach_tokens,
     )
 
-    cfg = REGISTRY[arch]
-    if params is None:
-        cfg, params = init_model(torch, arch)
-    pred = build_predictor(cfg, A100, A100.freq_levels_2, kv_cap=400_000)
     ds = DatasetDist(
         "smoke",
         prefill=LengthDist(200.0, 150.0, lo=64, hi=512),
         decode=LengthDist(32.0, 16.0, lo=16, hi=64),
     )
-    reqs = attach_tokens(poisson_workload(ds, 16.0, 1.0, seed=0)[:8],
+    return attach_tokens(poisson_workload(ds, 16.0, 1.0, seed=0)[:8],
                          cfg.vocab_size, seed=1)
+
+
+def kernel_layers(cfg, name: str) -> int:
+    """Layers of ``cfg`` that launch kernel ``name`` once per call: the
+    Mamba2 layers for the SSD scan, the attention layers otherwise."""
+    if name == "ssd_scan":
+        return cfg.n_layers - cfg.n_attn_layers
+    return cfg.n_attn_layers
+
+
+def ring_positions(cluster):
+    """{ring capacity: the largest position a decode slot's ring holds}
+    over the decode instances' dense caches, after the run: a ring that
+    holds a position at or past its capacity has wrapped."""
+    out = {}
+    for e in cluster.decode:
+        for entry in e.backend.cache.values():
+            if "pos" in entry:
+                cap = entry["pos"].shape[2]
+                out[cap] = max(out.get(cap, -1), int(entry["pos"].max()))
+    return out
+
+
+def serve_phase(torch, arch, label, per_iter, params=None, tp=0,
+                cuda_graphs=None, cfg=None, reqs=None, slots=SLOTS,
+                max_len=MAX_LEN, recorder=None):
+    """``arch`` at full width and depth in bf16 (random weights from a
+    seeded generator) through the dense P/D cluster, one prefill and one
+    decode instance, on ``reqs`` (phase 4's 8 Poisson requests by
+    default), ``slots`` decode slots of ``max_len``.  ``per_iter`` maps
+    each kernel the path runs to the iteration kind ("prefill" or
+    "decode") that launches it once per layer that runs it
+    (:func:`kernel_layers`); every other kernel must stay at 0.  With
+    ``tp`` the instances are tp-wide slices of the world and ``params``
+    this rank's shards; ``cfg`` with ``params`` serves a cut config.
+    ``cuda_graphs`` goes to the backends (None: graphs for a meshless
+    decode instance); ``recorder`` (a :class:`Recorder`) records the
+    backends' calls.  Returns the config, params, requests, this run's
+    launch counts and the printed stats."""
+    from repro_torch.configs.registry import REGISTRY
+    from repro_torch.core.power import A100
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.ssd import ops as sops
+    from repro_torch.serving import ClusterConfig, PDCluster
+    from repro_torch.serving import jitcache, loopprof
+    from repro_torch.serving.cluster import build_predictor
+    from repro_torch.serving.realengine import make_real_backend_factory
+
+    cfg = cfg or REGISTRY[arch]
+    if params is None:
+        cfg, params = init_model(torch, arch)
+    pred = build_predictor(cfg, A100, A100.freq_levels_2, kv_cap=400_000)
+    reqs = reqs if reqs is not None else phase4_requests(cfg)
     check(len(reqs) >= 4, f"workload too small: {len(reqs)} requests")
 
     walls = {"prefill": [], "decode": []}
-    base = make_real_backend_factory(cfg, params, slots=SLOTS,
-                                     max_len=MAX_LEN, tp=tp, device="cuda",
+    base = make_real_backend_factory(cfg, params, slots=slots,
+                                     max_len=max_len, tp=tp, device="cuda",
                                      cuda_graphs=cuda_graphs)
 
     def factory(kind, idx, hw, seed, tp=None):
@@ -965,12 +1085,14 @@ def serve_phase(torch, arch, label, per_iter, params=None, tp=0,
         be._real_prefill = timed(torch, be._real_prefill, walls["prefill"])
         be._real_decode_step = timed(torch, be._real_decode_step,
                                      walls["decode"])
+        if recorder is not None:
+            recorder.attach(be)
         return be
 
     ccfg = ClusterConfig(
         model=cfg, chip=A100, n_prefill=1, n_decode=1, policy="voltana",
         predictor=pred, kv_capacity_tokens=400_000, online_adapt=False,
-        decode_max_running=SLOTS, seed=0, tp=max(tp, 1),
+        decode_max_running=slots, seed=0, tp=max(tp, 1),
         backend_factory=factory,
     )
     cluster = PDCluster(ccfg)
@@ -1005,7 +1127,7 @@ def serve_phase(torch, arch, label, per_iter, params=None, tp=0,
               f"{label}: request {r.rid}: token id out of range")
     for name, n in launches.items():
         kind = per_iter.get(name)
-        want = cfg.n_layers * len(walls[kind]) if kind else 0
+        want = kernel_layers(cfg, name) * len(walls[kind]) if kind else 0
         check(n == want and (n > 0 or not kind),
               f"{label}: {name} launched {n} times, expected {want}")
     n_dec = sum(r.decode_len for r in reqs)
@@ -1032,6 +1154,8 @@ def serve_phase(torch, arch, label, per_iter, params=None, tp=0,
         **graphs, **loop_split(prof),
         "step_device_ms": (step_device_ms(torch, cluster)
                            if graphs["cuda_graphs"] else None),
+        "ring_max_position": (ring_positions(cluster) if cfg.has_attention
+                              and not tp else None),
     }
     print(f"serve[{label}]: " + json.dumps(stats))
     print(f"{label}: virtual-clock A100 model (not measured on this card): "
@@ -1135,28 +1259,33 @@ def _leaves(tree):
 # ---------------------------------------------------------------------------
 
 
-def replay_phase(torch, models, r, kinds=None):
-    """Replay ``r``'s stream through the plain-attention path of each
-    model in ``models`` (name -> (cfg, params)), prompt first, then every
-    emitted token.  Token i must be within ``REPLAY_MARGIN`` of the max
-    logit of the model named ``kinds[i]`` (the first model's, by
-    default): the one that chose it."""
+def replay_phase(torch, models, r, kinds=None, max_len=MAX_LEN,
+                 margin=REPLAY_MARGIN):
+    """Replay ``r``'s stream alone (batch 1) through the plain-attention
+    path of each model in ``models`` (name -> (cfg, params)), prompt
+    first, then every emitted token, at the served ``max_len`` (the
+    prompt's bucket and the cache capacity).  Token i must be within
+    ``margin`` of the max logit of the model named ``kinds[i]`` (the
+    first model's, by default): the one that chose it.  A MoE stream
+    depends on its batch-mates through capacity drops: replay it with
+    :func:`batch_replay` instead."""
     from repro_torch.models import model as M
     from repro_torch.serving.realengine import _bucket
 
     names = list(models)
+    dev = models[names[0]][1]["embed"].device
     kinds = kinds or [names[0]] * len(r.output_tokens)
     check(len(kinds) == len(r.output_tokens),
           f"rid {r.rid}: {len(kinds)} token kinds for "
           f"{len(r.output_tokens)} tokens")
-    toks = torch.tensor(r.prompt_tokens, dtype=torch.int32, device="cuda")
-    pad = _bucket(len(toks), hi=MAX_LEN)
-    buf = torch.zeros((1, pad), dtype=torch.int32, device="cuda")
+    toks = torch.tensor(r.prompt_tokens, dtype=torch.int32, device=dev)
+    pad = _bucket(len(toks), hi=max_len)
+    buf = torch.zeros((1, pad), dtype=torch.int32, device=dev)
     buf[0, : len(toks)] = toks
-    lengths = torch.tensor([len(toks)], dtype=torch.int32, device="cuda")
+    lengths = torch.tensor([len(toks)], dtype=torch.int32, device=dev)
     state = {}
     for name, (cfg, params) in models.items():
-        state[name] = M.prefill(params, cfg, buf, lengths, max_len=MAX_LEN,
+        state[name] = M.prefill(params, cfg, buf, lengths, max_len=max_len,
                                 plain_attention=True)
     pos = lengths.clone()
     worst = {name: 0.0 for name in names}
@@ -1164,11 +1293,11 @@ def replay_phase(torch, models, r, kinds=None):
         row = state[kind][0][0].double()
         gap = float(row.max() - row[tok])
         worst[kind] = max(worst[kind], gap)
-        check(gap <= REPLAY_MARGIN,
+        check(gap <= margin,
               f"rid {r.rid} token {i} ({kind}): emitted id {tok} is "
               f"{gap:.4f} below the plain path's max logit (margin "
-              f"{REPLAY_MARGIN})")
-        t = torch.tensor([tok], dtype=torch.int32, device="cuda")
+              f"{margin})")
+        t = torch.tensor([tok], dtype=torch.int32, device=dev)
         for name, (cfg, params) in models.items():
             state[name] = M.decode_step(params, cfg, t, state[name][1], pos,
                                         plain_attention=True)
@@ -1176,12 +1305,14 @@ def replay_phase(torch, models, r, kinds=None):
     counts = {name: kinds.count(name) for name in names}
     print(f"replay rid {r.rid}: {len(r.output_tokens)} tokens {counts}, "
           f"worst gap to the plain path's max logit {worst} (margin "
-          f"{REPLAY_MARGIN})")
+          f"{margin})")
 
 
 def state_phase(torch, cfg, params, r, label, whole_path: bool):
     """``r``'s prompt at its served bucket, prefilled through the kernel
-    path and through the plain ``L.ssd_chunked`` path.
+    path and through the plain ``L.ssd_chunked`` path (a MoE layer of the
+    plain path keeps the kernel path's experts where its own top-k
+    differs by a near-tie: :class:`Routes`).
 
     Per layer, ``ssd_scan``'s y and final state are held against
     ``L.ssd_chunked`` on the very inputs the kernel path gave that layer.
@@ -1208,15 +1339,20 @@ def state_phase(torch, cfg, params, r, label, whole_path: bool):
         seen.append((a, k, out))
         return out
 
+    routes = Routes(L, torch)  # a MoE's near-ties as the kernel path routed
     M.ssd_scan = spy
     try:
-        lk, ck = M.prefill(params, cfg, buf, lengths, max_len=MAX_LEN)
+        with routes:
+            routes.mode = "record"
+            lk, ck = M.prefill(params, cfg, buf, lengths, max_len=MAX_LEN)
+            routes.mode = "force"
+            lp, cp = M.prefill(params, cfg, buf, lengths, max_len=MAX_LEN,
+                               plain_attention=True)
     finally:
         M.ssd_scan = kernel
-    lp, cp = M.prefill(params, cfg, buf, lengths, max_len=MAX_LEN,
-                       plain_attention=True)
-    check(len(seen) == cfg.n_layers,
-          f"state[{label}]: {len(seen)} scans for {cfg.n_layers} layers")
+    n_mamba = cfg.n_layers - cfg.n_attn_layers
+    check(len(seen) == n_mamba,
+          f"state[{label}]: {len(seen)} scans for {n_mamba} Mamba2 layers")
 
     def scaled(got, want):
         return float((got.float() - want.float()).abs().max()) / (
@@ -1226,26 +1362,336 @@ def state_phase(torch, cfg, params, r, label, whole_path: bool):
     for a, k, (y, st) in seen:
         yr, sr = L.ssd_chunked(*a, **k)
         per_layer.append(max(scaled(y, yr), scaled(st, sr)))
-    sk, sp = ck["layer_0"]["ssm"], cp["layer_0"]["ssm"]  # (layers, 1, ...)
+    # every Mamba2 layer's state, (layers, 1, H, P, N): block by block
+    # of each pattern position
+    sk, sp = (torch.cat([c[f"layer_{i}"]["ssm"]
+                         for i, s in enumerate(cfg.block_pattern)
+                         if s.mixer == "mamba"]) for c in (ck, cp))
     dims = tuple(range(1, sp.dim()))
     scale = sp.abs().amax(dim=dims)
     path = ((sk - sp).abs().amax(dim=dims) / (scale + 1e-30)).tolist()
     held = path if whole_path else path[:1]
+    step = max(1, len(path) // 8)
     tol = SSD_TOL["bfloat16"]
     print(f"state[{label}]: rid {r.rid} prompt {n} at bucket "
           f"{buf.shape[1]}: ssm scale {float(scale.min()):.3g}-"
           f"{float(scale.max()):.3g}; same inputs, worst layer "
-          f"{max(per_layer):.3g}; whole path, layers 0, 8, ..., 56: "
-          f"{[float(f'{e:.3g}') for e in path[::8]]}, worst "
+          f"{max(per_layer):.3g}; whole path, Mamba2 layers 0, {step}, "
+          f"...: {[float(f'{e:.3g}') for e in path[::step]]}, worst "
           f"{max(path):.3g} (layer {path.index(max(path))}), held in "
           f"{'every layer' if whole_path else 'layer 0'}; tolerance {tol}; "
-          f"logits max gap {float((lk - lp).abs().max()):.4g}")
+          f"logits max gap {float((lk - lp).abs().max()):.4g}; MoE near-ties "
+          f"forced {routes.forced} of {routes.rows} routed rows")
     check(max(per_layer) <= tol,
           f"state[{label}]: ssd_scan disagrees with L.ssd_chunked on a "
           f"layer's own inputs ({max(per_layer)})")
     check(bool(torch.isfinite(sk).all()) and max(held) <= tol,
           f"state[{label}]: the kernel path's SSM state disagrees with the "
           f"plain path's ({max(held)})")
+
+
+# ---------------------------------------------------------------------------
+# Batch-faithful replay (MoE phases)
+# ---------------------------------------------------------------------------
+
+
+class Recorder:
+    """Every call a served cluster's real backends make that decides a
+    token, in call order, for :func:`batch_replay`: each prefill's inputs
+    and ids, each insert's slot (and pages), each drafter prefill, and
+    each decode-shaped step's inputs (every slot's row, free ones too),
+    occupied rows and output ids.  It wraps the backends' methods and
+    keeps device copies of what they pass (no host sync); what they
+    compute is untouched."""
+
+    def __init__(self):
+        self.events = []
+        self.backends = []
+
+    def attach(self, be):
+        import numpy as np
+        import torch
+
+        i = len(self.backends)
+        self.backends.append(SimpleNamespace(
+            slots=be.slots, max_len=be.max_len, paged=be.paged,
+            page_size=getattr(be, "page_size", None),
+            pool_pages=getattr(be, "pool_pages", None)))
+        names = {id(be._decode_fn): "decode"}
+        if be.spec_k:
+            names.update({id(be._draft_fn): "draft",
+                          id(be._verify_fn): "verify"})
+        ev, rid = self.events, [None]
+
+        def snap(kw):
+            return {k: v.clone() if isinstance(v, torch.Tensor)
+                    else np.array(v) for k, v in kw.items()
+                    if not isinstance(v, dict)}
+
+        def wrap(name, record):
+            inner = getattr(be, name)
+
+            def call(*a, **kw):
+                out = inner(*a, **kw)
+                record(out, *a, **kw)
+                return out
+            setattr(be, name, call)
+
+        inner_prefill = be._real_prefill
+
+        def real_prefill(r):
+            rid[0] = r.rid
+            return inner_prefill(r)
+
+        be._real_prefill = real_prefill
+        wrap("_prefill_fn", lambda out, params, **kw: ev.append(
+            ("prefill", i, rid[0], snap(kw), out[0].clone())))
+        if be.spec_k:
+            wrap("_draft_prefill_fn", lambda out, params, **kw: ev.append(
+                ("draft_prefill", i, None, snap(kw), None)))
+        wrap("insert", lambda out, r: ev.append(
+            ("insert", i, r.rid, be.slot_of[r.rid],
+             be.block_tables[be.slot_of[r.rid]].copy() if be.paged
+             else None)))
+        inner_step, inner_spec = be._real_decode_step, be._real_spec_step
+
+        def decode_step(reqs):
+            ev.append(("rows", i, None, {be.slot_of[r.rid]: r.rid
+                                          for r in reqs}, None))
+            return inner_step(reqs)
+
+        def spec_step(reqs, k, accepts):
+            ev.append(("rows", i, None, {be.slot_of[r.rid]: (r.rid, a)
+                                          for r, a in zip(reqs, accepts)},
+                       None))
+            return inner_spec(reqs, k, accepts)
+
+        be._real_decode_step, be._real_spec_step = decode_step, spec_step
+        wrap("_step", lambda out, entry, params, **kw: ev.append(
+            ("step", i, names[id(entry)], snap(kw), out[0].clone())))
+
+
+class Routes:
+    """The MoE routings of one run, to force them on another (see
+    :func:`batch_replay`).  Installed as ``L._route``: in ``record`` mode
+    it keeps each call's experts in call order; in ``force`` mode the
+    n-th call takes the n-th recorded experts where its own differ, after
+    checking that each recorded expert's router logit lies within
+    ``ROUTE_MARGIN`` of this call's k-th largest (a near-tie, not another
+    routing), and renormalises its weights over them."""
+
+    def __init__(self, L, torch):
+        self.L, self.torch, self.inner = L, torch, L._route
+        self.log, self.mode, self.i, self.forced, self.rows = [], None, 0, 0, 0
+        self.worst = 0.0  # the largest forced near-tie, router logit
+
+    def __call__(self, x, router, top_k, capacity_factor):
+        probs, topw, tope, C = self.inner(x, router, top_k, capacity_factor)
+        if self.mode == "record":
+            self.log.append(tope.clone())
+            return probs, topw, tope, C
+        torch = self.torch
+        served = self.log[self.i].to(tope.device)
+        self.i += 1
+        self.rows += tope.shape[0]
+        differ = (tope.sort(-1).values != served.sort(-1).values).any(-1)
+        n = int(differ.sum())
+        if n == 0:
+            return probs, topw, tope, C
+        logp = torch.log(probs.double())
+        kth = logp.gather(1, tope[:, -1:])  # this call's k-th largest
+        gap = float((kth - logp.gather(1, served)).max())
+        check(gap <= ROUTE_MARGIN,
+              f"an expert the served path routed to is {gap:.4f} below the "
+              f"plain path's top-{top_k} in router logit (margin "
+              f"{ROUTE_MARGIN})")
+        self.forced += n
+        self.worst = max(self.worst, gap)
+        w = probs.gather(1, served)
+        return probs, w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9), \
+            served, C
+
+    def __enter__(self):
+        self.L._route = self
+        return self
+
+    def __exit__(self, *exc):
+        self.L._route = self.inner
+
+
+def batch_replay(torch, rec, target, draft=None, label="",
+                 margin=REPLAY_MARGIN):
+    """Re-run the recorded calls of a served cluster (a :class:`Recorder`)
+    batch for batch: every prefill from its own inputs, every insert into
+    its slot (or pages), every decode, draft and verify step over all the
+    slots it ran, with the served inputs.  A MoE layer routes each
+    batch's rows as the served step did, capacity drops and all.
+
+    Two passes.  The first runs the kernel path eagerly, which computes
+    what the served instance computed (its graphs replay the same
+    kernels), and records every MoE routing (:class:`Routes`).  The
+    second runs the plain path (``plain_attention=True``, plain layers);
+    where its router's top-k differs from the served one, the difference
+    must be a near-tie (each served expert within ``ROUTE_MARGIN`` of
+    the plain top-k in router logit), and the served experts are kept:
+    a near-tie flipped by rounding moves a top-2 MoE's output far more
+    than rounding does.  In both passes each id the served path emitted
+    must lie within ``margin`` of its row's max logit: prefill ids and
+    decode ids of occupied rows against the target, accepted drafts
+    against the drafter's proposal step, verify tokens against the
+    target's verify row.  ``target`` and ``draft`` are (cfg, params).
+    Returns the worst gaps by pass, the forced routings and the dropped
+    MoE entries a target decode (or verify) step, counted from
+    ``aux["dropped"]`` of the plain pass's eager steps."""
+    import numpy as np
+
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.serving.realengine import _put_slot
+
+    cfg, params = target
+    dev = params["embed"].device
+
+    def dev_(kw):
+        return {k: torch.from_numpy(v).to(dev) if isinstance(v, np.ndarray)
+                else v for k, v in kw.items()}
+
+    def run(plain):
+        path = "plain" if plain else "kernel"
+        state = []
+        for b in rec.backends:
+            st = SimpleNamespace(rows={}, drafts=[])
+            if b.paged:
+                st.pool = M.init_paged_cache(cfg, b.pool_pages, b.page_size,
+                                             dev)
+            else:
+                st.cache = M.init_cache(cfg, b.slots, b.max_len, dev)
+            if draft is not None and b.slots > 1:
+                st.dcache = M.init_cache(draft[0], b.slots, b.max_len, dev)
+            state.append(st)
+        handoff = {}
+        worst = {"prefill": 0.0, "decode": 0.0, "draft": 0.0, "verify": 0.0}
+        counted = {k: 0 for k in worst}
+        drops, seen = [], []
+
+        def held(kind, logits, tok, where):
+            row = logits.double()
+            gap = float(row.max() - row[int(tok)])
+            worst[kind] = max(worst[kind], gap)
+            counted[kind] += 1
+            check(gap <= margin,
+                  f"batch replay[{label}] {where} ({kind}): emitted id "
+                  f"{int(tok)} is {gap:.4f} below the {path} path's max "
+                  f"logit (margin {margin})")
+
+        inner = L.moe_ffn_sorted
+
+        def spy(*a, **kw):
+            out, aux = inner(*a, **kw)
+            seen.append(aux["dropped"])
+            return out, aux
+
+        L.moe_ffn_sorted = spy
+        try:
+            for kind, i, tag, kw, out in rec.events:
+                st, geo = state[i], rec.backends[i]
+                if kind == "prefill":
+                    kw = dev_(kw)
+                    if geo.paged:
+                        logits, st.pool = M.prefill_paged(
+                            params, cfg, cache=st.pool, plain_attention=plain,
+                            **kw)
+                        n = int(kw["ctx_lens"][0]) + int(kw["lengths"][0])
+                        idx = kw["block_tables"][0, :-(-n // geo.page_size)]
+                        handoff[tag] = {name: {k: leaf[:, idx.long()]
+                                               for k, leaf in e.items()}
+                                        for name, e in st.pool.items()}
+                    else:
+                        logits, handoff[tag] = M.prefill(
+                            params, cfg, kw["tokens"], kw["lengths"],
+                            max_len=geo.max_len, plain_attention=plain)
+                    held("prefill", logits[0], out[0], f"rid {tag} prefill")
+                elif kind == "draft_prefill":
+                    kw = dev_(kw)
+                    _, st.dnext = M.prefill(
+                        draft[1], draft[0], kw["tokens"], kw["lengths"],
+                        max_len=geo.max_len, plain_attention=plain)
+                elif kind == "insert":  # kw: the slot; out: its table row
+                    if geo.paged:
+                        tree = handoff.pop(tag)
+                        n = next(iter(tree.values()))["k"].shape[1]
+                        dst = torch.from_numpy(out[:n]).long().to(dev)
+                        for name, e in st.pool.items():
+                            for k, leaf in e.items():
+                                leaf[:, dst] = tree[name][k]
+                    else:
+                        _put_slot(st.cache, handoff.pop(tag), kw)
+                    if draft is not None:
+                        _put_slot(st.dcache, st.dnext, kw)
+                elif kind == "rows":
+                    st.rows, st.drafts = kw, []
+                elif tag == "draft":
+                    kw = dev_(kw)
+                    logits, _ = M.decode_step(draft[1], draft[0],
+                                              kw["tokens"], st.dcache,
+                                              kw["lengths"],
+                                              plain_attention=plain)
+                    st.drafts.append((logits, out))
+                else:  # a target decode or verify step
+                    kw = dev_(kw)
+                    del seen[:]
+                    if tag == "verify":
+                        logits, st.pool = M.verify_step_paged(
+                            params, cfg, kw["tokens"], st.pool,
+                            kw["lengths"], kw["block_tables"],
+                            plain_attention=plain)
+                    elif geo.paged:
+                        logits, st.pool = M.decode_step_paged(
+                            params, cfg, kw["tokens"], st.pool,
+                            kw["lengths"], kw["block_tables"],
+                            plain_attention=plain)
+                    else:
+                        logits, st.cache = M.decode_step(
+                            params, cfg, kw["tokens"], st.cache,
+                            kw["lengths"], plain_attention=plain)
+                    drops.append(int(sum(seen)) if seen else 0)
+                    for s, who in st.rows.items():
+                        if tag != "verify":
+                            held("decode", logits[s], out[s],
+                                 f"rid {who} slot {s}")
+                            continue
+                        rid, a = who
+                        # draft step 0 re-syncs; steps 1..k proposed
+                        # d_1..d_k
+                        for j in range(a):
+                            dl, props = st.drafts[j + 1]
+                            held("draft", dl[s], props[s],
+                                 f"rid {rid} draft {j + 1}")
+                        held("verify", logits[s, a], out[s, a],
+                             f"rid {rid} slot {s}")
+        finally:
+            L.moe_ffn_sorted = inner
+        return worst, counted, drops
+
+    routes = Routes(L, torch)
+    with routes:
+        routes.mode = "record"
+        kernel_worst, _, _ = run(plain=False)
+        routes.mode = "force"
+        worst, counted, drops = run(plain=True)
+    check(routes.i == len(routes.log),
+          f"batch replay[{label}]: {routes.i} plain routings for "
+          f"{len(routes.log)} served ones")
+    res = {"worst_gap": worst, "kernel_path_worst_gap": kernel_worst,
+           "tokens_held": counted, "target_steps": len(drops),
+           "routings": routes.rows, "near_ties_forced": routes.forced,
+           "worst_near_tie": routes.worst,
+           "dropped_per_step_mean": statistics.fmean(drops) if drops else 0,
+           "dropped_per_step_max": max(drops, default=0)}
+    print(f"batch replay[{label}]: " + json.dumps(res)
+          + f" (margin {margin}, router margin {ROUTE_MARGIN}; drops "
+          "counted on the plain pass's eager steps)")
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -1295,11 +1741,12 @@ def _radix_pages(cache):
 
 
 def paged_serve_phase(torch, cfg, params, pred, drafter=None, tp=0,
-                      label=None):
+                      label=None, recorder=None):
     """Serve the multi-turn workload over the paged pool with a radix
     prefix cache; with ``drafter`` (cfg, params) the decode instance
     speculates ``SPEC_K`` tokens per iteration; with ``tp`` the instances
-    are tp-wide slices (``params`` this rank's shards).  Returns the
+    are tp-wide slices (``params`` this rank's shards); ``recorder`` (a
+    :class:`Recorder`) records the backends' calls.  Returns the
     requests, the (rid, accepted) log of the speculative iterations, the
     launch counts of this run and the printed stats."""
     from repro_torch.core.power import A100
@@ -1333,6 +1780,8 @@ def paged_serve_phase(torch, cfg, params, pred, drafter=None, tp=0,
                 return inner(rs, k, accepts)
 
             be._real_spec_step = step
+        if recorder is not None:
+            recorder.attach(be)
         return be
 
     cluster = PDCluster(ClusterConfig(
@@ -1688,13 +2137,30 @@ FAMILY_PROMPT = 300  # phase 12's prompt tokens
 FAMILY_STEPS = 16  # phase 12's greedy decode steps
 
 
-def reckon_gb(cfg) -> dict:
-    """What a dense serve of ``cfg`` holds on the card before the run, GB:
-    its bf16 weights and the decode instance's ring (``SLOTS`` slots of
-    ``MAX_LEN`` positions, K and V of every layer)."""
-    ring = (SLOTS * MAX_LEN * cfg.n_layers * 2 * cfg.n_kv_heads
-            * cfg.head_dim * 2)
-    return {"weights_gb": cfg.param_count() * 2 / 1e9, "ring_gb": ring / 1e9}
+def reckon_gb(cfg, slots=SLOTS, max_len=MAX_LEN, pool_pages=None) -> dict:
+    """What a serve of ``cfg`` holds on the card before the run, GB: its
+    bf16 weights and the decode instance's rings (``slots`` slots, K and
+    V of every attention layer at its capacity: ``max_len``, or its
+    window), the Mamba2 states of those slots where it has Mamba2 layers,
+    and with ``pool_pages`` the paged pools of the prefill and the decode
+    instance."""
+    from repro_torch.models.model import cache_capacity
+
+    kv = 2 * cfg.n_kv_heads * cfg.head_dim * 2  # K and V a position, bf16
+    ring = sum(cache_capacity(cfg, spec, max_len) for spec in
+               cfg.block_pattern if spec.mixer == "attn") * cfg.n_blocks
+    out = {"weights_gb": cfg.param_count() * 2 / 1e9,
+           "ring_gb": slots * ring * kv / 1e9}
+    if cfg.has_mamba:
+        m = cfg.mamba
+        per_slot = ((m.d_conv - 1) * (m.d_inner(cfg.d_model) + 2 * m.d_state)
+                    * 2 + m.n_heads(cfg.d_model) * m.head_dim * m.d_state * 4)
+        out["state_gb"] = (slots * per_slot * (cfg.n_layers - cfg.n_attn_layers)
+                           / 1e9)
+    if pool_pages is not None:
+        out["pools_gb"] = (2 * (pool_pages + 1) * PAGE_SIZE * cfg.n_attn_layers
+                           * kv / 1e9)
+    return out
 
 
 def family_launches(cfg, prefills: int, steps: int) -> dict:
@@ -1717,13 +2183,19 @@ def spec_kinds(r, log):
     return kinds
 
 
-def init_model(torch, arch):
-    """``arch`` at full width and depth in bf16, random weights from a
-    seeded generator; prints its shape, size and the init's peak."""
+def init_model(torch, arch, n_layers=None, **reckon):
+    """``arch`` at full width in bf16, random weights from a seeded
+    generator, at full depth or cut to ``n_layers``; prints its shape,
+    size, the init's peak and what :func:`reckon_gb` reckons a serve
+    holds (``reckon``: its slots, max_len, pool pages)."""
+    import dataclasses
+
     from repro_torch.configs.registry import REGISTRY
     from repro_torch.models import model as M
 
     cfg = REGISTRY[arch]
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     free(torch)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1731,18 +2203,32 @@ def init_model(torch, arch):
                            device="cuda")
     torch.cuda.synchronize()
     n = sum(t.numel() for t in _leaves(params))
+    mixers = []
     if cfg.mamba is not None:
         m = cfg.mamba
-        mixer = (f"d_inner {m.d_inner(cfg.d_model)}, "
-                 f"{m.n_heads(cfg.d_model)} SSM heads of {m.head_dim}, "
-                 f"state {m.d_state}")
-        reckoned = ""
-    else:
-        mixer = (f"{cfg.n_heads} q heads over {cfg.n_kv_heads} kv heads of "
-                 f"{cfg.head_dim} (G={cfg.n_heads // cfg.n_kv_heads})")
-        reckoned = "; reckoned " + json.dumps(reckon_gb(cfg))
+        mixers.append(f"d_inner {m.d_inner(cfg.d_model)}, "
+                      f"{m.n_heads(cfg.d_model)} SSM heads of {m.head_dim}, "
+                      f"state {m.d_state}")
+    if cfg.has_attention:
+        windows = sorted({s.window for s in cfg.block_pattern
+                          if s.mixer == "attn" and s.window})
+        mixers.append(
+            f"{cfg.n_heads} q heads over {cfg.n_kv_heads} kv heads of "
+            f"{cfg.head_dim} (G={cfg.n_heads // cfg.n_kv_heads})"
+            + (f", windows {windows}" if windows else ""))
+    if cfg.moe is not None:
+        e = cfg.moe
+        mixers.append(f"MoE {e.num_experts} experts of {e.d_ff_expert}, "
+                      f"top-{e.top_k}, capacity factor {e.capacity_factor}")
+    mixer = "; ".join(mixers)
+    reckoned = ("; reckoned " + json.dumps(reckon_gb(cfg, **reckon))
+                if cfg.has_attention else "")
     extras = "".join(x for x, on in ((", tied head", cfg.tie_embeddings),
-                                     (", q/k norm", cfg.qk_norm)) if on)
+                                     (", q/k norm", cfg.qk_norm),
+                                     (", attention softcap",
+                                      cfg.attn_softcap),
+                                     (", logit softcap", cfg.logit_softcap))
+                     if on)
     print(f"model {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
           f"{mixer}, vocab {cfg.vocab_size}{extras}, {cfg.dtype}, {n:,} "
           f"params, init {time.perf_counter() - t0:.1f} s, init peak "
@@ -1874,6 +2360,164 @@ def kernel_path_phase(torch, arch):
 
 
 # ---------------------------------------------------------------------------
+# Phases 13-15: sliding window and mixture of experts at full width
+# ---------------------------------------------------------------------------
+
+# the configs of phases 13-15, and the depth phase 15 cuts jamba to (one
+# super-block: the full 32 layers take 103 GB)
+WINDOW_MOE = ("gemma2-27b", "qwen3-moe-30b-a3b", "jamba-v0.1-52b")
+JAMBA_LAYERS = 8
+ATTN_KERNELS = {"flash_prefill": "prefill", "ring_decode": "decode"}
+CARD_GB = 76.0  # what a phase may reckon to hold of the card's 80 GB
+
+
+def long_requests(cfg, n=4):
+    """Phase 13's workload: ``n`` Poisson requests with prompts of
+    4,500-7,500 tokens (the 8,192 bucket, past gemma2's 4,096 window) and
+    16-64 decode steps."""
+    from repro_torch.serving import poisson_workload
+    from repro_torch.serving.workload import (
+        DatasetDist, LengthDist, attach_tokens,
+    )
+
+    ds = DatasetDist("long",
+                     prefill=LengthDist(6000.0, 1000.0, lo=4500, hi=7500),
+                     decode=LengthDist(40.0, 16.0, lo=16, hi=64))
+    reqs = poisson_workload(ds, 4.0, 4.0, seed=2)[:n]
+    check(len(reqs) == n, f"long workload: {len(reqs)} requests")
+    return attach_tokens(reqs, cfg.vocab_size, seed=3)
+
+
+def window_masked(prompt: int, window: int):
+    """(query positions, query-key pairs) that a causal window of
+    ``window`` masks in a prefill of ``prompt`` tokens: query q loses the
+    keys before q - window + 1."""
+    n = max(0, prompt - window)
+    return n, n * (n + 1) // 2
+
+
+def peak_line(label, stats):
+    print(f"{label}: peak {stats['max_memory_allocated_gb']:.2f} GB "
+          f"allocated on {card_identity()}")
+
+
+def gemma2_phase(torch):
+    """Phase 13: gemma2-27b at full depth served dense with step graphs
+    past its window: 4 slots of ``GEMMA_MAX_LEN`` (2 if the reckoning
+    exceeds ``CARD_GB``), prompts in the 8,192 bucket, so every local
+    layer's prefill masks by the window and every local ring wraps in
+    decode; one stream replayed through the plain path at the same
+    max_len.  Frees its weights; returns the launch counts and stats."""
+    arch = "gemma2-27b"
+    slots = GEMMA_SLOTS
+    cfg, params = init_model(torch, arch, slots=slots, max_len=GEMMA_MAX_LEN)
+    gb = reckon_gb(cfg, slots + 1, GEMMA_MAX_LEN)  # + the prefill slot
+    if gb["weights_gb"] + gb["ring_gb"] > CARD_GB:
+        slots = 2
+    print(f"gemma2: {slots} decode slots of {GEMMA_MAX_LEN} (reckoned "
+          f"{gb['weights_gb'] + gb['ring_gb']:.2f} GB at {GEMMA_SLOTS})")
+    reqs = long_requests(cfg)
+    _, _, reqs, launches, stats = serve_phase(
+        torch, arch, "gemma2", ATTN_KERNELS, params=params, cfg=cfg,
+        reqs=reqs, slots=slots, max_len=GEMMA_MAX_LEN)
+    r = reqs[0]
+    q_masked, pairs = window_masked(r.prompt_len, GEMMA_WINDOW)
+    check(q_masked > 0, f"gemma2: the window masked nothing in rid {r.rid}")
+    rings = stats["ring_max_position"]
+    check(rings.get(GEMMA_WINDOW, -1) >= GEMMA_WINDOW,
+          f"gemma2: no local ring wrapped: largest positions {rings}")
+    print(f"gemma2: rid {r.rid}'s prefill ({r.prompt_len} tokens, bucket "
+          f"{GEMMA_BUCKET}): the {GEMMA_WINDOW}-token window masked keys "
+          f"for {q_masked} query positions, {pairs:,} query-key pairs per "
+          f"head, in each of {cfg.n_layers // 2} local layers; largest "
+          f"position held by capacity {rings}")
+    peak_line("gemma2", stats)
+    replay_phase(torch, {"target": (cfg, params)}, r, max_len=GEMMA_MAX_LEN)
+    del params, reqs, r
+    free(torch)
+    return {"gemma2": (launches, stats)}
+
+
+def moe_phase(torch):
+    """Phase 14: qwen3-moe-30b-a3b at full depth: phase 4's requests
+    served dense with step graphs and again eagerly (equal streams), then
+    the multi-turn workload paged + speculative at ``SPEC_K``, every serve
+    replayed batch for batch (:func:`batch_replay`).  Frees its weights;
+    returns the launch counts and stats by label."""
+    from repro_torch.core.power import A100
+    from repro_torch.models import model as M
+    from repro_torch.serving.cluster import build_predictor
+    from repro_torch.serving.realengine import make_draft_config
+
+    arch = "qwen3-moe-30b-a3b"
+    cfg, params = init_model(torch, arch, pool_pages=POOL_PAGES)
+    out, streams = {}, {}
+    for label, graphs in (("qwen3moe", None), ("qwen3moe-eager", False)):
+        rec = Recorder()
+        _, _, reqs, launches, stats = serve_phase(
+            torch, arch, label, ATTN_KERNELS, params=params, cfg=cfg,
+            cuda_graphs=graphs, recorder=rec)
+        peak_line(label, stats)
+        stats["batch_replay"] = batch_replay(torch, rec, (cfg, params),
+                                             label=label)
+        streams[label] = [list(r.output_tokens) for r in reqs]
+        out[label] = (launches, stats)
+        del rec, reqs
+        free(torch)
+    same = [a == b for a, b in zip(*streams.values())]
+    check(len(same) == len(streams["qwen3moe"]) and all(same),
+          "qwen3moe: graph replay and eager steps emitted different streams")
+    print(f"qwen3moe: the eager serve emitted the same {len(same)} streams "
+          "as the graph replays")
+    pred = build_predictor(cfg, A100, A100.freq_levels_2, kv_cap=400_000,
+                           spec_k=SPEC_K)
+    dcfg = make_draft_config(cfg)
+    dparams = M.init_params(
+        dcfg, torch.Generator(device="cuda").manual_seed(1), device="cuda")
+    rec = Recorder()
+    reqs, log, launches, stats = paged_serve_phase(
+        torch, cfg, params, pred, drafter=(dcfg, dparams),
+        label="qwen3moe-spec", recorder=rec)
+    peak_line("qwen3moe-spec", stats)
+    check(any(a for _, a in log), "qwen3moe-spec: no draft was accepted")
+    stats["batch_replay"] = batch_replay(torch, rec, (cfg, params),
+                                         draft=(dcfg, dparams),
+                                         label="qwen3moe-spec")
+    out["qwen3moe-spec"] = (launches, stats)
+    del params, dparams, rec, reqs, log
+    free(torch)
+    return out
+
+
+def jamba_phase(torch):
+    """Phase 15: jamba-v0.1-52b at full width cut to one super-block
+    (``JAMBA_LAYERS``: 7 Mamba2 + 1 attention, MoE on every other layer)
+    served dense with step graphs on phase 4's requests, replayed batch
+    for batch, and the prefill SSM state of every Mamba2 layer held
+    against the plain path's.  Frees its weights; returns the launch
+    counts and stats."""
+    from repro_torch.configs.registry import REGISTRY
+
+    arch = "jamba-v0.1-52b"
+    full = REGISTRY[arch]
+    cfg, params = init_model(torch, arch, n_layers=JAMBA_LAYERS)
+    print(f"jamba: depth cut from {full.n_layers} to {cfg.n_layers} layers "
+          f"(one super-block; the full depth holds "
+          f"{full.param_count() * 2 / 1e9:.2f} GB of bf16 weights)")
+    rec = Recorder()
+    _, _, reqs, launches, stats = serve_phase(
+        torch, arch, "jamba", {**ATTN_KERNELS, "ssd_scan": "prefill"},
+        params=params, cfg=cfg, recorder=rec)
+    peak_line("jamba", stats)
+    stats["batch_replay"] = batch_replay(torch, rec, (cfg, params),
+                                         label="jamba")
+    state_phase(torch, cfg, params, reqs[0], "jamba", whole_path=True)
+    del params, rec, reqs
+    free(torch)
+    return {"jamba": (launches, stats)}
+
+
+# ---------------------------------------------------------------------------
 
 
 # name -> (source, the Pallas kernel it replaces, the serve phase whose
@@ -1911,6 +2555,13 @@ WRAPPERS = {
         "src/repro/kernels/decode_attention/ops.py:122", "spec",
         "paged_verify@shard"),
 }
+
+
+def gemma_rows(head, name):
+    """The kernel phase's gemma2-shaped timed rows of kernel ``name``, by
+    case."""
+    return {key.split("@", 1)[1]: r for key, r in head.items()
+            if key.startswith(name + "@gemma2")}
 
 
 def main(argv=None) -> int:
@@ -1966,7 +2617,8 @@ def main(argv=None) -> int:
         print(f"total {time.perf_counter() - t_start:.1f} s")
         print(card)
         print(json.dumps({"src": str(src), "kernels": [
-            {"name": name, "max_abs_err_by_dtype": errs[name],
+            {"name": name,
+             "max_abs_err_by_dtype": errs[name.split("@gemma2")[0]],
              "shape": h["shape"], **timings(h)}
             for name, h in head.items()]}))
         print(json.dumps({"ok": True, "kernels_only": True, "device": {
@@ -2064,6 +2716,8 @@ def main(argv=None) -> int:
                                          spec=arch == "ministral-3b"))
     for arch in FAMILY_CHECKED:
         family[arch.split("-")[0]] = kernel_path_phase(torch, arch)
+    for phase in (gemma2_phase, moe_phase, jamba_phase):
+        family.update(phase(torch))
 
     leaked = [m for m in sys.modules
               if m == "jax" or m.startswith("jax.") or m == "repro"
@@ -2088,6 +2742,8 @@ def main(argv=None) -> int:
                                   for p in by_phase},
             "max_abs_err": max(errs[name].values()),
             "max_abs_err_by_dtype": errs[name], **timings(h),
+            **{case: {"shape": r["shape"], **timings(r)}
+               for case, r in gemma_rows(head, name).items()},
         })
     hkv = 8 // MESH_TP
     for name, (source, replaces, serve, shard_row) in WRAPPERS.items():

@@ -6,24 +6,31 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.configs import (
     chameleon_34b,
     command_r_plus_104b,
+    dbrx_132b,
+    gemma2_27b,
+    jamba_v0p1_52b,
     llama31_8b,
     mamba2_2p7b,
     minicpm_2b,
     ministral_3b,
     phi4_mini_3p8b,
     qwen3_32b,
+    qwen3_moe_30b_a3b,
 )
 
-# The assigned architectures the port serves so far: the plain dense
-# family and mamba2.  gemma2 (sliding attention), the MoE configs
-# (qwen3-moe, dbrx), hubert (encoder, head dim 80) and jamba (hybrid MoE)
-# join with their layers (ROADMAP queue 1, item 7).
+# The assigned architectures the port serves so far: every one but
+# hubert-xlarge (an encoder at head dim 80), which joins with its entry
+# point (ROADMAP queue 1, item 7d).
 ASSIGNED = {
     "phi4-mini-3.8b": phi4_mini_3p8b.CONFIG,
+    "gemma2-27b": gemma2_27b.CONFIG,
     "minicpm-2b": minicpm_2b.CONFIG,
     "command-r-plus-104b": command_r_plus_104b.CONFIG,
     "chameleon-34b": chameleon_34b.CONFIG,
+    "qwen3-moe-30b-a3b": qwen3_moe_30b_a3b.CONFIG,
+    "dbrx-132b": dbrx_132b.CONFIG,
     "mamba2-2.7b": mamba2_2p7b.CONFIG,
+    "jamba-v0.1-52b": jamba_v0p1_52b.CONFIG,
 }
 
 # The paper's own evaluation models (benchmarks reproducing its figures).

@@ -1,6 +1,7 @@
-"""Model building blocks: norms, RoPE, attention (chunked prefill / ring
-decode / speculative verify), SwiGLU/GeGLU MLP, and the Mamba2 mixer's
-SSD scan and depthwise causal conv.
+"""Model building blocks: norms, RoPE, attention (chunked prefill /
+banded sliding window / ring decode / speculative verify), SwiGLU/GeGLU
+MLP, capacity-based MoE, and the Mamba2 mixer's SSD scan and depthwise
+causal conv.
 
 Counterpart of ``repro/models/layers.py``, function for function, with
 the same layouts and quirks: ``rms_norm`` scales by ``(1 + w)``, RoPE
@@ -8,8 +9,11 @@ uses the half-split layout, masks use the finite ``NEG_INF``, softmax
 and normalisation accumulate in float32.  These are the plain-PyTorch
 layers: the model runs its attention and its prefill SSD scan through
 the Hopper kernels in ``repro_torch.kernels`` and keeps these as the
-oracle and the plain path.  MoE and ``sliding_attention`` join with the
-other architectures.
+oracle and the plain path.  MoE dispatch and the expert products are
+plain PyTorch on both paths, as the JAX package computes them outside
+any Pallas kernel.  ``analysis_mode`` (loop-free lowering for XLA's
+cost analysis) has no counterpart: it comes with the dry-run (ROADMAP
+queue 1, item 10).
 """
 from __future__ import annotations
 
@@ -149,6 +153,57 @@ def chunked_attention(
     return torch.cat(outs, dim=1).to(q.dtype)
 
 
+def sliding_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    window: int,
+    softcap: Optional[float] = None,
+    kv_valid: Optional[torch.Tensor] = None,
+    q_chunk: int = 512,
+) -> torch.Tensor:
+    """Banded local attention: each window-sized q band attends only to its
+    own and the previous kv band (covers a causal window exactly), so FLOPs
+    are O(S * 2W) instead of O(S^2).  Query and key positions are
+    ``0..S-1``; S must be a whole number of windows when it exceeds one."""
+    B, S, Hq, Dh = q.shape
+    if S <= window:  # degenerates to plain causal attention
+        return chunked_attention(
+            q, k, v, causal=True, window=window, softcap=softcap,
+            kv_valid=kv_valid, q_chunk=q_chunk,
+        )
+    if S % window:
+        raise ValueError(f"the window must divide the sequence: "
+                         f"{(S, window)}")
+    n = S // window
+    Hkv = k.shape[2]
+    dev = q.device
+    kb = k.reshape(B, n, window, Hkv, Dh)
+    vb = v.reshape(B, n, window, Hkv, Dh)
+    valid = (kv_valid.reshape(B, n, window) if kv_valid is not None
+             else torch.ones((B, n, window), dtype=torch.bool, device=dev))
+    # previous band (band -1 is invalid)
+    val_prev = torch.roll(valid, 1, dims=1)
+    val_prev[:, 0] = False
+    kcat = torch.cat([torch.roll(kb, 1, dims=1), kb], dim=2)
+    vcat = torch.cat([torch.roll(vb, 1, dims=1), vb], dim=2)
+    valcat = torch.cat([val_prev, valid], dim=2)
+    pos = torch.arange(S, device=dev).reshape(n, window)
+    kpos = torch.cat([pos - window, pos], dim=1)  # (n, 2w)
+    outs = []
+    for i in range(n):
+        outs.append(chunked_attention(
+            q[:, i * window:(i + 1) * window], kcat[:, i], vcat[:, i],
+            causal=True, window=window, softcap=softcap,
+            q_positions=pos[i].expand(B, window),
+            kv_positions=kpos[i].expand(B, 2 * window),
+            kv_valid=valcat[:, i], q_chunk=q_chunk,
+            k_chunk=min(1024, 2 * window),
+        ))
+    return torch.cat(outs, dim=1)
+
+
 # Attention of one new token over a (ring-buffer) KV cache: the same
 # computation as the ring-decode kernel's plain version, so the layer is
 # that function.
@@ -205,6 +260,147 @@ def glu_mlp(x, w_gate, w_in, w_out, act: str):
     g = _act(x @ w_gate, act)
     h = g * (x @ w_in)
     return h @ w_out
+
+
+# ---------------------------------------------------------------------------
+# MoE: capacity-based top-k dispatch
+# ---------------------------------------------------------------------------
+
+
+def _route(x, router, top_k: int, capacity_factor: float):
+    """Router probabilities, each token's top-k experts and renormalised
+    weights, and the capacity C per expert.  C comes from the static
+    token count T (pad rows included), as in the JAX layer.  The top k
+    come from a stable descending sort, so equal probabilities go to the
+    lower expert index first, as ``lax.top_k`` breaks ties."""
+    T = x.shape[0]
+    E = router.shape[-1]
+    C = max(1, int(math.ceil(T * top_k / E * capacity_factor)))
+    probs = torch.softmax(x.float() @ router.float(), dim=-1)
+    topw, tope = torch.sort(probs, dim=-1, descending=True, stable=True)
+    topw, tope = topw[:, :top_k], tope[:, :top_k]
+    topw = topw / torch.clamp(topw.sum(-1, keepdim=True), min=1e-9)
+    return probs, topw, tope, C
+
+
+def _experts(xe, w_gate, w_in, w_out, act: str):
+    """The dense per-expert GLU products over the (E, C, d) buffer."""
+    g = _act(torch.bmm(xe, w_gate), act)
+    h = g * torch.bmm(xe, w_in)
+    return torch.bmm(h, w_out)  # (E, C, d)
+
+
+def _combine(ybuf, slot, w, tope, dtype):
+    """Each token's k expert rows of ``ybuf`` (its dump row last, all
+    zero) weighted and summed over k in ascending expert order, one add
+    at a time in ``dtype``: the order and the roundings of the JAX
+    layer's scatter-add, and no float atomics.  ``slot`` and ``w`` are
+    (T, k) in token-major order."""
+    order = torch.argsort(tope, dim=1)
+    slot = torch.gather(slot, 1, order)
+    w = torch.gather(w, 1, order).to(dtype)
+    out = torch.zeros((slot.shape[0], ybuf.shape[1]), dtype=dtype,
+                      device=ybuf.device)
+    for j in range(slot.shape[1]):
+        out = out + ybuf[slot[:, j]] * w[:, j, None]
+    return out
+
+
+def _sorted_slots(flat_e, E: int, C: int):
+    """The sort-based dispatch of token-major expert ids ``flat_e``:
+    (order, slot of each sorted entry).  A stable sort keeps each
+    expert's entries in token order (FIFO); an entry's rank in its
+    expert comes from ``searchsorted`` over the sorted ids, and an entry
+    ranked past C goes to the dump slot E·C."""
+    order = torch.argsort(flat_e, stable=True)
+    se = flat_e[order]
+    first = torch.searchsorted(se, se, side="left")
+    rank = torch.arange(se.shape[0], device=se.device) - first
+    return order, torch.where(rank < C, se * C + rank, E * C)
+
+
+def _aux(probs, flat_e, keep, E: int):
+    load = torch.zeros((E,), dtype=torch.int64, device=flat_e.device)
+    load.scatter_add_(0, flat_e, torch.ones_like(flat_e))
+    return {"load": load, "dropped": (~keep).sum(), "me": probs.mean(dim=0)}
+
+
+def moe_ffn_sorted(
+    x: torch.Tensor,  # (T, d) flattened tokens
+    router: torch.Tensor,  # (d, E)
+    w_gate: torch.Tensor,  # (E, d, ffe)
+    w_in: torch.Tensor,  # (E, d, ffe)
+    w_out: torch.Tensor,  # (E, ffe, d)
+    *,
+    top_k: int,
+    capacity_factor: float = 1.25,
+    act: str = "silu",
+    dispatch_dtype: Optional[str] = None,
+):
+    """Sort-based capacity dispatch.  Returns (out (T, d), aux) with the
+    per-expert ``load`` (before capacity), the ``dropped`` entry count
+    and the mean router probabilities ``me``.
+
+    Token→expert entries are sorted by expert id (:func:`_sorted_slots`)
+    and those ranked past capacity C in their expert are dropped.  Kept
+    entries take distinct slots of the (E·C, d) buffer, so dispatch is an index copy (dropped
+    ones go to a dump row) and the combine gathers: no float atomics, so
+    a call repeats bitwise.  The JAX layer's ``expert_sharding`` (the
+    expert-parallel all-to-all) has no counterpart off a mesh (ROADMAP
+    queue 1, item 8)."""
+    if dispatch_dtype == "int8":
+        raise NotImplementedError(
+            "int8 MoE dispatch is ROADMAP queue 1, item 6 of the port")
+    T, d = x.shape
+    E = router.shape[-1]
+    probs, topw, tope, C = _route(x, router, top_k, capacity_factor)
+    flat_e = tope.reshape(-1)  # (T*k,) token-major
+    order, slot_sorted = _sorted_slots(flat_e, E, C)
+    buf = torch.zeros((E * C + 1, d), dtype=x.dtype, device=x.device)
+    buf[slot_sorted] = x[order // top_k]
+    ye = _experts(buf[: E * C].view(E, C, d), w_gate, w_in, w_out, act)
+    # back to token-major order for the combine
+    slot = torch.empty_like(slot_sorted)
+    slot[order] = slot_sorted
+    keep = slot < E * C
+    ybuf = torch.cat([ye.reshape(E * C, d), ye.new_zeros((1, d))])
+    w = topw * keep.view(T, top_k)
+    out = _combine(ybuf, slot.view(T, top_k), w, tope, x.dtype)
+    return out, _aux(probs, flat_e, keep, E)
+
+
+def moe_ffn(
+    x: torch.Tensor,  # (T, d) flattened tokens
+    router: torch.Tensor,  # (d, E)
+    w_gate: torch.Tensor,  # (E, d, ffe)
+    w_in: torch.Tensor,  # (E, d, ffe)
+    w_out: torch.Tensor,  # (E, ffe, d)
+    *,
+    top_k: int,
+    capacity_factor: float = 1.25,
+    act: str = "silu",
+):
+    """Switch-style capacity dispatch through a (T·k, E) one-hot: an
+    entry's slot in its expert is the exclusive cumulative count of that
+    expert over the token-major entries.  Dropped entries (over
+    capacity) land in a dump row and pass with weight 0.  Returns
+    (out (T, d), aux) as :func:`moe_ffn_sorted`, which it equals."""
+    T, d = x.shape
+    E = router.shape[-1]
+    probs, topw, tope, C = _route(x, router, top_k, capacity_factor)
+    flat_e = tope.reshape(-1)  # (T*k,) token-major => FIFO per expert
+    onehot = (flat_e[:, None] == torch.arange(E, device=x.device)).long()
+    pos = torch.cumsum(onehot, dim=0) - onehot  # exclusive cumsum
+    pos_in_e = torch.gather(pos, 1, flat_e[:, None])[:, 0]
+    keep = pos_in_e < C
+    slot = torch.where(keep, flat_e * C + pos_in_e, E * C)  # dump slot
+    buf = torch.zeros((E * C + 1, d), dtype=x.dtype, device=x.device)
+    buf[slot] = x.repeat_interleave(top_k, dim=0)
+    ye = _experts(buf[: E * C].view(E, C, d), w_gate, w_in, w_out, act)
+    ybuf = torch.cat([ye.reshape(E * C, d), ye.new_zeros((1, d))])
+    w = topw * keep.view(T, top_k)
+    out = _combine(ybuf, slot.view(T, top_k), w, tope, x.dtype)
+    return out, _aux(probs, flat_e, keep, E)
 
 
 # ---------------------------------------------------------------------------

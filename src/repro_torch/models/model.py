@@ -1,8 +1,9 @@
 """Model of the port: init, forward, prefill and dense-cache decode, and
 the paged pool's prefill, decode and speculative verify.
 
-Counterpart of ``repro/models/model.py`` for attention and Mamba2 (SSD)
-mixers with an MLP or no FFN: the llama family and mamba2.  Parameters
+Counterpart of ``repro/models/model.py`` for attention (global or
+sliding-window) and Mamba2 (SSD) mixers with an MLP, a MoE or no FFN:
+the dense family, gemma2, the MoE configs, mamba2 and jamba.  Parameters
 keep the stacked ``params["blocks"]`` layout with a leading
 ``n_blocks`` axis, so JAX weights carry across leaf for leaf
 (:mod:`repro_torch.models.bridge`); ``lax.scan`` over blocks becomes a
@@ -14,10 +15,12 @@ this model calls the Hopper kernels' wrappers
 (:mod:`repro_torch.kernels`), which take their plain PyTorch versions
 for CPU tensors.  ``plain_attention=True`` runs the ported layers for
 every mixer instead, as the JAX model does — the replay oracle on the
-card.  Mamba2 decode (``L.conv_step``, ``L.ssd_decode_step``) is plain
-PyTorch on both paths, as the JAX model computes it outside any Pallas
-kernel.  Caches (ring, recurrent and paged) are updated in place; the
-JAX model returns new ones.
+card.  Mamba2 decode (``L.conv_step``, ``L.ssd_decode_step``), the
+banded plain form of a windowed layer (``L.sliding_attention``; the
+flash kernel masks the window itself) and the MoE FFN
+(``L.moe_ffn_sorted``) are plain PyTorch on both paths where the JAX
+model computes them outside any Pallas kernel.  Caches (ring, recurrent
+and paged) are updated in place; the JAX model returns new ones.
 
 **Mesh slices.**  Under :func:`repro_torch.distributed.mesh_context`
 every function runs on this rank's local shards (cut by
@@ -33,7 +36,8 @@ attention weights and KV cache whole, and at width 1 nothing is split
 and no collective runs: the meshless path, op for op.  Attention runs
 on local heads; the decode-attention wrappers run their sharded branch
 on them (``on_local_heads``, no DTensor) and count its launches (``flash_attention`` needs no wrapper: it has no ``mesh=``
-in the JAX package either).  Mamba2 on a mesh wider than 1 raises.
+in the JAX package either).  Mamba2 and MoE on a mesh wider than 1
+raise.
 """
 from __future__ import annotations
 
@@ -67,30 +71,26 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 
 def check_supported(cfg: ModelConfig) -> None:
     """Reject what the port does not serve yet."""
-    other = (cfg.moe is not None or not cfg.embed_inputs
-             or any(s.mixer not in ("attn", "mamba")
-                    or s.ffn not in ("mlp", "none")
-                    for s in cfg.block_pattern))
-    if other:
+    if not cfg.embed_inputs:
         raise NotImplementedError(
-            f"model '{cfg.name}': the port serves attention and Mamba2 "
-            "mixers with an MLP or no FFN (the dense family and mamba2); "
-            "MoE (qwen3-moe, dbrx), hybrid-MoE (jamba) and encoder "
-            "(hubert) models are ROADMAP queue 1, item 7"
+            f"model '{cfg.name}': encoder models fed embeddings (hubert) "
+            "are ROADMAP queue 1, item 7d"
         )
-    if cfg.kv_dtype == "int8" or cfg.weight_dtype == "int8":
+    if (cfg.kv_dtype == "int8" or cfg.weight_dtype == "int8"
+            or (cfg.moe is not None and cfg.moe.dispatch_dtype == "int8")):
         raise NotImplementedError(
-            f"model '{cfg.name}': int8 weights and KV are ROADMAP queue 1, "
-            "item 6"
+            f"model '{cfg.name}': int8 weights, KV and MoE dispatch are "
+            "ROADMAP queue 1, item 6"
         )
     _check_mesh(cfg, ctx.axis_size("model"))
 
 
 def _check_mesh(cfg: ModelConfig, width: int) -> None:
-    if width > 1 and cfg.has_mamba:
+    if width > 1 and (cfg.has_mamba or cfg.moe is not None):
         raise NotImplementedError(
-            f"model '{cfg.name}': Mamba2 on a mesh wider than 1 (SSD heads "
-            "over 'model') is ROADMAP queue 1, item 8"
+            f"model '{cfg.name}': Mamba2 (SSD heads over 'model') and MoE "
+            "(experts over 'model') on a mesh wider than 1 are ROADMAP "
+            "queue 1, item 8"
         )
 
 
@@ -195,6 +195,16 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
             "w_out": stacked((ff, d), out_std, path + ("w_out",)),
         }
 
+    def init_moe(path):
+        E, ffe = cfg.moe.num_experts, cfg.moe.d_ff_expert
+        return {
+            "norm": zeros(n, d),
+            "router": stacked((d, E), std, path + ("router",)),
+            "w_gate": stacked((E, d, ffe), std, path + ("w_gate",)),
+            "w_in": stacked((E, d, ffe), std, path + ("w_in",)),
+            "w_out": stacked((E, ffe, d), out_std, path + ("w_out",)),
+        }
+
     params: Params = {"embed": normal((cfg.vocab_size, d), std, ("embed",))}
     blocks = {}
     for i, spec in enumerate(cfg.block_pattern):
@@ -206,6 +216,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
             lp["mamba"] = init_mamba(path + ("mamba",))
         if spec.ffn == "mlp":
             lp["mlp"] = init_mlp(path + ("mlp",))
+        elif spec.ffn == "moe":
+            lp["moe"] = init_moe(path + ("moe",))
         blocks[f"layer_{i}"] = lp
     params["blocks"] = blocks
     params["final_norm"] = zeros(d)
@@ -260,12 +272,11 @@ def _attn_full(p, cfg: ModelConfig, spec: LayerSpec, x, positions, lengths,
         sin, cos = L.rope_sincos(positions, cfg.head_dim, cfg.rope_theta)
         q = L.apply_rope(q, sin, cos)
         k = L.apply_rope(k, sin, cos)
-    if spec.window is not None and cfg.causal:
-        raise NotImplementedError(
-            "sliding-window attention (gemma2) is ROADMAP queue 1, item 7"
-        )
-    if plain:
-        valid = None if lengths is None else positions < lengths[:, None]
+    valid = None if lengths is None else positions < lengths[:, None]
+    if plain and spec.window is not None and cfg.causal:
+        o = L.sliding_attention(q, k, v, window=spec.window,
+                                softcap=cfg.attn_softcap, kv_valid=valid)
+    elif plain:
         o = L.chunked_attention(
             q, k, v, causal=cfg.causal, window=spec.window,
             softcap=cfg.attn_softcap, q_positions=positions,
@@ -392,11 +403,32 @@ def _mamba_decode(p, cfg: ModelConfig, x, entry, blk: int):
 
 
 def _ffn(lp, cfg: ModelConfig, x):
-    p = lp["mlp"]
+    """MLP or MoE FFN on (B, S, d) (or (B, d)).  Returns (out,
+    moe_aux | None); the MoE routes every row of x, pad rows included,
+    as the JAX model does."""
+    if "mlp" in lp:
+        p = lp["mlp"]
+        h = L.rms_norm(x, p["norm"], cfg.norm_eps)
+        return _row_parallel(
+            L.glu_mlp(h, p["w_gate"], p["w_in"], p["w_out"], cfg.act),
+            p["w_out"], cfg.d_ff), None
+    p = lp["moe"]
     h = L.rms_norm(x, p["norm"], cfg.norm_eps)
-    return _row_parallel(
-        L.glu_mlp(h, p["w_gate"], p["w_in"], p["w_out"], cfg.act),
-        p["w_out"], cfg.d_ff)
+    out, aux = L.moe_ffn_sorted(
+        h.reshape(-1, h.shape[-1]), p["router"], p["w_gate"], p["w_in"],
+        p["w_out"], top_k=cfg.moe.top_k, act=cfg.act,
+        capacity_factor=cfg.moe.capacity_factor,
+        dispatch_dtype=cfg.moe.dispatch_dtype,
+    )
+    return out.reshape(h.shape), aux
+
+
+def _moe_loss(cfg: ModelConfig, aux) -> torch.Tensor:
+    """One MoE layer's load-balancing loss, E * sum(f * me), with f the
+    share of entries routed to each expert."""
+    f = aux["load"].float()
+    f = f / torch.clamp(f.sum(), min=1.0)
+    return cfg.moe.num_experts * torch.sum(f * aux["me"])
 
 
 def _embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor):
@@ -419,14 +451,27 @@ def _embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor):
 # ---------------------------------------------------------------------------
 
 
+def _ring_take(S: int, cap: int, lengths):
+    """Where a ring of ``cap`` slots keeps a prompt of S positions (rows
+    ``lengths`` long): None for the identity layout (cap >= S: position
+    i at slot i), else the (B, cap) positions it keeps, the last ``cap``
+    of each row, which sit at slot ``position % cap``."""
+    if cap >= S:
+        return None
+    start = torch.clamp(lengths.long() - cap, min=0)  # (B,)
+    return start[:, None] + torch.arange(cap, device=lengths.device)[None]
+
+
 def _run_blocks(params, cfg: ModelConfig, x, positions, lengths, cache,
                 plain: bool):
     """The JAX scan over blocks, as a loop.  With ``cache`` (from
-    :func:`init_cache`, capacity >= S) each block's K/V is written into
-    slots ``0..S-1``, and each Mamba block's final state and conv tail
-    into its entry, as they are produced."""
-    S = x.shape[1]
+    :func:`init_cache`) each block's K/V is written into its ring as it
+    is produced (:func:`_ring_take`'s layout), and each Mamba block's
+    final state and conv tail into its entry.  Returns (x, moe_loss)."""
+    B, S = x.shape[:2]
     valid = None if lengths is None else positions < lengths[:, None]
+    bidx = torch.arange(B, device=x.device)[:, None]
+    moe_loss = torch.zeros((), dtype=torch.float32, device=x.device)
     for blk in range(cfg.n_blocks):
         bp = _index(params["blocks"], blk)
         for i, spec in enumerate(cfg.block_pattern):
@@ -436,8 +481,14 @@ def _run_blocks(params, cfg: ModelConfig, x, positions, lengths, cache,
                 out, (k, v) = _attn_full(lp["attn"], cfg, spec, x, positions,
                                          lengths, plain)
                 if entry is not None:
-                    entry["k"][blk, :, :S] = k
-                    entry["v"][blk, :, :S] = v
+                    src = _ring_take(S, entry["k"].shape[2], lengths)
+                    if src is None:
+                        entry["k"][blk, :, :S] = k
+                        entry["v"][blk, :, :S] = v
+                    else:
+                        slot = src % src.shape[1]
+                        entry["k"][blk][bidx, slot] = k[bidx, src]
+                        entry["v"][blk][bidx, slot] = v[bidx, src]
             else:
                 out, (ssm, conv) = _mamba_full(lp["mamba"], cfg, x, valid,
                                                plain)
@@ -445,9 +496,12 @@ def _run_blocks(params, cfg: ModelConfig, x, positions, lengths, cache,
                     entry["ssm"][blk] = ssm
                     entry["conv"][blk] = conv
             x = x + out
-            if spec.ffn == "mlp":
-                x = x + _ffn(lp, cfg, x)
-    return x
+            if spec.ffn != "none":
+                out, aux = _ffn(lp, cfg, x)
+                x = x + out
+                if aux is not None:
+                    moe_loss = moe_loss + _moe_loss(cfg, aux)
+    return x, moe_loss
 
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -459,9 +513,10 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     x = _embed(params, cfg, tokens)
     B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device).expand(B, S)
-    x = _run_blocks(params, cfg, x, positions, None, None, plain_attention)
+    x, moe_loss = _run_blocks(params, cfg, x, positions, None, None,
+                              plain_attention)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, moe_loss
 
 
 def lm_logits(params: Params, cfg: ModelConfig, hidden: torch.Tensor):
@@ -557,29 +612,29 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     check_supported(cfg)
     B, S = tokens.shape
     max_len = max_len or S
-    for spec in cfg.block_pattern:
-        if spec.mixer == "attn" and cache_capacity(cfg, spec, max_len) < S:
-            raise NotImplementedError(
-                "a ring cache smaller than the prompt (windowed configs: "
-                "gemma2) is ROADMAP queue 1, item 7"
-            )
     dev = tokens.device
     lengths = lengths.to(device=dev, dtype=torch.int32)
     x = _embed(params, cfg, tokens)
     pos_row = torch.arange(S, device=dev, dtype=torch.int32)
     positions = pos_row.expand(B, S)
     cache = init_cache(cfg, B, max_len, dev)
-    x = _run_blocks(params, cfg, x, positions, lengths, cache,
-                    plain_attention)
+    x, _ = _run_blocks(params, cfg, x, positions, lengths, cache,
+                       plain_attention)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     # logits at the last valid position of each row
     last = torch.clamp(lengths.long() - 1, min=0)
     logits = lm_logits(params, cfg, x[torch.arange(B, device=dev), last])
-    # identity ring layout (cap >= S): slots >= S stay empty
-    pos = torch.where(pos_row[None] < lengths[:, None], pos_row[None], -1)
     for entry in cache.values():
-        if "pos" in entry:  # attention layers; Mamba entries have none
+        if "pos" not in entry:  # Mamba entries
+            continue
+        src = _ring_take(S, entry["pos"].shape[2], lengths)
+        if src is None:  # identity layout: slots >= S stay empty
+            pos = torch.where(pos_row[None] < lengths[:, None],
+                              pos_row[None], -1)
             entry["pos"][:, :, :S] = pos.to(torch.int32)
+        else:  # the last cap positions, -1 past each row's length
+            pos = torch.where(src < lengths[:, None], src, -1)
+            entry["pos"][:] = pos.to(torch.int32)
     return logits, cache
 
 
@@ -603,8 +658,8 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                                      q_pos, write_slot, plain_attention)
             else:
                 x = x + _mamba_decode(lp["mamba"], cfg, x, entry, blk)
-            if spec.ffn == "mlp":
-                x = x + _ffn(lp, cfg, x)
+            if spec.ffn != "none":
+                x = x + _ffn(lp, cfg, x)[0]
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return lm_logits(params, cfg, x), cache
 
@@ -771,7 +826,8 @@ def prefill_paged(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                 )
             wo = lp["attn"]["wo"]
             x = x + _row_parallel(o.reshape(B, S, -1) @ wo, wo, cfg.q_dim)
-            x = x + _ffn(lp, cfg, x)
+            if spec.ffn != "none":
+                x = x + _ffn(lp, cfg, x)[0]
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     last = torch.clamp(lengths.long() - 1, min=0)
     logits = lm_logits(params, cfg, x[torch.arange(B, device=dev), last])
@@ -844,7 +900,8 @@ def verify_step_paged(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                             softcap=cfg.attn_softcap)
             wo = lp["attn"]["wo"]
             x = x + _row_parallel(o.reshape(B, T, -1) @ wo, wo, cfg.q_dim)
-            x = x + _ffn(lp, cfg, x)
+            if spec.ffn != "none":
+                x = x + _ffn(lp, cfg, x)[0]
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return lm_logits(params, cfg, x), cache
 

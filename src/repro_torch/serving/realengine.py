@@ -61,8 +61,8 @@ seed is the same on every rank, so all ranks draw the same speculative
 acceptance and take the same decisions.  The port serves slices that
 cover the whole world (``tp`` equal to the world size), where every
 instance sits on the same ranks and the P→D handoff is a shard-local
-copy; disjoint slices, whose handoff crosses ranks, and Mamba2 on a mesh
-wider than 1 raise (ROADMAP queue 1, item 8).
+copy; disjoint slices, whose handoff crosses ranks, and Mamba2 or MoE on
+a mesh wider than 1 raise (ROADMAP queue 1, item 8).
 """
 from __future__ import annotations
 
@@ -109,17 +109,18 @@ def _not_ported(cfg: ModelConfig, tp: int, n_ranks: int) -> None:
             "disjoint ranks, whose P→D handoff crosses ranks: ROADMAP queue "
             "1, item 8 of the port (serve with tp equal to the world size)"
         )
-    if tp > 1 and cfg.has_mamba:
+    if tp > 1 and (cfg.has_mamba or cfg.moe is not None):
         raise NotImplementedError(
-            f"model '{cfg.name}': Mamba2 on a mesh wider than 1 is ROADMAP "
-            "queue 1, item 8 of the port"
+            f"model '{cfg.name}': Mamba2 and MoE on a mesh wider than 1 are "
+            "ROADMAP queue 1, item 8 of the port"
         )
 
 
 def _put_slot(dst_tree, src_tree, slot: int) -> None:
     """Write a B=1 cache (n_blocks, 1, ...) into ``slot`` of a batched
-    one (n_blocks, slots, ...), in place: every leaf, K/V ring and Mamba2
-    state alike."""
+    one (n_blocks, slots, ...), in place: every leaf alike, whatever the
+    layer holds (K/V rings of a windowed and a global capacity, a Mamba2
+    conv tail and SSM state)."""
     for name, entry in dst_tree.items():
         for key, dst in entry.items():
             dst[:, slot] = src_tree[name][key][:, 0]

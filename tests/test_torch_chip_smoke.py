@@ -239,3 +239,223 @@ def test_dense_family_phases_name_served_configs():
     for arch in cs.FAMILY_SERVED + cs.FAMILY_CHECKED:
         assert arch in REGISTRY
     assert "command-r-plus-104b" not in cs.FAMILY_SERVED + cs.FAMILY_CHECKED
+
+
+def test_window_moe_phases_name_registered_configs():
+    """Phases 13-15 serve registered configs; jamba's cut keeps whole
+    super-blocks."""
+    from repro_torch.configs.registry import REGISTRY
+
+    for arch in cs.WINDOW_MOE:
+        assert arch in REGISTRY
+    jamba = REGISTRY["jamba-v0.1-52b"]
+    assert cs.JAMBA_LAYERS % len(jamba.block_pattern) == 0
+    assert cs.JAMBA_LAYERS < jamba.n_layers
+    gemma = REGISTRY["gemma2-27b"]
+    assert {s.window for s in gemma.block_pattern} == {cs.GEMMA_WINDOW, None}
+    assert cs.GEMMA_WINDOW < cs.GEMMA_BUCKET <= cs.GEMMA_MAX_LEN
+
+
+def test_reckon_gb_counts_windowed_rings_states_and_pools():
+    """gemma2's local rings hold the window, its global ones max_len;
+    jamba's Mamba2 layers hold conv tails and float32 states; pools are
+    two (prefill and decode instance) of pool_pages + 1 pages."""
+    from repro_torch.configs.registry import REGISTRY
+
+    gemma = REGISTRY["gemma2-27b"]
+    got = cs.reckon_gb(gemma, cs.GEMMA_SLOTS, cs.GEMMA_MAX_LEN)
+    kv = 2 * 16 * 128 * 2
+    assert got["ring_gb"] == pytest.approx(
+        4 * 23 * (8256 + 4096) * kv / 1e9, rel=1e-12)
+    jamba = REGISTRY["jamba-v0.1-52b"]
+    got = cs.reckon_gb(jamba)
+    assert got["state_gb"] == pytest.approx(
+        8 * 28 * (3 * (8192 + 256) * 2 + 128 * 64 * 128 * 4) / 1e9,
+        rel=1e-12)
+    moe = REGISTRY["qwen3-moe-30b-a3b"]
+    got = cs.reckon_gb(moe, pool_pages=cs.POOL_PAGES)
+    assert got["pools_gb"] == pytest.approx(
+        2 * (cs.POOL_PAGES + 1) * 16 * 48 * 2 * 4 * 128 * 2 / 1e9, rel=1e-12)
+
+
+def test_kernel_layers_and_window_counts():
+    from repro_torch.configs.registry import REGISTRY
+
+    jamba = REGISTRY["jamba-v0.1-52b"]
+    assert cs.kernel_layers(jamba, "ssd_scan") == 28
+    assert cs.kernel_layers(jamba, "flash_prefill") == 4
+    assert cs.kernel_layers(REGISTRY["gemma2-27b"], "ring_decode") == 46
+    assert cs.window_masked(4096, 4096) == (0, 0)
+    assert cs.window_masked(4099, 4096) == (3, 6)
+
+
+# ---------------------------------------------------------------------------
+# The batch-faithful replay on the CPU
+# ---------------------------------------------------------------------------
+
+MOE_MAX_LEN = 128
+MARGIN = 1e-5  # float32 on the CPU: the served path is the plain one
+
+
+@pytest.fixture(scope="module")
+def moe_serve():
+    """The reduced qwen3-moe at capacity factor 0.5 (2 slots an expert at
+    8 rows) in float32, served dense on the CPU with its backends
+    recorded: a burst of 8 requests with long decodes fills the decode
+    slots, so entries of the requests in later slots drop behind those
+    in earlier ones."""
+    import dataclasses
+
+    from repro_torch.configs.registry import REGISTRY
+    from repro_torch.core.power import A100
+    from repro_torch.models import model as TM
+    from repro_torch.serving import ClusterConfig, PDCluster, Request
+    from repro_torch.serving.cluster import build_predictor
+    from repro_torch.serving.realengine import make_real_backend_factory
+
+    full = REGISTRY["qwen3-moe-30b-a3b"]
+    cfg = full.reduced()
+    cfg = dataclasses.replace(cfg, dtype="float32", moe=dataclasses.replace(
+        cfg.moe, capacity_factor=0.5))
+    params = TM.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    rec = cs.Recorder()
+    base = make_real_backend_factory(cfg, params, slots=8,
+                                     max_len=MOE_MAX_LEN, device="cpu")
+
+    def factory(kind, idx, hw, seed, tp=None):
+        be = base(kind, idx, hw, seed, tp=tp)
+        rec.attach(be)
+        return be
+
+    g = torch.Generator().manual_seed(4)
+    reqs = []
+    for i in range(8):
+        n = int(torch.randint(20, 40, (1,), generator=g))
+        reqs.append(Request(i, 0.0, prompt_len=n, decode_len=48,
+                            prompt_tokens=torch.randint(
+                                0, cfg.vocab_size, (n,),
+                                generator=g).tolist()))
+    m = PDCluster(ClusterConfig(
+        model=full, chip=A100, n_prefill=1, n_decode=1, policy="voltana",
+        predictor=build_predictor(full, A100, A100.freq_levels_2,
+                                  kv_cap=400_000),
+        kv_capacity_tokens=400_000, online_adapt=False, decode_max_running=8,
+        seed=0, backend_factory=factory)).run(reqs)
+    assert m.finished_frac() == 1.0
+    return cfg, params, rec, reqs
+
+
+def test_batch_replay_holds_a_moe_serve(moe_serve):
+    """Both passes hold every emitted token, and on the CPU (the kernel
+    path's wrappers run their plain versions) the plain pass routes as
+    the served path did: no near-tie is forced."""
+    cfg, params, rec, reqs = moe_serve
+    res = cs.batch_replay(torch, rec, (cfg, params), label="cpu",
+                          margin=MARGIN)
+    assert res["near_ties_forced"] == 0
+    assert res["routings"] > 0
+    assert res["tokens_held"]["prefill"] == len(reqs)
+    assert res["tokens_held"]["decode"] == sum(r.decode_len for r in reqs)
+    assert res["dropped_per_step_max"] > 0
+    assert _busiest(rec)[1] >= 4, "no decode step ran 4 requests or more"
+
+
+def _busiest(rec):
+    """(index in the log, rows) of the first decode step that ran the
+    most requests."""
+    rows = [len(kw) if kind == "rows" else 0
+            for kind, _, _, kw, _ in rec.events]
+    return rows.index(max(rows)), max(rows)
+
+
+def test_batch_replay_fails_on_a_reordered_batch(moe_serve, monkeypatch):
+    """The decode step that ran the most requests, replayed by the plain
+    pass with its rows in reverse order (tokens, positions, cache rows
+    and the served routings it is held to alike, so only the order in
+    which entries claim capacity changes): a token the served step
+    emitted is no longer its row's argmax."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as TM
+
+    cfg, params, rec, _ = moe_serve
+    # the target decode steps before the busiest one
+    at = sum(1 for kind, _, _, _, _ in rec.events[:_busiest(rec)[0]]
+             if kind == "step")
+    inner, calls = TM.decode_step, [0]
+
+    def decode_step(params_, cfg_, tokens, cache, lengths, **kw):
+        calls[0] += bool(kw.get("plain_attention"))
+        if calls[0] != at + 1 or not kw.get("plain_attention"):
+            return inner(params_, cfg_, tokens, cache, lengths, **kw)
+        rev = torch.arange(tokens.shape[0] - 1, -1, -1)
+        routes = L._route  # the replay's Routes, forcing the served ones
+        for j in range(routes.i, routes.i + cfg_.n_layers):
+            routes.log[j] = routes.log[j][rev]
+
+        def flip(tree):
+            for e in tree.values():
+                for k in e:
+                    e[k][:] = e[k][:, rev]
+        flip(cache)
+        logits, cache = inner(params_, cfg_, tokens[rev], cache,
+                              lengths[rev], **kw)
+        flip(cache)
+        return logits[rev], cache
+
+    monkeypatch.setattr(TM, "decode_step", decode_step)
+    with pytest.raises(RuntimeError, match="below the plain path's max"):
+        cs.batch_replay(torch, rec, (cfg, params), label="reordered",
+                        margin=MARGIN)
+
+
+def test_a_batch_one_replay_flags_a_moe_stream(moe_serve):
+    """Replayed alone (``replay_phase``), a request routes without its
+    batch-mates and loses no entry to them: some request's emitted token
+    is then off its argmax, though the batch replay holds every one."""
+    cfg, params, rec, reqs = moe_serve
+    flagged = []
+    for r in reqs:
+        try:
+            cs.replay_phase(torch, {"target": (cfg, params)}, r,
+                            max_len=MOE_MAX_LEN, margin=MARGIN)
+        except RuntimeError as e:
+            assert "below the plain path's max" in str(e)
+            flagged.append(r.rid)
+    assert flagged
+
+
+def test_routes_force_near_ties_and_refuse_other_routings():
+    """A recorded routing replaces a differing one only within
+    ``ROUTE_MARGIN`` of the router's own top-k; farther off it fails."""
+    from repro_torch.models import layers as L
+
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn((6, 16), generator=g)
+    router = torch.randn((16, 8), generator=g)
+    probs, _, tope, _ = L._route(x, router, 2, 1.25)
+    logp = torch.log(probs)
+    near = tope.clone()  # the third expert where it is a near-tie
+    third = torch.sort(logp, dim=-1, descending=True).indices[:, 2]
+    gap = logp.gather(1, tope[:, 1:2])[:, 0] - logp.gather(1, third[:, None])[:, 0]
+    row = int(gap.argmin())
+    for far, want in ((False, None), (True, "router logit")):
+        routes = cs.Routes(L, torch)
+        routes.log = [near.clone()]
+        routes.log[0][row, 1] = third[row] if not far else \
+            torch.sort(logp[row], descending=True).indices[-1]
+        routes.mode = "force"
+        margin = float(gap[row]) + 1e-6
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(cs, "ROUTE_MARGIN", margin)
+            with routes:
+                if want:
+                    with pytest.raises(RuntimeError, match=want):
+                        L.moe_ffn_sorted(x, router, *[torch.randn(
+                            (8, 16, 4), generator=g)] * 2, torch.randn(
+                            (8, 4, 16), generator=g), top_k=2)
+                    continue
+                _, w, e, _ = L._route(x, router, 2, 1.25)
+        assert routes.forced == 1
+        assert torch.equal(e, routes.log[0])
+        assert torch.allclose(w.sum(-1), torch.ones(6))

@@ -1241,3 +1241,171 @@ def test_lm_head_at_dense_family_vocabularies(card, arch):
     torch.testing.assert_close(got, h.float() @ head.float(), atol=2e-2,
                                rtol=2e-2)
     assert extra < head.numel() * 2, extra
+
+
+# ---------------------------------------------------------------------------
+# Sliding window and mixture of experts (gemma2, the MoE configs, jamba)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S,window,kv_len", [(512, 128, 400), (640, 256, 640)])
+def test_flash_window_binds_past_its_length(card, dtype, S, window, kv_len):
+    """gemma2's local layers at a reduced size: a prompt several windows
+    long (whole 64-row tiles masked out behind the band), softcap 50,
+    G = 2 at head dim 128, a row padded past its length."""
+    g = torch.Generator(device=card).manual_seed(S + window)
+    dt = getattr(torch, dtype)
+    q = torch.randn((2, S, 32, 128), generator=g, device=card).to(dt)
+    k = torch.randn((2, S, 16, 128), generator=g, device=card).to(dt)
+    v = torch.randn((2, S, 16, 128), generator=g, device=card).to(dt)
+    kw = dict(causal=True, window=window, softcap=50.0,
+              kv_len=torch.tensor([kv_len, S], dtype=torch.int32,
+                                  device=card))
+    n0 = fops.launches
+    got = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fops.launches == n0 + 1
+    torch.testing.assert_close(got.float(), attention_ref(q, k, v, **kw).float(),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window", [256, None])
+def test_ring_wrapped_with_softcap_matches_plain(card, dtype, window):
+    """gemma2's decode at a reduced size: rings of 256 slots that wrapped
+    (every slot written, positions out of slot order), softcap 50, G = 2;
+    with ``window`` equal to the ring (a local layer) and without (a
+    global layer's ring shorter than the context)."""
+    C = 256
+    g = torch.Generator(device=card).manual_seed(C + (window or 0))
+    dt = getattr(torch, dtype)
+    written = torch.tensor([600, 257, 1000, 300], device=card)
+    q = torch.randn((4, 32, 128), generator=g, device=card).to(dt)
+    k = torch.randn((4, C, 16, 128), generator=g, device=card).to(dt)
+    v = torch.randn((4, C, 16, 128), generator=g, device=card).to(dt)
+    c = torch.arange(C, device=card)
+    slot_pos = (written[:, None] - 1
+                - torch.remainder(written[:, None] - 1 - c, C)).to(torch.int32)
+    q_pos = (written - 1).to(torch.int32)
+    kw = dict(window=window, softcap=50.0)
+    n0 = dops.launches
+    got = decode_attention(q, k, v, slot_pos, q_pos, **kw)
+    torch.cuda.synchronize()
+    assert dops.launches == n0 + 1
+    torch.testing.assert_close(
+        got.float(), decode_attention_ref(q, k, v, slot_pos, q_pos,
+                                          **kw).float(),
+        atol=TOL[dtype], rtol=TOL[dtype])
+
+
+def _moe_cfg(dtype="bfloat16", capacity_factor=1.0):
+    cfg = REGISTRY["qwen3-moe-30b-a3b"].reduced()
+    return dataclasses.replace(
+        cfg, dtype=dtype,
+        moe=dataclasses.replace(cfg.moe, capacity_factor=capacity_factor))
+
+
+def test_moe_decode_step_repeats_bitwise_and_replays_as_eager(card):
+    """Reduced qwen3-moe at capacity factor 1.0 (entries drop): a decode
+    step run twice on copies of one cache is bitwise equal, and 16 steps
+    replayed from a CUDA graph equal 16 eager steps bit for bit."""
+    from functools import partial
+
+    from repro_torch.models import layers as L
+
+    cfg = _moe_cfg()
+    params = TM.init_params(cfg, torch.Generator(device=card).manual_seed(0),
+                            device=card)
+    B = 8
+    g = torch.Generator(device=card).manual_seed(5)
+    toks = torch.randint(0, cfg.vocab_size, (B, 48), device=card,
+                         generator=g, dtype=torch.int32)
+    lengths = torch.tensor([48, 30, 17, 48, 5, 40, 1, 33], dtype=torch.int32,
+                           device=card)
+    _, cache = TM.prefill(params, cfg, toks, lengths, max_len=128)
+    dropped = []
+    inner = L.moe_ffn_sorted
+
+    def spy(*a, **k):
+        out, aux = inner(*a, **k)
+        dropped.append(int(aux["dropped"]))
+        return out, aux
+
+    L.moe_ffn_sorted = spy
+    try:
+        runs = [TM.decode_step(params, cfg, toks[:, 0], _tree_clone(cache),
+                               lengths) for _ in range(2)]
+    finally:
+        L.moe_ffn_sorted = inner
+    assert sum(dropped) > 0, "capacity factor 1.0 should drop at 8 rows"
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert _tree_equal(runs[0][1], runs[1][1])
+    inputs = [dict(tokens=toks[:, 0], lengths=lengths + i) for i in range(16)]
+    counts = _graph_vs_eager(partial(TM.decode_step_greedy, cfg=cfg), params,
+                             cache, inputs, chain=True)
+    assert counts == {("decode_attention", "launches"): cfg.n_layers * 16}
+
+
+def test_moe_layer_at_qwen3_moe_width_repeats_and_captures(card):
+    """``moe_ffn_sorted`` at a qwen3-moe decode step's shape (8 rows, 128
+    experts of 768, top-8, C = 1): two calls are bitwise equal, and a
+    CUDA graph of the call (no host sync inside) replays it bitwise."""
+    from repro_torch.models import layers as L
+
+    cfg = REGISTRY["qwen3-moe-30b-a3b"]
+    E, d, f = cfg.moe.num_experts, cfg.d_model, cfg.moe.d_ff_expert
+    g = torch.Generator(device=card).manual_seed(9)
+
+    def w(*shape, s=0.02):
+        return (torch.randn(shape, generator=g, device=card) * s).bfloat16()
+
+    x = w(8, d, s=1.0)
+    args = (x, w(d, E), w(E, d, f), w(E, d, f), w(E, f, d))
+    kw = dict(top_k=cfg.moe.top_k, capacity_factor=cfg.moe.capacity_factor)
+    a, aux = L.moe_ffn_sorted(*args, **kw)
+    b, _ = L.moe_ffn_sorted(*args, **kw)
+    assert torch.equal(a, b) and int(aux["dropped"]) > 0
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        L.moe_ffn_sorted(*args, **kw)  # warm-up on the capture stream
+    torch.cuda.current_stream().wait_stream(stream)
+    with torch.cuda.graph(graph):
+        out, _ = L.moe_ffn_sorted(*args, **kw)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, a)
+
+
+def test_moe_row_alone_routes_as_in_a_batch(card):
+    """Where capacity binds no entry (capacity factor 4.0 in the reduced
+    qwen3-moe), each row of a batch alone picks the experts it picked in
+    the batch and gives the same output within the bf16 tolerance."""
+    from repro_torch.models import layers as L
+
+    cfg = _moe_cfg(capacity_factor=4.0)
+    e = cfg.moe
+    g = torch.Generator(device=card).manual_seed(11)
+
+    def w(*shape, s=0.5):
+        return (torch.randn(shape, generator=g, device=card) * s).bfloat16()
+
+    x = w(8, cfg.d_model, s=1.0)
+    args = (w(cfg.d_model, e.num_experts), w(e.num_experts, cfg.d_model,
+                                             e.d_ff_expert),
+            w(e.num_experts, cfg.d_model, e.d_ff_expert),
+            w(e.num_experts, e.d_ff_expert, cfg.d_model))
+    kw = dict(top_k=e.top_k, capacity_factor=e.capacity_factor)
+    batch, aux = L.moe_ffn_sorted(x, *args, **kw)
+    assert int(aux["dropped"]) == 0
+    _, _, experts, _ = L._route(x, args[0], e.top_k, e.capacity_factor)
+    for r in range(x.shape[0]):
+        alone, _ = L.moe_ffn_sorted(x[r:r + 1], *args, **kw)
+        _, _, mine, _ = L._route(x[r:r + 1], args[0], e.top_k,
+                                 e.capacity_factor)
+        assert torch.equal(mine[0], experts[r])
+        torch.testing.assert_close(alone[0].float(), batch[r].float(),
+                                   atol=TOL["bfloat16"],
+                                   rtol=TOL["bfloat16"])

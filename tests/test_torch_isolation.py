@@ -161,15 +161,64 @@ def test_paged_and_spec_serving_paths_are_ported():
 
 
 def test_unported_model_paths_raise():
+    """int8 KV still raises (ROADMAP queue 1, item 6).  A ring shorter
+    than the prompt (``max_len`` < S) is served now, and as the JAX
+    model serves it: the last ``max_len`` positions of each row at slot
+    ``pos % max_len``."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs.registry import REGISTRY as JREG
+    from repro.models import model as JM
+
     rc = dataclasses.replace(MODEL.reduced(), dtype="float32")
-    params = TM.init_params(rc, torch.Generator().manual_seed(0),
-                            device="cpu")
-    toks = torch.zeros((1, 32), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        TM.prefill(params, rc, toks, torch.tensor([32]), max_len=16)
+    jrc = dataclasses.replace(JREG["llama-3.1-8b"].reduced(), dtype="float32")
+    np_params = jax.tree.map(np.asarray, JM.init_params(jrc,
+                                                        jax.random.key(0)))
+    params = bridge.params_from_jax(np_params, device="cpu")
+    toks = np.random.default_rng(0).integers(
+        0, rc.vocab_size, (2, 32)).astype(np.int32)
+    lengths = np.array([32, 20], np.int32)
+    lj, cj = JM.prefill(jax.tree.map(jnp.asarray, np_params), jrc,
+                        jnp.asarray(toks), jnp.asarray(lengths), max_len=16)
+    lt, ct = TM.prefill(params, rc, torch.from_numpy(toks),
+                        torch.from_numpy(lengths), max_len=16)
+    np.testing.assert_allclose(lt.numpy(), np.asarray(lj), atol=2e-5,
+                               rtol=2e-5)
+    for key, leaf in cj["layer_0"].items():
+        np.testing.assert_allclose(ct["layer_0"][key].numpy(),
+                                   np.asarray(leaf), atol=2e-5, rtol=2e-5)
     with pytest.raises(NotImplementedError, match="item 6"):
         TM.init_cache(dataclasses.replace(rc, kv_dtype="int8"), 1, 16,
                       device="cpu")
+
+
+def test_hubert_int8_and_wide_moe_raise():
+    """What the port still refuses, each naming its ROADMAP item: hubert
+    (an encoder fed embeddings, item 7d), int8 weights and MoE dispatch
+    (item 6), and a MoE model on a mesh wider than 1, in the model and in
+    the serving factory before any process group is touched (item 8)."""
+    from repro_torch.configs import base as TB
+
+    kw = {f.name: getattr(MODEL.reduced(), f.name)
+          for f in dataclasses.fields(MODEL)}
+    hubert = TB.ModelConfig(**dict(kw, name="hubert-like",
+                                   embed_inputs=False, causal=False))
+    with pytest.raises(NotImplementedError, match="item 7d"):
+        TM.check_supported(hubert)
+    moe = REGISTRY["qwen3-moe-30b-a3b"].reduced()
+    for bad in (dataclasses.replace(MODEL.reduced(), weight_dtype="int8"),
+                dataclasses.replace(moe, moe=dataclasses.replace(
+                    moe.moe, dispatch_dtype="int8"))):
+        with pytest.raises(NotImplementedError, match="item 6"):
+            TM.check_supported(bad)
+    wide = SimpleNamespace(mesh_dim_names=("data", "model"), shape=(1, 2))
+    with mesh_context(wide):
+        with pytest.raises(NotImplementedError, match="item 8"):
+            TM.init_cache(moe, 1, 32, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 8"):
+        make_real_backend_factory(moe, {}, device="cpu", tp=2,
+                                  devices=[0, 1])
 
 
 # Modules of the port ported by hand (they import JAX in the reference, or
