@@ -94,7 +94,25 @@ Phases, in order; any failure exits non-zero:
    phase 4's requests dense with step graphs, seven ssd_scan and one
    flash_prefill launches a prefill and one ring_decode a step, a batch
    replay, and every Mamba2 layer's prefill state held against the plain
-   path's.
+   path's;
+16. hubert-xlarge (48 layers, 16 heads of 80, bidirectional, a GELU
+   GLU MLP of 5,120: 1.26 B params, 2.52 GB) at full width and depth on
+   ``HUBERT_CLIPS``: four clips of seeded frame embeddings padded to the
+   longest.  ``forward`` and ``lm_logits`` through the kernel path (48
+   flash_prefill launches, no other kernel) with its wall ms, its device
+   time by kernel and its peak, then the plain path; every
+   valid frame's class within ``REPLAY_MARGIN`` of the plain path's max
+   logit; the serving factory refuses hubert (no decode phase);
+17. llama-3.1-8b with int8 weights (``quantize_params`` of the bf16 init,
+   which is then freed) and an int8 ring: phase 4's requests dense with
+   step graphs, a stream replayed through the plain path on the same
+   quantized weights and rings, and served again eagerly with the same
+   streams.  Phase 14 also serves qwen3-moe with int8 dispatch on its
+   weights, replayed batch for batch.
+
+The kernel phase holds flash_prefill at head dim 80 without the causal
+mask (hubert's) in both dtypes and times it at hubert's shape beside
+SDPA on the same key mask.
 
 It prints the ``kernels`` JSON line and, last, the device line.
 
@@ -170,6 +188,10 @@ GEMMA_BUCKET = 8192
 GEMMA_MAX_LEN = GEMMA_BUCKET + 64
 GEMMA_SLOTS = 4
 MESH_TIMEOUT_S = 600.0  # the parent's wait for the phase 9 world
+# phase 16: hubert-xlarge on four clips of frame embeddings, 20 ms a
+# frame (8-30 s of 16 kHz audio), padded to the longest
+HUBERT_CLIPS = (400, 750, 1100, 1500)
+HUBERT_FRAMES = max(HUBERT_CLIPS)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -392,11 +414,13 @@ def max_err(torch, got, want, dtype: str):
 
 
 def flash_case(torch, F, B, S, Hq, Hkv, Dh, dtype, kv_frac, window, softcap,
-               timed: bool, q_start=None):
+               timed: bool, q_start=None, causal=True, kv_lens=None):
     """One prefill case.  With ``q_start`` (the paged prefill after a
     prefix hit) the keys are the gathered view of a full table
     (``MAX_LEN`` positions), query row i sits at ``q_start + i`` and
-    ``kv_len = q_start + S * kv_frac``."""
+    ``kv_len = q_start + S * kv_frac``.  ``kv_lens`` gives each batch
+    row its own ``kv_len`` (padded clips of an encoder); ``causal=False``
+    drops the causal mask."""
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
@@ -409,42 +433,50 @@ def flash_case(torch, F, B, S, Hq, Hkv, Dh, dtype, kv_frac, window, softcap,
     v = torch.randn((B, Skv, Hkv, Dh), generator=g, device="cuda").to(dt)
     qs = 0 if q_start is None else q_start
     kv_len = qst = None
-    if kv_frac is not None:
+    if kv_lens is not None:
+        kv_len = torch.tensor(kv_lens, dtype=torch.int32, device="cuda")
+    elif kv_frac is not None:
         kv_len = torch.full((B,), qs + max(1, int(S * kv_frac)),
                             dtype=torch.int32, device="cuda")
     if q_start is not None:
         qst = torch.full((B,), q_start, dtype=torch.int32, device="cuda")
-    kw = dict(causal=True, window=window, softcap=softcap, kv_len=kv_len,
+    kw = dict(causal=causal, window=window, softcap=softcap, kv_len=kv_len,
               q_start=qst)
     got = fops.flash_attention(q, k, v, **kw)
     want = attention_ref(q, k, v, **kw)
     torch.cuda.synchronize()
     err, ok = max_err(torch, got, want, dtype)
     check(ok, f"flash_prefill disagrees with its plain version at S={S} "
-              f"{dtype} kv_len={kv_frac} window={window} softcap={softcap} "
-              f"q_start={q_start}: max abs err {err}")
+              f"Dh={Dh} {dtype} causal={causal} kv_len="
+              f"{kv_frac if kv_lens is None else kv_lens} window={window} "
+              f"softcap={softcap} q_start={q_start}: max abs err {err}")
+    lens = [Skv] * B if kv_len is None else kv_len.tolist()
     row = {"shape": f"B={B} S={S} Skv={Skv} Hq={Hq} Hkv={Hkv} Dh={Dh}",
-           "dtype": dtype, "q_start": q_start,
-           "kv_len": None if kv_len is None else int(kv_len[0]),
+           "dtype": dtype, "causal": causal, "q_start": q_start,
+           "kv_len": None if kv_len is None else (
+               lens if kv_lens is not None else lens[0]),
            "window": window, "softcap": softcap, "max_abs_err": err}
     if not timed:
         return row
     # work this data needs: (q, key) pairs that are unmasked
-    L = Skv if kv_len is None else int(kv_len[0])
     qpos = qs + torch.arange(S)
-    hi = torch.minimum(qpos, torch.tensor(L - 1))
-    lo = torch.zeros_like(qpos) if window is None else torch.clamp(
-        qpos - window + 1, min=0)
-    pairs = int(torch.clamp(hi - lo + 1, min=0).sum()) * B * Hq
+    pairs = 0
+    for L in lens:
+        hi = torch.full_like(qpos, L - 1)
+        if causal:
+            hi = torch.minimum(qpos, hi)
+        lo = torch.zeros_like(qpos) if window is None else torch.clamp(
+            qpos - window + 1, min=0)
+        pairs += int(torch.clamp(hi - lo + 1, min=0).sum()) * Hq
     esz = q.element_size()
-    nbytes = (2 * q.numel() + 2 * B * L * Hkv * Dh) * esz
+    nbytes = (2 * q.numel() + 2 * sum(lens) * Hkv * Dh) * esz
     flops = 4.0 * pairs * Dh
     sets = copies(torch, (q, k, v), (q.numel() + 2 * k.numel()) * esz)
     ms = cuda_ms(torch, lambda a, b, c: fops.flash_attention(a, b, c, **kw),
                  sets)
     # the plain version materialises (Hq, S, Skv) float32 scores
     plain_ms = cuda_ms(torch, lambda a, b, c: attention_ref(a, b, c, **kw),
-                       sets, iters=5 if S * Skv > 2 ** 24 else 20)
+                       sets, iters=5 if B * S * Skv > 2 ** 24 else 20)
     dev_ms, host_ms = queued_ms(
         torch, lambda a, b, c: fops.flash_attention(a, b, c, **kw), sets)
     lib_ms = lib_dev_ms = None
@@ -454,10 +486,13 @@ def flash_case(torch, F, B, S, Hq, Hkv, Dh, dtype, kv_frac, window, softcap,
         # softcap, so a softcapped case has none
         qp = (qs + torch.arange(S, device="cuda"))[:, None]
         j = torch.arange(Skv, device="cuda")[None, :]
-        mask = (qp >= j) & (j < L)
+        Lb = torch.tensor(lens, device="cuda")[:, None, None]
+        mask = j[None] < Lb  # (B, 1 or S, Skv)
+        if causal:
+            mask = mask & (qp >= j)[None]
         if window is not None:
-            mask &= qp - j < window
-        mask = mask[None, None]
+            mask = mask & (qp - j < window)[None]
+        mask = mask[:, None]
 
         def lib(a, b, c):
             return F.scaled_dot_product_attention(
@@ -470,7 +505,7 @@ def flash_case(torch, F, B, S, Hq, Hkv, Dh, dtype, kv_frac, window, softcap,
     b_ms, b_by = bound(flops, nbytes, dtype)
     row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
                bound_by=b_by, device_ms=dev_ms, host_ms=host_ms,
-               library_device_ms=lib_dev_ms)
+               library_device_ms=lib_dev_ms, flops=flops, bytes=nbytes)
     row.update(ratios(row))
     return row
 
@@ -956,6 +991,31 @@ def kernel_phase(torch, F):
             softcap=50.0, timed=dtype == "bfloat16",
             written=[4500, 5600, 6700, 7800], **gemma),
             case="gemma2 global ring"))
+    # hubert-xlarge's encoder (phase 16): bidirectional at head dim 80
+    # over padded clips (keys past each clip masked, a row of length 0
+    # averaging V), G = 1 and G = 4; bidirectional at head dim 128; and
+    # hubert's batch of clips, timed in bf16
+    hubert = dict(Hq=16, Hkv=16, Dh=80)
+    for dtype in ("bfloat16", "float32"):
+        flash_rows.append(flash_case(
+            torch, F, 3, 200, dtype=dtype, kv_frac=None, window=None,
+            softcap=None, timed=False, causal=False, kv_lens=[200, 77, 0],
+            **hubert))
+        flash_rows.append(flash_case(
+            torch, F, 2, 300, 16, 4, 80, dtype=dtype, kv_frac=None,
+            window=None, softcap=None, timed=False, causal=False))
+        flash_rows.append(flash_case(
+            torch, F, 2, 256, 32, 8, 128, dtype=dtype, kv_frac=None,
+            window=None, softcap=None, timed=False, causal=False,
+            kv_lens=[256, 131]))
+        flash_rows.append(flash_case(
+            torch, F, 1, 512, dtype=dtype, kv_frac=None, window=None,
+            softcap=None, timed=False, causal=False, **llama))
+        flash_rows.append(dict(flash_case(
+            torch, F, len(HUBERT_CLIPS), HUBERT_FRAMES, dtype=dtype,
+            kv_frac=None, window=None, softcap=None,
+            timed=dtype == "bfloat16", causal=False,
+            kv_lens=list(HUBERT_CLIPS), **hubert), case="hubert encoder"))
     # the SSD scan: the sweep of tests/test_kernels.py:237, the reduced
     # config's dims, and mamba2-2.7b's prefill at S=512 (x, B and C
     # slices of one tensor, as the model passes them; timed), also with
@@ -2137,20 +2197,49 @@ FAMILY_PROMPT = 300  # phase 12's prompt tokens
 FAMILY_STEPS = 16  # phase 12's greedy decode steps
 
 
+def _scales_per_block(cfg) -> int:
+    """float32 scales of one block's int8 weights: one per output channel
+    of every quantized matrix (``quantize_params``), per expert for a
+    MoE's, per tap for a Mamba2 conv."""
+    d, n = cfg.d_model, 0
+    for spec in cfg.block_pattern:
+        if spec.mixer == "attn":
+            n += cfg.q_dim + 2 * cfg.kv_dim + d
+        else:
+            m = cfg.mamba
+            di = m.d_inner(d)
+            n += 2 * di + 2 * m.d_state + m.n_heads(d) + m.d_conv + d
+        if spec.ffn == "mlp":
+            n += 2 * cfg.d_ff + d
+        elif spec.ffn == "moe":
+            e = cfg.moe
+            n += e.num_experts * (1 + 2 * e.d_ff_expert + d)
+    return n
+
+
 def reckon_gb(cfg, slots=SLOTS, max_len=MAX_LEN, pool_pages=None) -> dict:
     """What a serve of ``cfg`` holds on the card before the run, GB: its
-    bf16 weights and the decode instance's rings (``slots`` slots, K and
-    V of every attention layer at its capacity: ``max_len``, or its
-    window), the Mamba2 states of those slots where it has Mamba2 layers,
-    and with ``pool_pages`` the paged pools of the prefill and the decode
-    instance."""
+    weights (bf16, or with ``weight_dtype="int8"`` the block matrices as
+    int8 codes and float32 scales beside the bf16 embedding and head) and
+    the decode instance's rings (``slots`` slots, K and V of every
+    attention layer at its capacity: ``max_len``, or its window; int8
+    codes and a float32 scale per position and head with
+    ``kv_dtype="int8"``), the Mamba2 states of those slots where it has
+    Mamba2 layers, and with ``pool_pages`` the paged pools of the
+    prefill and the decode instance."""
     from repro_torch.models.model import cache_capacity
 
-    kv = 2 * cfg.n_kv_heads * cfg.head_dim * 2  # K and V a position, bf16
+    per_head = (cfg.head_dim + 4 if cfg.kv_dtype == "int8"
+                else cfg.head_dim * 2)
+    kv = 2 * cfg.n_kv_heads * per_head  # K and V a position
     ring = sum(cache_capacity(cfg, spec, max_len) for spec in
                cfg.block_pattern if spec.mixer == "attn") * cfg.n_blocks
-    out = {"weights_gb": cfg.param_count() * 2 / 1e9,
-           "ring_gb": slots * ring * kv / 1e9}
+    weights = cfg.param_count() * 2
+    if cfg.weight_dtype == "int8":
+        blocks = sum(cfg._layer_params(spec)[0]
+                     for spec in cfg.block_pattern) * cfg.n_blocks
+        weights += (4 * _scales_per_block(cfg) * cfg.n_blocks) - blocks
+    out = {"weights_gb": weights / 1e9, "ring_gb": slots * ring * kv / 1e9}
     if cfg.has_mamba:
         m = cfg.mamba
         per_slot = ((m.d_conv - 1) * (m.d_inner(cfg.d_model) + 2 * m.d_state)
@@ -2222,7 +2311,7 @@ def init_model(torch, arch, n_layers=None, **reckon):
                       f"top-{e.top_k}, capacity factor {e.capacity_factor}")
     mixer = "; ".join(mixers)
     reckoned = ("; reckoned " + json.dumps(reckon_gb(cfg, **reckon))
-                if cfg.has_attention else "")
+                if cfg.has_attention and cfg.embed_inputs else "")
     extras = "".join(x for x, on in ((", tied head", cfg.tie_embeddings),
                                      (", q/k norm", cfg.qk_norm),
                                      (", attention softcap",
@@ -2441,9 +2530,12 @@ def gemma2_phase(torch):
 def moe_phase(torch):
     """Phase 14: qwen3-moe-30b-a3b at full depth: phase 4's requests
     served dense with step graphs and again eagerly (equal streams), then
-    the multi-turn workload paged + speculative at ``SPEC_K``, every serve
-    replayed batch for batch (:func:`batch_replay`).  Frees its weights;
-    returns the launch counts and stats by label."""
+    with int8 dispatch (``dispatch_dtype="int8"``) on the same weights,
+    then the multi-turn workload paged + speculative at ``SPEC_K``, every
+    serve replayed batch for batch (:func:`batch_replay`).  Frees its
+    weights; returns the launch counts and stats by label."""
+    import dataclasses
+
     from repro_torch.core.power import A100
     from repro_torch.models import model as M
     from repro_torch.serving.cluster import build_predictor
@@ -2469,6 +2561,21 @@ def moe_phase(torch):
           "qwen3moe: graph replay and eager steps emitted different streams")
     print(f"qwen3moe: the eager serve emitted the same {len(same)} streams "
           "as the graph replays")
+    # int8 dispatch on the same weights (dispatch and combine buffers as
+    # int8 rows with float32 scales) on the first 4 requests, replayed
+    # batch for batch
+    icfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, dispatch_dtype="int8"))
+    rec = Recorder()
+    _, _, reqs, launches, stats = serve_phase(
+        torch, arch, "qwen3moe-int8", ATTN_KERNELS, params=params, cfg=icfg,
+        recorder=rec, reqs=phase4_requests(cfg)[:4])
+    peak_line("qwen3moe-int8", stats)
+    stats["batch_replay"] = batch_replay(torch, rec, (icfg, params),
+                                         label="qwen3moe-int8")
+    out["qwen3moe-int8"] = (launches, stats)
+    del rec, reqs
+    free(torch)
     pred = build_predictor(cfg, A100, A100.freq_levels_2, kv_cap=400_000,
                            spec_k=SPEC_K)
     dcfg = make_draft_config(cfg)
@@ -2518,6 +2625,237 @@ def jamba_phase(torch):
 
 
 # ---------------------------------------------------------------------------
+# Phases 16-17: hubert's encoder and int8 serving at full width
+# ---------------------------------------------------------------------------
+
+
+def launch_counts_now():
+    """The wrappers' launch counts, by kernel, as the serve phases report
+    them."""
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.ssd import ops as sops
+
+    return {"flash_prefill": fops.launches,
+            "flash_prefill_q_offset": fops.q_offset_launches,
+            "ring_decode": dops.launches,
+            "paged": sum(dops.paged_launches.values()),
+            "ssd_scan": sops.launches}
+
+
+def zero_launch_counts():
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.ssd import ops as sops
+
+    fops.launches = fops.q_offset_launches = 0
+    dops.launches = 0
+    dops.paged_launches.clear()
+    dops.sharded_launches.clear()
+    sops.launches = 0
+
+
+def hubert_frames(torch, d_model):
+    """``HUBERT_CLIPS`` of seeded frame embeddings (the stubbed conv
+    frontend's output), zero past each clip's length, and the lengths."""
+    g = torch.Generator(device="cuda").manual_seed(16)
+    B = len(HUBERT_CLIPS)
+    x = torch.randn((B, HUBERT_FRAMES, d_model), generator=g, device="cuda")
+    lengths = torch.tensor(HUBERT_CLIPS, dtype=torch.int32, device="cuda")
+    x *= (torch.arange(HUBERT_FRAMES, device="cuda")[None]
+          < lengths[:, None])[..., None]
+    return x, lengths
+
+
+def plain_frames(S: int) -> int:
+    """The smallest length >= S that ``L.chunked_attention`` takes at its
+    default chunks (512 queries, 1,024 keys; the reference's own rule):
+    the plain path runs hubert's clips padded to it.  The extra frames
+    are masked keys, so every valid frame attends to the same keys."""
+    if S <= 512:
+        return S
+    step = 512 if S <= 1024 else 1024
+    return -(-S // step) * step
+
+
+def top(by_kernel, n=6):
+    """The ``n`` kernels that took the most device time, {name: ms}."""
+    return dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:n])
+
+
+def hubert_phase(torch):
+    """Phase 16: hubert-xlarge at full width and depth in bf16 on four
+    padded clips of frame embeddings: ``forward`` and ``lm_logits``
+    through the kernel path (exactly one bidirectional flash_prefill
+    launch a layer, no other kernel), timed by wall and device clock,
+    then through the plain path (on the clips padded to
+    :func:`plain_frames`); every valid frame's kernel-path class
+    must lie within ``REPLAY_MARGIN`` of the plain path's max logit.  The
+    serving factory must refuse hubert (no decode phase).  Frees its
+    weights; returns the launch counts and stats."""
+    from repro_torch.models import model as M
+    from repro_torch.serving.realengine import make_real_backend_factory
+
+    arch = "hubert-xlarge"
+    cfg, params = init_model(torch, arch)
+    x, lengths = hubert_frames(torch, cfg.d_model)
+    B, S = x.shape[:2]
+
+    def run():
+        h, _ = M.forward(params, cfg, inputs_embeds=x, lengths=lengths)
+        return M.lm_logits(params, cfg, h)
+
+    def run_plain():
+        xp = torch.nn.functional.pad(x, (0, 0, 0, plain_frames(S) - S))
+        h, _ = M.forward(params, cfg, inputs_embeds=xp, lengths=lengths,
+                         plain_attention=True)
+        return M.lm_logits(params, cfg, h)[:, :S]
+
+    free(torch)
+    zero_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    logits = timed(torch, run, walls)()
+    launches = launch_counts_now()
+    want = family_launches(cfg, 1, 0)
+    check(launches == want,
+          f"hubert: a forward launched {launches}, expected {want}")
+    for _ in range(4):
+        timed(torch, run, walls)()
+    peak = torch.cuda.max_memory_allocated()
+    # device time a forward, by kernel (torch.profiler's CUDA activity):
+    # the sum is the device's busy time
+    by_kernel = device_ms_by_kernel(torch, run, iters=3)
+    zero_launch_counts()
+    plain = run_plain()
+    check(launch_counts_now() == {k: 0 for k in want},
+          "hubert: the plain path launched a kernel")
+    check(tuple(logits.shape) == (B, S, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all())
+          and bool(torch.isfinite(plain).all()),
+          f"hubert: logits {tuple(logits.shape)} or non-finite values")
+    worst, same, frames = 0.0, 0, 0
+    for b, n in enumerate(HUBERT_CLIPS):
+        ids = logits[b, :n].argmax(-1)
+        row = plain[b, :n].double()
+        gap = row.max(-1).values - row.gather(1, ids[:, None])[:, 0]
+        worst = max(worst, float(gap.max()))
+        same += int((ids == row.argmax(-1)).sum())
+        frames += n
+    check(worst <= REPLAY_MARGIN,
+          f"hubert: a valid frame's kernel-path class is {worst:.4f} below "
+          f"the plain path's max logit (margin {REPLAY_MARGIN})")
+    refused = ""
+    try:
+        make_real_backend_factory(cfg, params, device="cuda")
+    except ValueError as e:
+        refused = str(e)
+    check("no decode phase" in refused,
+          f"hubert: the serving factory did not refuse it ({refused!r})")
+    flops = 2.0 * (cfg.param_count() - cfg.vocab_size * cfg.d_model) \
+        * B * S + 2.0 * cfg.vocab_size * cfg.d_model * B * S \
+        + 4.0 * cfg.n_layers * cfg.n_heads * cfg.head_dim * S * sum(
+            HUBERT_CLIPS)
+    stats = {"clips": list(HUBERT_CLIPS), "frames_padded": S,
+             "plain_frames_padded": plain_frames(S),
+             "forward_ms_median": statistics.median(walls),
+             "forward_ms_first": walls[0],
+             "device_busy_ms": sum(by_kernel.values()),
+             "flash_ms": by_kernel.get("flash_prefill_bf16_kernel"),
+             "top_kernels_ms": top(by_kernel), "flops": flops,
+             "max_memory_allocated_gb": peak / 1e9, "launches": launches,
+             "worst_gap": worst, "same_class_frames": same,
+             "valid_frames": frames}
+    print(f"hubert[forward]: " + json.dumps(stats))
+    print(f"hubert: the serving factory refused it: {refused}")
+    peak_line("hubert", stats)
+    del params, x, logits, plain
+    free(torch)
+    return {"hubert": (launches, stats)}
+
+
+def int8_step_profile(torch, cfg, params):
+    """Where an int8 decode step's device time goes: one eager step over
+    ``SLOTS`` rows of ``MAX_LEN`` rings, by kernel (torch.profiler); and
+    the dequantization of one block's ``w_gate`` in the port's one pass
+    (``L.dequantize``) beside the two-pass form (codes to float32, times
+    the scales, then to bf16), which rounds alike."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+
+    g = torch.Generator(device="cuda").manual_seed(17)
+    cache = M.init_cache(cfg, SLOTS, MAX_LEN, "cuda")
+    toks = torch.randint(0, cfg.vocab_size, (SLOTS,), generator=g,
+                         device="cuda", dtype=torch.int32)
+    lengths = torch.full((SLOTS,), MAX_LEN // 2, dtype=torch.int32,
+                         device="cuda")
+    by_kernel = device_ms_by_kernel(
+        torch, lambda: M.decode_step(params, cfg, toks, cache, lengths),
+        iters=3)
+    w = params["blocks"]["layer_0"]["mlp"]["w_gate"]
+    q8, sc = w["q8"][0], w["sc"][0].unsqueeze(-2)
+    one = cuda_ms(torch, lambda: L.dequantize(q8, sc, torch.bfloat16), [()])
+    two = cuda_ms(torch, lambda: (q8.float() * sc).to(torch.bfloat16), [()])
+    check(torch.equal(L.dequantize(q8, sc, torch.bfloat16),
+                      (q8.float() * sc).to(torch.bfloat16)),
+          "int8: the one-pass dequantization rounds differently")
+    out = {"step_busy_ms": sum(by_kernel.values()),
+           "top_kernels_ms": top(by_kernel, 8),
+           "w_gate_dequant_ms": {"one_pass": one, "two_pass": two,
+                                 "shape": list(q8.shape)}}
+    print("int8[step profile]: " + json.dumps(out))
+    del cache
+    free(torch)
+    return out
+
+
+def int8_phase(torch):
+    """Phase 17: llama-3.1-8b at full width and depth with int8 weights
+    (initialised in bf16, quantized by ``quantize_params``, the bf16 tree
+    freed) and an int8 ring: phase 4's requests served dense with step
+    graphs, a stream replayed through the plain path on the same
+    quantized weights and int8 rings, and the same requests served again
+    eagerly (``cuda_graphs=False``), which must emit the same streams.
+    Frees its weights; returns the launch counts and stats by label."""
+    import dataclasses
+
+    from repro_torch.models import model as M
+
+    arch = "llama-3.1-8b"
+    cfg, params = init_model(torch, arch)
+    cfg = dataclasses.replace(cfg, weight_dtype="int8", kv_dtype="int8")
+    t0 = time.perf_counter()
+    params = M.quantize_params(params)
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    free(torch)
+    held = sum(t.numel() * t.element_size() for t in _leaves(params))
+    print(f"int8: quantize_params in {quant_s:.1f} s, peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB with the bf16 "
+          f"tree; the int8 tree holds {held / 1e9:.3f} GB; reckoned "
+          + json.dumps(reckon_gb(cfg)))
+    int8_step_profile(torch, cfg, params)
+    _, _, reqs, launches, stats = serve_phase(
+        torch, arch, "int8", ATTN_KERNELS, params=params, cfg=cfg)
+    peak_line("int8", stats)
+    replay_phase(torch, {"target": (cfg, params)}, reqs[0])
+    free(torch)
+    _, _, eager, eager_launches, eager_stats = serve_phase(
+        torch, arch, "int8-eager", ATTN_KERNELS, params=params, cfg=cfg,
+        cuda_graphs=False)
+    same = [r.output_tokens == e.output_tokens for r, e in zip(reqs, eager)]
+    check(len(eager) == len(reqs) and all(same),
+          "int8: graph replay and eager steps emitted different streams "
+          f"(requests {[r.rid for r, ok in zip(reqs, same) if not ok]})")
+    print(f"int8: the eager serve emitted the same {len(reqs)} streams as "
+          "the graph replays")
+    del params, reqs, eager
+    free(torch)
+    return {"int8": (launches, stats),
+            "int8-eager": (eager_launches, eager_stats)}
+
+
+# ---------------------------------------------------------------------------
 
 
 # name -> (source, the Pallas kernel it replaces, the serve phase whose
@@ -2557,11 +2895,12 @@ WRAPPERS = {
 }
 
 
-def gemma_rows(head, name):
-    """The kernel phase's gemma2-shaped timed rows of kernel ``name``, by
-    case."""
+def case_rows(head, name):
+    """The kernel phase's timed rows of kernel ``name`` at a named
+    model's shape (gemma2's, hubert's), by case."""
     return {key.split("@", 1)[1]: r for key, r in head.items()
-            if key.startswith(name + "@gemma2")}
+            if key.startswith(name + "@") and key.split("@", 1)[1]
+            not in ("shard",)}
 
 
 def main(argv=None) -> int:
@@ -2618,7 +2957,8 @@ def main(argv=None) -> int:
         print(card)
         print(json.dumps({"src": str(src), "kernels": [
             {"name": name,
-             "max_abs_err_by_dtype": errs[name.split("@gemma2")[0]],
+             "max_abs_err_by_dtype": errs.get(name) or errs[
+                 name.split("@")[0]],
              "shape": h["shape"], **timings(h)}
             for name, h in head.items()]}))
         print(json.dumps({"ok": True, "kernels_only": True, "device": {
@@ -2631,8 +2971,12 @@ def main(argv=None) -> int:
     check(all(all(ops.values()) for ops in sass.values()),
           f"a redesigned kernel's SASS lacks a required instruction: {sass}")
 
+    seconds = {"build": time.perf_counter() - t_start}
+    t0 = time.perf_counter()
     head, errs = kernel_phase(torch, F)
     lm_head_case(torch)
+    seconds["kernels"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     dense_kernels = {"flash_prefill": "prefill", "ring_decode": "decode"}
     cfg, params, reqs, dense_launches, _ = serve_phase(
         torch, "llama-3.1-8b", "dense", dense_kernels)
@@ -2687,6 +3031,8 @@ def main(argv=None) -> int:
                 whole_path=False)
     del params, reqs  # free Mamba2 before phase 9
     free(torch)
+    seconds["4-8"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
 
     mesh = mesh_phase(torch, pred)
     # replay one stream per serve through the meshless plain path, on the
@@ -2709,6 +3055,8 @@ def main(argv=None) -> int:
     # free llama and the drafter before phases 10-12
     del params, dparams, models, r
     free(torch)
+    seconds["9"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
 
     family = {}
     for arch in FAMILY_SERVED:
@@ -2716,8 +3064,12 @@ def main(argv=None) -> int:
                                          spec=arch == "ministral-3b"))
     for arch in FAMILY_CHECKED:
         family[arch.split("-")[0]] = kernel_path_phase(torch, arch)
-    for phase in (gemma2_phase, moe_phase, jamba_phase):
+    seconds["10-12"] = time.perf_counter() - t0
+    for n, phase in ((13, gemma2_phase), (14, moe_phase), (15, jamba_phase),
+                     (16, hubert_phase), (17, int8_phase)):
+        t0 = time.perf_counter()
         family.update(phase(torch))
+        seconds[str(n)] = time.perf_counter() - t0
 
     leaked = [m for m in sys.modules
               if m == "jax" or m.startswith("jax.") or m == "repro"
@@ -2743,7 +3095,7 @@ def main(argv=None) -> int:
             "max_abs_err": max(errs[name].values()),
             "max_abs_err_by_dtype": errs[name], **timings(h),
             **{case: {"shape": r["shape"], **timings(r)}
-               for case, r in gemma_rows(head, name).items()},
+               for case, r in case_rows(head, name).items()},
         })
     hkv = 8 // MESH_TP
     for name, (source, replaces, serve, shard_row) in WRAPPERS.items():
@@ -2770,6 +3122,8 @@ def main(argv=None) -> int:
             "wrapper_ms_is": "the sharded branch as the model calls it, "
                              "rank 0, synchronised wall ms a call",
         })
+    print("seconds by phase: " + json.dumps(
+        {k: round(v, 1) for k, v in seconds.items()}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -1,4 +1,4 @@
-"""Architecture registry of the port: the configs its model path serves."""
+"""Architecture registry: ``--arch <id>`` resolution."""
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig
@@ -8,6 +8,7 @@ from repro_torch.configs import (
     command_r_plus_104b,
     dbrx_132b,
     gemma2_27b,
+    hubert_xlarge,
     jamba_v0p1_52b,
     llama31_8b,
     mamba2_2p7b,
@@ -18,9 +19,7 @@ from repro_torch.configs import (
     qwen3_moe_30b_a3b,
 )
 
-# The assigned architectures the port serves so far: every one but
-# hubert-xlarge (an encoder at head dim 80), which joins with its entry
-# point (ROADMAP queue 1, item 7d).
+# The 10 assigned architectures (dry-run / roofline matrix).
 ASSIGNED = {
     "phi4-mini-3.8b": phi4_mini_3p8b.CONFIG,
     "gemma2-27b": gemma2_27b.CONFIG,
@@ -29,6 +28,7 @@ ASSIGNED = {
     "chameleon-34b": chameleon_34b.CONFIG,
     "qwen3-moe-30b-a3b": qwen3_moe_30b_a3b.CONFIG,
     "dbrx-132b": dbrx_132b.CONFIG,
+    "hubert-xlarge": hubert_xlarge.CONFIG,
     "mamba2-2.7b": mamba2_2p7b.CONFIG,
     "jamba-v0.1-52b": jamba_v0p1_52b.CONFIG,
 }

@@ -94,6 +94,9 @@ def load(name: str) -> ctypes.CDLL:
 
 DTYPE_CODES = {"torch.float32": 0, "torch.bfloat16": 1}
 HEAD_DIMS = (16, 64, 128)  # reduced configs, minicpm, llama and most others
+# the prefill kernel also takes hubert-xlarge's 80; the decode kernels
+# (ring_decode.cu, paged_attention.cu) instantiate HEAD_DIMS only
+FLASH_HEAD_DIMS = (16, 64, 80, 128)
 
 
 def dtype_code(t) -> int:

@@ -18,6 +18,13 @@
 //   finite -1e30; online softmax in float32; l clamped at 1e-37.  A row
 //   with no valid key averages V over every key, as the reference does.
 //
+// Head dims: 16, 64, 80 (hubert-xlarge's bidirectional encoder) and 128,
+// the switch at the end of this file and _build.FLASH_HEAD_DIMS alike.
+// The bf16 body needs DH % 16 == 0.  At DH = 80 it runs five k-steps of
+// Q.K^T and ten output n-blocks (five ldmatrix.trans pairs of P.V), and
+// its shared rows of 88 bf16 (176 B, eleven 16-byte chunks: an odd
+// count) keep ldmatrix 16-byte aligned and free of bank conflicts.
+//
 // bfloat16 design (the served path).  One block per (query tile, kv
 // head, batch row), grid (ceil(Sq / BQP), Hkv, B), heaviest causal tiles
 // first (blockIdx.x reversed).  A block holds ROWS = 64 rows: BQP = 64 / G
@@ -551,6 +558,7 @@ extern "C" int repro_flash_prefill(const void* q, const void* k, const void* v,
   switch (Dh) {
     case 16: err = launch<16>(p, dtype, s); break;
     case 64: err = launch<64>(p, dtype, s); break;
+    case 80: err = launch<80>(p, dtype, s); break;
     case 128: err = launch<128>(p, dtype, s); break;
     default: err = cudaErrorInvalidValue;
   }

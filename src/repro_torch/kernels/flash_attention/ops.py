@@ -71,8 +71,8 @@ def flash_attention(
     if q.device.type != "cuda":
         raise ValueError(f"no flash_attention for device {q.device}")
     code = _build.dtype_code(q)
-    if Dh not in _build.HEAD_DIMS:
-        raise ValueError(f"head_dim {Dh} not in {_build.HEAD_DIMS}")
+    if Dh not in _build.FLASH_HEAD_DIMS:
+        raise ValueError(f"head_dim {Dh} not in {_build.FLASH_HEAD_DIMS}")
     if code == 1 and Hq // Hkv > 64:  # a bf16 block holds 64 (pos, head) rows
         raise ValueError(f"at most 64 q heads per kv head, got {Hq // Hkv}")
     for name, t in (("q", q), ("k", k), ("v", v)):

@@ -28,15 +28,17 @@ def _to_tensor(x: np.ndarray) -> torch.Tensor:
 
 
 # Leaves the JAX model keeps in float32 whatever the model dtype (the
-# Mamba2 mixer's decay, step bias and skip: repro/models/model.py:57-84).
-FLOAT32_LEAVES = frozenset({"A_log", "dt_bias", "D"})
+# Mamba2 mixer's decay, step bias and skip: repro/models/model.py:57-84;
+# an int8 weight's per-channel scale: repro/models/model.py:193-196).
+FLOAT32_LEAVES = frozenset({"A_log", "dt_bias", "D", "sc"})
 
 
 def params_from_jax(np_tree: Any, device: DeviceLike = None,
                     dtype: Optional[torch.dtype] = None) -> Any:
     """The port's params from a numpy copy of a JAX param tree.
     ``dtype`` casts the floating-point leaves, except those named in
-    ``FLOAT32_LEAVES``; integer leaves keep theirs."""
+    ``FLOAT32_LEAVES``; integer leaves keep theirs, so a quantized
+    ``{"q8", "sc"}`` leaf crosses as int8 codes and float32 scales."""
     dev = resolve_device(device)
 
     def conv(x, name=None):

@@ -319,6 +319,33 @@ def _sorted_slots(flat_e, E: int, C: int):
     return order, torch.where(rank < C, se * C + rank, E * C)
 
 
+def quantize(x: torch.Tensor, dim: int):
+    """Symmetric int8 over ``dim``: (codes int8, scale float32 with
+    ``dim`` dropped), ``scale = max|x| / 127 + 1e-9`` and ``codes =
+    clip(round(x / scale), -127, 127)`` in float32: the arithmetic of
+    the reference's ``quantize_params`` (dim -2), ``quantize_kv`` and
+    MoE row quantizer (dim -1).  The divisor is a tensor filled on
+    ``x``'s device, so the card divides as the CPU does (it would
+    multiply by the reciprocal of a CPU scalar) and a CUDA graph can
+    capture it (no copy from the host)."""
+    xf = x.float()
+    sc = xf.abs().amax(dim=dim, keepdim=True).div_(
+        torch.full((), 127.0, device=x.device)).add_(1e-9)
+    q = torch.clamp(torch.round(xf / sc), -127, 127).to(torch.int8)
+    return q, sc.squeeze(dim)
+
+
+def dequantize(codes: torch.Tensor, scale: torch.Tensor,
+               dtype: torch.dtype) -> torch.Tensor:
+    """int8 ``codes`` times float32 ``scale`` (broadcast to the codes'
+    shape), computed in float32 and written in ``dtype``: the rounding
+    of the reference's ``(codes.astype(f32) * scale).astype(dtype)``, in
+    one pass that reads the codes and writes ``dtype`` (no float32
+    copy)."""
+    out = torch.empty(codes.shape, dtype=dtype, device=codes.device)
+    return torch.mul(codes, scale, out=out)
+
+
 def _aux(probs, flat_e, keep, E: int):
     load = torch.zeros((E,), dtype=torch.int64, device=flat_e.device)
     load.scatter_add_(0, flat_e, torch.ones_like(flat_e))
@@ -345,25 +372,42 @@ def moe_ffn_sorted(
     and those ranked past capacity C in their expert are dropped.  Kept
     entries take distinct slots of the (E·C, d) buffer, so dispatch is an index copy (dropped
     ones go to a dump row) and the combine gathers: no float atomics, so
-    a call repeats bitwise.  The JAX layer's ``expert_sharding`` (the
-    expert-parallel all-to-all) has no counterpart off a mesh (ROADMAP
-    queue 1, item 8)."""
-    if dispatch_dtype == "int8":
-        raise NotImplementedError(
-            "int8 MoE dispatch is ROADMAP queue 1, item 6 of the port")
+    a call repeats bitwise.  ``dispatch_dtype="int8"`` quantizes the
+    dispatch and combine buffers per row (:func:`quantize`, float32 scales)
+    and the experts compute on the dequantized rows, as the JAX layer
+    does; its scatter-add of int8 rows into distinct slots is the same
+    copy.  The JAX layer's ``expert_sharding`` (the expert-parallel
+    all-to-all) has no counterpart off a mesh (ROADMAP queue 1,
+    item 8)."""
     T, d = x.shape
     E = router.shape[-1]
     probs, topw, tope, C = _route(x, router, top_k, capacity_factor)
     flat_e = tope.reshape(-1)  # (T*k,) token-major
     order, slot_sorted = _sorted_slots(flat_e, E, C)
-    buf = torch.zeros((E * C + 1, d), dtype=x.dtype, device=x.device)
-    buf[slot_sorted] = x[order // top_k]
-    ye = _experts(buf[: E * C].view(E, C, d), w_gate, w_in, w_out, act)
+    rows = x[order // top_k]
+    if dispatch_dtype == "int8":
+        # an empty slot keeps code 0 and scale 0, and dequantizes to 0
+        codes, sc = quantize(rows, -1)
+        buf = torch.zeros((E * C + 1, d), dtype=torch.int8, device=x.device)
+        sbuf = torch.zeros((E * C + 1,), dtype=torch.float32,
+                           device=x.device)
+        buf[slot_sorted] = codes
+        sbuf[slot_sorted] = sc
+        xe = dequantize(buf[: E * C], sbuf[: E * C, None], x.dtype)
+    else:
+        buf = torch.zeros((E * C + 1, d), dtype=x.dtype, device=x.device)
+        buf[slot_sorted] = rows
+        xe = buf[: E * C]
+    ye = _experts(xe.view(E, C, d), w_gate, w_in, w_out, act)
+    ye = ye.reshape(E * C, d)
+    if dispatch_dtype == "int8":
+        codes, sc = quantize(ye, -1)
+        ye = dequantize(codes, sc[:, None], x.dtype)
     # back to token-major order for the combine
     slot = torch.empty_like(slot_sorted)
     slot[order] = slot_sorted
     keep = slot < E * C
-    ybuf = torch.cat([ye.reshape(E * C, d), ye.new_zeros((1, d))])
+    ybuf = torch.cat([ye, ye.new_zeros((1, d))])
     w = topw * keep.view(T, top_k)
     out = _combine(ybuf, slot.view(T, top_k), w, tope, x.dtype)
     return out, _aux(probs, flat_e, keep, E)

@@ -2,12 +2,22 @@
 the paged pool's prefill, decode and speculative verify.
 
 Counterpart of ``repro/models/model.py`` for attention (global or
-sliding-window) and Mamba2 (SSD) mixers with an MLP, a MoE or no FFN:
-the dense family, gemma2, the MoE configs, mamba2 and jamba.  Parameters
-keep the stacked ``params["blocks"]`` layout with a leading
-``n_blocks`` axis, so JAX weights carry across leaf for leaf
-(:mod:`repro_torch.models.bridge`); ``lax.scan`` over blocks becomes a
-Python loop over that axis.
+sliding-window, causal or bidirectional) and Mamba2 (SSD) mixers with an
+MLP, a MoE or no FFN: the dense family, gemma2, the MoE configs, mamba2,
+jamba and the hubert encoder (fed frame embeddings through
+``inputs_embeds``; it has no decode phase).  Parameters keep the stacked
+``params["blocks"]`` layout with a leading ``n_blocks`` axis, so JAX
+weights carry across leaf for leaf (:mod:`repro_torch.models.bridge`);
+``lax.scan`` over blocks becomes a Python loop over that axis.
+
+**int8.**  :func:`quantize_params` gives the reference's serving layout
+(``{"q8", "sc"}`` per block matrix), which every entry point
+dequantizes block by block at block entry (:func:`_dequant_tree`), as
+the JAX model does; the products then run on the dequantized block in
+the model dtype.  ``kv_dtype="int8"`` stores the dense ring as int8
+codes with a float32 scale per (position, head): prefill attention runs
+on the unquantized K/V, and decode writes the new position's codes,
+then dequantizes the whole ring and attends over it.
 
 Where the JAX model calls ``L.chunked_attention``,
 ``L.decode_attention``, ``L.verify_attention`` and ``L.ssd_chunked``,
@@ -36,8 +46,8 @@ attention weights and KV cache whole, and at width 1 nothing is split
 and no collective runs: the meshless path, op for op.  Attention runs
 on local heads; the decode-attention wrappers run their sharded branch
 on them (``on_local_heads``, no DTensor) and count its launches (``flash_attention`` needs no wrapper: it has no ``mesh=``
-in the JAX package either).  Mamba2 and MoE on a mesh wider than 1
-raise.
+in the JAX package either).  Mamba2, MoE and every int8 mode on a mesh
+wider than 1 raise.
 """
 from __future__ import annotations
 
@@ -70,27 +80,35 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Reject what the port does not serve yet."""
-    if not cfg.embed_inputs:
-        raise NotImplementedError(
-            f"model '{cfg.name}': encoder models fed embeddings (hubert) "
-            "are ROADMAP queue 1, item 7d"
-        )
-    if (cfg.kv_dtype == "int8" or cfg.weight_dtype == "int8"
-            or (cfg.moe is not None and cfg.moe.dispatch_dtype == "int8")):
-        raise NotImplementedError(
-            f"model '{cfg.name}': int8 weights, KV and MoE dispatch are "
-            "ROADMAP queue 1, item 6"
-        )
+    """Reject what the port does not serve yet: Mamba2, MoE and int8 on
+    a mesh wider than 1 (ROADMAP queue 1, item 8)."""
     _check_mesh(cfg, ctx.axis_size("model"))
 
 
+def _int8_modes(cfg: ModelConfig):
+    """The int8 modes ``cfg`` asks for: weights, KV, MoE dispatch."""
+    return [name for name, on in (
+        ("weights", cfg.weight_dtype == "int8"),
+        ("KV", cfg.kv_dtype == "int8"),
+        ("MoE dispatch",
+         cfg.moe is not None and cfg.moe.dispatch_dtype == "int8")) if on]
+
+
 def _check_mesh(cfg: ModelConfig, width: int) -> None:
-    if width > 1 and (cfg.has_mamba or cfg.moe is not None):
+    if width <= 1:
+        return
+    if cfg.has_mamba or cfg.moe is not None:
         raise NotImplementedError(
             f"model '{cfg.name}': Mamba2 (SSD heads over 'model') and MoE "
             "(experts over 'model') on a mesh wider than 1 are ROADMAP "
             "queue 1, item 8"
+        )
+    modes = _int8_modes(cfg)
+    if modes:
+        raise NotImplementedError(
+            f"model '{cfg.name}': int8 {', '.join(modes)} on a mesh wider "
+            "than 1 is ROADMAP queue 1, item 8 (a column-parallel leaf's "
+            "scales must be cut with its output dim)"
         )
 
 
@@ -114,7 +132,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     float32 draw never holds more than one block's matrix.  With
     ``mesh`` (a slice) only this rank's shard of each draw is kept: the
     same numbers as the meshless call, cut as
-    :func:`repro_torch.distributed.sharding.shard_params` cuts them."""
+    :func:`repro_torch.distributed.sharding.shard_params` cuts them.
+    With ``weight_dtype="int8"`` the tree is the float one, as the
+    reference's ``init_params`` gives it: :func:`quantize_params` makes
+    the serving layout."""
     check_supported(cfg)
     dev = resolve_device(device)
     dt = _dtype(cfg)
@@ -205,7 +226,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
             "w_out": stacked((E, ffe, d), out_std, path + ("w_out",)),
         }
 
-    params: Params = {"embed": normal((cfg.vocab_size, d), std, ("embed",))}
+    params: Params = {}
+    if cfg.embed_inputs:  # an encoder fed embeddings has no table
+        params["embed"] = normal((cfg.vocab_size, d), std, ("embed",))
     blocks = {}
     for i, spec in enumerate(cfg.block_pattern):
         lp = {}
@@ -224,6 +247,74 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     if not cfg.tie_embeddings:
         params["lm_head"] = normal((d, cfg.vocab_size), std, ("lm_head",))
     return params
+
+
+# ---------------------------------------------------------------------------
+# int8 serving weights
+# ---------------------------------------------------------------------------
+
+_QUANT_LEAVES = {
+    "wq", "wk", "wv", "wo", "w_gate", "w_in", "w_out",
+    "in_proj", "out_proj", "router", "conv_w",
+}
+
+
+def quantize_params(params: Params) -> Params:
+    """Per-output-channel symmetric int8 for the block weight matrices.
+
+    Counterpart of ``repro.models.model.quantize_params``: each leaf
+    named in ``_QUANT_LEAVES`` with two dims or more becomes ``{"q8":
+    int8, "sc": float32}``, with the scale over the input dim (-2);
+    norms, the Mamba2 float32 leaves, the embedding and the LM head keep
+    their dtype.  A stacked leaf is quantized one block at a time (the
+    reduction never crosses the block axis), so no float32 copy of a
+    whole stack is held: llama's ``w_gate`` would take 7.5 GB."""
+
+    def leaf(x: torch.Tensor):
+        if x.dim() < 3:
+            q, sc = L.quantize(x, -2)
+            return {"q8": q, "sc": sc}
+        q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+        sc = torch.empty((*x.shape[:-2], x.shape[-1]), dtype=torch.float32,
+                         device=x.device)
+        for i in range(x.shape[0]):
+            q[i], sc[i] = L.quantize(x[i], -2)
+        return {"q8": q, "sc": sc}
+
+    def visit(name, x):
+        if isinstance(x, dict):
+            return {k: visit(k, v) for k, v in x.items()}
+        if name in _QUANT_LEAVES and x.dim() >= 2:
+            return leaf(x)
+        return x
+
+    return visit(None, params)
+
+
+def _dequant_tree(t, dt: torch.dtype):
+    """A block's tree with every ``{"q8", "sc"}`` leaf dequantized to
+    ``dt``: the codes times the scale broadcast over the input dim, in
+    float32, then cast (the reference's rounding; :func:`L.dequantize`
+    does it in one pass)."""
+    if isinstance(t, dict):
+        if set(t) == {"q8", "sc"}:
+            return L.dequantize(t["q8"], t["sc"].float().unsqueeze(-2), dt)
+        return {k: _dequant_tree(v, dt) for k, v in t.items()}
+    return t
+
+
+def params_quantized(params: Params) -> bool:
+    """Whether the tree holds any quantized (``q8``) leaf."""
+    if isinstance(params, dict):
+        return "q8" in params or any(params_quantized(v)
+                                     for v in params.values())
+    return False
+
+
+def _block(params: Params, cfg: ModelConfig, blk: int):
+    """Block ``blk`` of the stacked tree, dequantized where it holds
+    int8 leaves, as every JAX entry point does at block entry."""
+    return _dequant_tree(_index(params["blocks"], blk), _dtype(cfg))
 
 
 # ---------------------------------------------------------------------------
@@ -298,8 +389,9 @@ def _attn_decode(p, cfg: ModelConfig, spec: LayerSpec, x, entry, blk: int,
     x: (B, d); entry holds k/v (n, B, C, Hkv, Dh) and pos (n, B, C);
     q_pos: (B,) int32 absolute position of the new token; write_slot:
     (B,).  The new K/V and position are written into the cache **in
-    place** (JAX returns a new cache; here the ring buffers are reused).
-    Returns the residual output."""
+    place** (JAX returns a new cache; here the ring buffers are reused);
+    an int8 ring also takes the new scales.  Returns the residual
+    output."""
     B, _ = x.shape
     h = L.rms_norm(x[:, None, :], p["norm"], cfg.norm_eps)
     q, k, v = _attn_qkv(p, cfg, h)  # (B, 1, H, Dh)
@@ -310,8 +402,18 @@ def _attn_decode(p, cfg: ModelConfig, spec: LayerSpec, x, entry, blk: int,
     bidx = torch.arange(B, device=x.device)
     slot = write_slot.long()
     k_cache, v_cache, pos = entry["k"][blk], entry["v"][blk], entry["pos"][blk]
-    k_cache[bidx, slot] = k[:, 0]
-    v_cache[bidx, slot] = v[:, 0]
+    if cfg.kv_dtype == "int8":
+        # write the new position's codes and scales, then attend over the
+        # whole ring dequantized, as the reference does
+        for name, new in (("k", k[:, 0]), ("v", v[:, 0])):
+            codes, sc = quantize_kv(new)
+            entry[name][blk][bidx, slot] = codes
+            entry[f"{name}_sc"][blk][bidx, slot] = sc
+        k_cache = dequantize_kv(k_cache, entry["k_sc"][blk], q.dtype)
+        v_cache = dequantize_kv(v_cache, entry["v_sc"][blk], q.dtype)
+    else:
+        k_cache[bidx, slot] = k[:, 0]
+        v_cache[bidx, slot] = v[:, 0]
     pos[bidx, slot] = q_pos
     kw = dict(window=spec.window, softcap=cfg.attn_softcap)
     if plain:
@@ -462,18 +564,35 @@ def _ring_take(S: int, cap: int, lengths):
     return start[:, None] + torch.arange(cap, device=lengths.device)[None]
 
 
+def _ring_write(cfg: ModelConfig, entry, blk: int, k, v, lengths) -> None:
+    """A prefill's (B, S, Hkv, Dh) K/V of block ``blk`` into its ring,
+    in :func:`_ring_take`'s layout; an int8 ring takes the codes and, at
+    the same slots, their scales."""
+    B, S = k.shape[:2]
+    leaves = {"k": k, "v": v}
+    if cfg.kv_dtype == "int8":
+        leaves = {}
+        for name, full in (("k", k), ("v", v)):
+            leaves[name], leaves[f"{name}_sc"] = quantize_kv(full)
+    src = _ring_take(S, entry["k"].shape[2], lengths)
+    for name, full in leaves.items():
+        if src is None:
+            entry[name][blk, :, :S] = full
+        else:
+            bidx = torch.arange(B, device=k.device)[:, None]
+            entry[name][blk][bidx, src % src.shape[1]] = full[bidx, src]
+
+
 def _run_blocks(params, cfg: ModelConfig, x, positions, lengths, cache,
                 plain: bool):
     """The JAX scan over blocks, as a loop.  With ``cache`` (from
     :func:`init_cache`) each block's K/V is written into its ring as it
     is produced (:func:`_ring_take`'s layout), and each Mamba block's
     final state and conv tail into its entry.  Returns (x, moe_loss)."""
-    B, S = x.shape[:2]
     valid = None if lengths is None else positions < lengths[:, None]
-    bidx = torch.arange(B, device=x.device)[:, None]
     moe_loss = torch.zeros((), dtype=torch.float32, device=x.device)
     for blk in range(cfg.n_blocks):
-        bp = _index(params["blocks"], blk)
+        bp = _block(params, cfg, blk)
         for i, spec in enumerate(cfg.block_pattern):
             lp = bp[f"layer_{i}"]
             entry = None if cache is None else cache[f"layer_{i}"]
@@ -481,14 +600,7 @@ def _run_blocks(params, cfg: ModelConfig, x, positions, lengths, cache,
                 out, (k, v) = _attn_full(lp["attn"], cfg, spec, x, positions,
                                          lengths, plain)
                 if entry is not None:
-                    src = _ring_take(S, entry["k"].shape[2], lengths)
-                    if src is None:
-                        entry["k"][blk, :, :S] = k
-                        entry["v"][blk, :, :S] = v
-                    else:
-                        slot = src % src.shape[1]
-                        entry["k"][blk][bidx, slot] = k[bidx, src]
-                        entry["v"][blk][bidx, slot] = v[bidx, src]
+                    _ring_write(cfg, entry, blk, k, v, lengths)
             else:
                 out, (ssm, conv) = _mamba_full(lp["mamba"], cfg, x, valid,
                                                plain)
@@ -504,16 +616,36 @@ def _run_blocks(params, cfg: ModelConfig, x, positions, lengths, cache,
     return x, moe_loss
 
 
-def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+def _inputs(params: Params, cfg: ModelConfig, tokens, inputs_embeds):
+    """The first block's input: token embeddings, or for an encoder fed
+    embeddings (``embed_inputs=False``) ``inputs_embeds`` cast to the
+    model dtype."""
+    if cfg.embed_inputs:
+        return _embed(params, cfg, tokens)
+    if inputs_embeds is None:
+        raise ValueError(f"model '{cfg.name}' takes inputs_embeds "
+                         "(B, S, d_model), not token ids")
+    return inputs_embeds.to(_dtype(cfg))
+
+
+def forward(params: Params, cfg: ModelConfig,
+            tokens: Optional[torch.Tensor] = None,
+            inputs_embeds: Optional[torch.Tensor] = None,
+            lengths: Optional[torch.Tensor] = None,
             plain_attention: bool = False):
-    """Returns (hidden (B,S,d), moe_aux_loss) for tokens (B, S).
+    """Returns (hidden (B,S,d), moe_aux_loss) for tokens (B, S), or for
+    ``inputs_embeds`` (B, S, d) where the config takes embeddings.
+    ``lengths`` (B,) masks keys at and past each row's length, as the
+    reference's ``valid = arange(S) < lengths`` does.
     ``plain_attention`` runs every mixer's plain layer (attention and
     the SSD scan) instead of its kernel."""
     check_supported(cfg)
-    x = _embed(params, cfg, tokens)
+    x = _inputs(params, cfg, tokens, inputs_embeds)
     B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device).expand(B, S)
-    x, moe_loss = _run_blocks(params, cfg, x, positions, None, None,
+    if lengths is not None:
+        lengths = lengths.to(device=x.device, dtype=torch.int32)
+    x, moe_loss = _run_blocks(params, cfg, x, positions, lengths, None,
                               plain_attention)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x, moe_loss
@@ -564,12 +696,28 @@ def _kv_heads(cfg: ModelConfig) -> int:
     return cfg.n_kv_heads
 
 
+def _kv_store_dtype(cfg: ModelConfig) -> torch.dtype:
+    return torch.int8 if cfg.kv_dtype == "int8" else _dtype(cfg)
+
+
+def quantize_kv(x: torch.Tensor):
+    """Per-(position, head) symmetric int8: x (..., Dh) -> (codes int8,
+    scale float32 (...)), the reference's arithmetic."""
+    return L.quantize(x, -1)
+
+
+def dequantize_kv(q: torch.Tensor, sc: torch.Tensor,
+                  dt: torch.dtype) -> torch.Tensor:
+    return L.dequantize(q, sc[..., None], dt)
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: DeviceLike = None) -> PyTree:
     """Empty decode cache (zeros; slot_pos=-1 marks empty slots).  An
     attention layer holds a K/V ring (at this rank's kv heads under a
-    mesh context), a Mamba layer its conv tail (model dtype) and SSM
-    state (float32)."""
+    mesh context; int8 codes plus float32 ``k_sc``/``v_sc`` per
+    position and head with ``kv_dtype="int8"``), a Mamba layer its conv
+    tail (model dtype) and SSM state (float32)."""
     check_supported(cfg)
     dev = resolve_device(device)
     dt = _dtype(cfg)
@@ -581,11 +729,18 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
             cap = cache_capacity(cfg, spec, max_len)
             shape = (n, batch, cap, _kv_heads(cfg), cfg.head_dim)
             entry = {
-                "k": torch.zeros(shape, dtype=dt, device=dev),
-                "v": torch.zeros(shape, dtype=dt, device=dev),
+                "k": torch.zeros(shape, dtype=_kv_store_dtype(cfg),
+                                 device=dev),
+                "v": torch.zeros(shape, dtype=_kv_store_dtype(cfg),
+                                 device=dev),
                 "pos": torch.full((n, batch, cap), -1, dtype=torch.int32,
                                   device=dev),
             }
+            if cfg.kv_dtype == "int8":
+                for name in ("k_sc", "v_sc"):
+                    entry[name] = torch.zeros(shape[:-1],
+                                              dtype=torch.float32,
+                                              device=dev)
         else:
             conv_dim = m.d_inner(cfg.d_model) + 2 * m.d_state
             entry = {
@@ -599,22 +754,25 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     return cache
 
 
-def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-            lengths: torch.Tensor, max_len: Optional[int] = None,
-            plain_attention: bool = False):
+def prefill(params: Params, cfg: ModelConfig,
+            tokens: Optional[torch.Tensor], lengths: torch.Tensor,
+            inputs_embeds: Optional[torch.Tensor] = None,
+            max_len: Optional[int] = None, plain_attention: bool = False):
     """Run the prompt and build the decode cache.
 
-    tokens (B, S) left-aligned, lengths (B,).  Returns (last_logits (B, V)
+    tokens (B, S) left-aligned (or ``inputs_embeds`` (B, S, d) where the
+    config takes embeddings), lengths (B,).  Returns (last_logits (B, V)
     float32, cache); ``max_len`` is the cache capacity (defaults to S).
-    ``plain_attention`` runs every mixer's plain layer (attention and the
-    SSD scan) instead of its kernel.
+    Attention runs on the unquantized K/V; an int8 ring stores their
+    codes and scales.  ``plain_attention`` runs every mixer's plain
+    layer (attention and the SSD scan) instead of its kernel.
     """
     check_supported(cfg)
-    B, S = tokens.shape
+    x = _inputs(params, cfg, tokens, inputs_embeds)
+    B, S = x.shape[:2]
     max_len = max_len or S
-    dev = tokens.device
+    dev = x.device
     lengths = lengths.to(device=dev, dtype=torch.int32)
-    x = _embed(params, cfg, tokens)
     pos_row = torch.arange(S, device=dev, dtype=torch.int32)
     positions = pos_row.expand(B, S)
     cache = init_cache(cfg, B, max_len, dev)
@@ -648,7 +806,7 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     x = _embed(params, cfg, tokens)  # (B, d)
     q_pos = lengths.to(device=x.device, dtype=torch.int32)
     for blk in range(cfg.n_blocks):
-        bp = _index(params["blocks"], blk)
+        bp = _block(params, cfg, blk)
         for i, spec in enumerate(cfg.block_pattern):
             lp = bp[f"layer_{i}"]
             entry = cache[f"layer_{i}"]
@@ -793,7 +951,7 @@ def prefill_paged(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         kv_valid = torch.cat([ctx_pos < ctx_lens[:, None], valid], dim=1)
     kv_len = ctx_lens + lengths
     for blk in range(cfg.n_blocks):
-        bp = _index(params["blocks"], blk)
+        bp = _block(params, cfg, blk)
         for i, spec in enumerate(cfg.block_pattern):
             lp = bp[f"layer_{i}"]
             entry = cache[f"layer_{i}"]
@@ -870,7 +1028,7 @@ def verify_step_paged(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         slot_pos = torch.arange(C, device=dev, dtype=torch.int32).expand(B, C)
     total = lengths + T  # valid tokens incl. the T new ones
     for blk in range(cfg.n_blocks):
-        bp = _index(params["blocks"], blk)
+        bp = _block(params, cfg, blk)
         for i, spec in enumerate(cfg.block_pattern):
             lp = bp[f"layer_{i}"]
             entry = cache[f"layer_{i}"]

@@ -61,8 +61,14 @@ seed is the same on every rank, so all ranks draw the same speculative
 acceptance and take the same decisions.  The port serves slices that
 cover the whole world (``tp`` equal to the world size), where every
 instance sits on the same ranks and the P→D handoff is a shard-local
-copy; disjoint slices, whose handoff crosses ranks, and Mamba2 or MoE on
-a mesh wider than 1 raise (ROADMAP queue 1, item 8).
+copy; disjoint slices, whose handoff crosses ranks, and Mamba2, MoE or
+int8 on a mesh wider than 1 raise (ROADMAP queue 1, item 8).
+
+**int8.**  Weights quantized by
+:func:`~repro_torch.models.model.quantize_params` are served as they
+come (every entry point dequantizes block by block), and
+``kv_dtype="int8"`` rings hand their scales over with their codes.  An
+encoder fed embeddings (hubert) has no decode phase and is refused.
 """
 from __future__ import annotations
 
@@ -109,10 +115,19 @@ def _not_ported(cfg: ModelConfig, tp: int, n_ranks: int) -> None:
             "disjoint ranks, whose P→D handoff crosses ranks: ROADMAP queue "
             "1, item 8 of the port (serve with tp equal to the world size)"
         )
-    if tp > 1 and (cfg.has_mamba or cfg.moe is not None):
-        raise NotImplementedError(
-            f"model '{cfg.name}': Mamba2 and MoE on a mesh wider than 1 are "
-            "ROADMAP queue 1, item 8 of the port"
+    M._check_mesh(cfg, tp)  # Mamba2, MoE and int8 on a slice
+
+
+def _check_servable(cfg: ModelConfig) -> None:
+    """An encoder fed embeddings (hubert) has no decode phase, so no P/D
+    serving: refuse it here, with the reason, before its prefill fails
+    for want of a token embedding."""
+    if not cfg.embed_inputs:
+        raise ValueError(
+            f"model '{cfg.name}' is an encoder fed frame embeddings "
+            "(embed_inputs=False): it has no token embedding and no decode "
+            "phase, so it cannot be served; run it through "
+            "repro_torch.models.model.forward(inputs_embeds=...)"
         )
 
 
@@ -150,6 +165,7 @@ class RealBackend(SimBackend):
         device: DeviceLike = None,
         cuda_graphs: Optional[bool] = None,
     ):
+        _check_servable(cfg)
         super().__init__(hw, noise_sigma, seed)
         self.cfg = cfg
         self.params = params
@@ -827,6 +843,7 @@ def make_real_backend_factory(
     rank of the world calls the factory in the same order (it runs the
     same cluster).  ``params`` may be full or already this rank's
     shards.  ``tp=0`` is the meshless path."""
+    _check_servable(cfg)
     dev = resolve_device(device)
     slicer = None
     if tp or devices is not None:

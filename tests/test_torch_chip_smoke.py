@@ -278,6 +278,47 @@ def test_reckon_gb_counts_windowed_rings_states_and_pools():
         2 * (cs.POOL_PAGES + 1) * 16 * 48 * 2 * 4 * 128 * 2 / 1e9, rel=1e-12)
 
 
+def test_reckon_gb_counts_int8_weights_and_rings_with_their_scales():
+    """int8 weights: the block matrices at a byte each plus a float32
+    scale per output channel, the bf16 embedding and head as they were;
+    an int8 ring: a byte per element plus a float32 scale per position
+    and kv head."""
+    import dataclasses
+
+    from repro_torch.configs.registry import REGISTRY
+
+    llama = REGISTRY["llama-3.1-8b"]
+    int8 = dataclasses.replace(llama, weight_dtype="int8", kv_dtype="int8")
+    got = cs.reckon_gb(int8)
+    blocks = 32 * (4096 * 4096 * 2 + 2 * 4096 * 1024 + 3 * 4096 * 14336)
+    scales = 32 * (4096 + 2 * 1024 + 4096 + 2 * 14336 + 4096)
+    head = 2 * 128256 * 4096 * 2
+    assert got["weights_gb"] == pytest.approx(
+        (blocks + 4 * scales + head) / 1e9, rel=1e-12)
+    assert got["ring_gb"] == pytest.approx(
+        8 * 1024 * 32 * 2 * 8 * (128 + 4) / 1e9, rel=1e-12)
+    moe = REGISTRY["qwen3-moe-30b-a3b"]
+    assert cs._scales_per_block(moe) == (
+        32 * 128 + 2 * 4 * 128 + 2048 + 128 * (1 + 2 * 768 + 2048))
+
+
+def test_hubert_and_int8_phases_name_registered_configs():
+    """Phase 16's clips and the plain path's padding (the reference's
+    chunk rule: at most 512 frames, or a whole number of 1,024-key
+    chunks); phase 17's llama."""
+    from repro_torch.configs.registry import REGISTRY
+
+    assert not REGISTRY["hubert-xlarge"].embed_inputs
+    assert cs.HUBERT_FRAMES == max(cs.HUBERT_CLIPS) == 1500
+    assert [cs.plain_frames(n) for n in (200, 512, 600, 1024, 1500, 2048)] \
+        == [200, 512, 1024, 1024, 2048, 2048]
+    assert cs.top({"a": 1.0, "b": 3.0, "c": 2.0}, 2) == {"b": 3.0, "c": 2.0}
+    head = {"flash_prefill": {}, "flash_prefill@hubert encoder": {"x": 1},
+            "ring_decode@shard": {}, "ring_decode@gemma2 global ring": {}}
+    assert cs.case_rows(head, "flash_prefill") == {"hubert encoder": {"x": 1}}
+    assert list(cs.case_rows(head, "ring_decode")) == ["gemma2 global ring"]
+
+
 def test_kernel_layers_and_window_counts():
     from repro_torch.configs.registry import REGISTRY
 

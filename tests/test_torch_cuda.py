@@ -1409,3 +1409,109 @@ def test_moe_row_alone_routes_as_in_a_batch(card):
         torch.testing.assert_close(alone[0].float(), batch[r].float(),
                                    atol=TOL["bfloat16"],
                                    rtol=TOL["bfloat16"])
+
+
+# ---------------------------------------------------------------------------
+# hubert-xlarge's encoder (head dim 80, bidirectional) and int8 serving
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Hq,Hkv", [(16, 16), (16, 4)], ids=["G1", "G4"])
+@pytest.mark.parametrize("ragged", [False, True], ids=["full", "kv_len"])
+def test_flash_dh80_bidirectional_matches_plain(card, dtype, Hq, Hkv,
+                                                ragged):
+    """Head dim 80 without the causal mask: every key of a row up to its
+    ``kv_len`` (padded frames mask keys for every query row, pad rows
+    included; a row of length 0 averages V), against the plain version,
+    and a second call repeats the first bitwise."""
+    g = torch.Generator(device=card).manual_seed(80 + Hkv)
+    dt = getattr(torch, dtype)
+    B, S, Dh = 3, 300, 80
+    q = torch.randn((B, S, Hq, Dh), generator=g, device=card).to(dt)
+    k = torch.randn((B, S, Hkv, Dh), generator=g, device=card).to(dt)
+    v = torch.randn((B, S, Hkv, Dh), generator=g, device=card).to(dt)
+    kl = torch.tensor([S, 131, 0], dtype=torch.int32, device=card) \
+        if ragged else None
+    kw = dict(causal=False, kv_len=kl)
+    n0 = fops.launches
+    got = flash_attention(q, k, v, **kw)
+    again = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fops.launches == n0 + 2
+    assert torch.equal(got, again)
+    want = attention_ref(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    causal = attention_ref(q, k, v, causal=True, kv_len=kl)
+    assert float((causal.float() - got.float()).abs().max()) > 0.1
+
+
+def test_decode_wrappers_refuse_dh80_before_launch(card):
+    """The decode kernels instantiate head dims 16, 64 and 128 only: a
+    ring or paged call at 80 is refused by its wrapper, and no kernel
+    launches."""
+    q = torch.zeros((2, 4, 80), device=card, dtype=torch.bfloat16)
+    ring = torch.zeros((2, 32, 4, 80), device=card, dtype=torch.bfloat16)
+    pos = torch.arange(32, dtype=torch.int32, device=card).expand(2, 32)
+    lens = torch.tensor([20, 32], dtype=torch.int32, device=card)
+    pages = torch.zeros((5, 16, 4, 80), device=card, dtype=torch.bfloat16)
+    bt = torch.tensor([[0, 1], [2, 3]], dtype=torch.int32, device=card)
+    before = (dops.launches, dict(dops.paged_launches))
+    with pytest.raises(ValueError, match="head_dim"):
+        decode_attention(q, ring, ring, pos.contiguous(), lens)
+    with pytest.raises(ValueError, match="head_dim"):
+        paged_decode_attention(q, pages, pages, bt, lens)
+    with pytest.raises(ValueError, match="head_dim"):
+        paged_verify_attention(q[:, None].expand(2, 3, 4, 80).contiguous(),
+                               pages, pages, bt, lens)
+    torch.cuda.synchronize()
+    assert (dops.launches, dict(dops.paged_launches)) == before
+
+
+def test_hubert_forward_kernel_path_matches_plain_path(card):
+    """The reduced hubert at head dim 80 in bfloat16 on frame embeddings
+    with padded rows: the kernel path (one flash launch a layer) against
+    the plain path."""
+    cfg = dataclasses.replace(REGISTRY["hubert-xlarge"].reduced(),
+                              head_dim=80, dtype="bfloat16")
+    params = TM.init_params(cfg, torch.Generator(device=card).manual_seed(0),
+                            device=card)
+    g = torch.Generator(device=card).manual_seed(1)
+    x = torch.randn((3, 200, cfg.d_model), generator=g, device=card)
+    lengths = torch.tensor([200, 77, 150], dtype=torch.int32, device=card)
+    n0 = fops.launches
+    hk, _ = TM.forward(params, cfg, inputs_embeds=x, lengths=lengths)
+    torch.cuda.synchronize()
+    assert fops.launches == n0 + cfg.n_layers
+    hp, _ = TM.forward(params, cfg, inputs_embeds=x, lengths=lengths,
+                       plain_attention=True)
+    assert fops.launches == n0 + cfg.n_layers
+    torch.testing.assert_close(hk.float(), hp.float(), atol=TOL["bfloat16"],
+                               rtol=TOL["bfloat16"])
+
+
+def test_int8_graph_replay_equals_eager_decode(card):
+    """Reduced llama in bf16 with int8 weights and an int8 ring: 16 decode
+    steps replayed from a CUDA graph equal 16 eager steps bit for bit,
+    ids, codes and scales, one ring launch a layer a step."""
+    from functools import partial
+
+    cfg, params = _reduced("llama-3.1-8b", "bfloat16")
+    cfg = dataclasses.replace(cfg, weight_dtype="int8", kv_dtype="int8")
+    params = TM.quantize_params(params)
+    assert TM.params_quantized(params)
+    B, steps = 8, 16
+    g = torch.Generator(device=card).manual_seed(5)
+    toks = torch.randint(0, cfg.vocab_size, (B, 48), device=card,
+                         generator=g, dtype=torch.int32)
+    lengths = torch.tensor([48, 30, 17, 48, 5, 40, 1, 33], dtype=torch.int32,
+                           device=card)
+    _, cache = TM.prefill(params, cfg, toks, lengths, max_len=128)
+    assert cache["layer_0"]["k"].dtype == torch.int8
+    assert set(cache["layer_0"]) == {"k", "v", "pos", "k_sc", "v_sc"}
+    inputs = [dict(tokens=toks[:, 0], lengths=lengths + i)
+              for i in range(steps)]
+    counts = _graph_vs_eager(partial(TM.decode_step_greedy, cfg=cfg), params,
+                             cache, inputs, chain=True)
+    assert counts == {("decode_attention", "launches"): cfg.n_layers * steps}

@@ -161,10 +161,11 @@ def test_paged_and_spec_serving_paths_are_ported():
 
 
 def test_unported_model_paths_raise():
-    """int8 KV still raises (ROADMAP queue 1, item 6).  A ring shorter
-    than the prompt (``max_len`` < S) is served now, and as the JAX
-    model serves it: the last ``max_len`` positions of each row at slot
-    ``pos % max_len``."""
+    """int8 KV still raises where the reference raises: on the paged
+    pool, with the reference's ``ValueError``; the dense int8 ring is
+    served.  A ring shorter than the prompt (``max_len`` < S) is served
+    too, and as the JAX model serves it: the last ``max_len`` positions
+    of each row at slot ``pos % max_len``."""
     import jax
     import jax.numpy as jnp
 
@@ -188,31 +189,45 @@ def test_unported_model_paths_raise():
     for key, leaf in cj["layer_0"].items():
         np.testing.assert_allclose(ct["layer_0"][key].numpy(),
                                    np.asarray(leaf), atol=2e-5, rtol=2e-5)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        TM.init_cache(dataclasses.replace(rc, kv_dtype="int8"), 1, 16,
-                      device="cpu")
+    int8_kv = dataclasses.replace(rc, kv_dtype="int8")
+    jint8_kv = dataclasses.replace(jrc, kv_dtype="int8")
+    with pytest.raises(ValueError, match="int8 KV") as want:
+        JM.init_paged_cache(jint8_kv, 8, 16)
+    with pytest.raises(ValueError, match="int8 KV") as got:
+        TM.init_paged_cache(int8_kv, 8, 16, device="cpu")
+    assert str(got.value) == str(want.value)
+    ring = TM.init_cache(int8_kv, 1, 16, device="cpu")["layer_0"]
+    assert ring["k"].dtype == torch.int8
+    assert ring["k_sc"].dtype == torch.float32
 
 
 def test_hubert_int8_and_wide_moe_raise():
-    """What the port still refuses, each naming its ROADMAP item: hubert
-    (an encoder fed embeddings, item 7d), int8 weights and MoE dispatch
-    (item 6), and a MoE model on a mesh wider than 1, in the model and in
-    the serving factory before any process group is touched (item 8)."""
-    from repro_torch.configs import base as TB
-
-    kw = {f.name: getattr(MODEL.reduced(), f.name)
-          for f in dataclasses.fields(MODEL)}
-    hubert = TB.ModelConfig(**dict(kw, name="hubert-like",
-                                   embed_inputs=False, causal=False))
-    with pytest.raises(NotImplementedError, match="item 7d"):
-        TM.check_supported(hubert)
+    """What the port still refuses, each naming its reason or ROADMAP
+    item: hubert through the serving backend (an encoder fed embeddings
+    has no decode phase), every int8 mode (weights, KV, MoE dispatch) on
+    a mesh wider than 1 (item 8), and a MoE model on a mesh wider than
+    1, in the model and in the serving factory before any process group
+    is touched (item 8).  Off the mesh, hubert and the int8 modes pass
+    the model's check."""
+    hubert = REGISTRY["hubert-xlarge"].reduced()
+    TM.check_supported(hubert)
+    with pytest.raises(ValueError, match="no decode phase"):
+        make_real_backend_factory(hubert, {}, device="cpu")
+    with pytest.raises(ValueError, match="no decode phase"):
+        RealBackend(HardwareModel(MODEL, A100), hubert, {}, device="cpu")
     moe = REGISTRY["qwen3-moe-30b-a3b"].reduced()
+    wide = SimpleNamespace(mesh_dim_names=("data", "model"), shape=(1, 2))
     for bad in (dataclasses.replace(MODEL.reduced(), weight_dtype="int8"),
+                dataclasses.replace(MODEL.reduced(), kv_dtype="int8"),
                 dataclasses.replace(moe, moe=dataclasses.replace(
                     moe.moe, dispatch_dtype="int8"))):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            TM.check_supported(bad)
-    wide = SimpleNamespace(mesh_dim_names=("data", "model"), shape=(1, 2))
+        TM.check_supported(bad)
+        with mesh_context(wide):
+            with pytest.raises(NotImplementedError, match="item 8"):
+                TM.check_supported(bad)
+        with pytest.raises(NotImplementedError, match="item 8"):
+            make_real_backend_factory(bad, {}, device="cpu", tp=2,
+                                      devices=[0, 1])
     with mesh_context(wide):
         with pytest.raises(NotImplementedError, match="item 8"):
             TM.init_cache(moe, 1, 32, device="cpu")
@@ -225,7 +240,6 @@ def test_hubert_int8_and_wide_moe_raise():
 # the port's own design replaces the reference's).  Every other module
 # with the same path in both packages is a copy under ROADMAP's copy rule.
 HAND_PORTED = {
-    "configs/registry.py",
     "distributed/__init__.py",
     "distributed/context.py",
     "distributed/meshslice.py",

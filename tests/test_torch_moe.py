@@ -126,9 +126,25 @@ def test_moe_layers_match_jax(T, E, k, cf, batch):
 
 
 def test_int8_dispatch_raises():
+    """int8 dispatch is served off a mesh (the layer runs it; its parity
+    with the JAX layer is in tests/test_torch_int8.py) and still raises
+    on a mesh wider than 1, where expert parallelism is ROADMAP queue 1,
+    item 8."""
+    import dataclasses
+
+    from repro_torch.distributed.context import mesh_context
+    from repro_torch.models import model as TM
+
     arrays = [torch.from_numpy(a) for a in _layer_inputs(8, 4, 2, "random")]
-    with pytest.raises(NotImplementedError, match="item 6"):
-        TL.moe_ffn_sorted(*arrays, top_k=2, dispatch_dtype="int8")
+    out, aux = TL.moe_ffn_sorted(*arrays, top_k=2, dispatch_dtype="int8")
+    assert torch.isfinite(out).all() and int(aux["load"].sum()) == 16
+    moe = TREG["qwen3-moe-30b-a3b"].reduced()
+    int8 = dataclasses.replace(moe, moe=dataclasses.replace(
+        moe.moe, dispatch_dtype="int8"))
+    wide = SimpleNamespace(mesh_dim_names=("data", "model"), shape=(1, 2))
+    with mesh_context(wide):
+        with pytest.raises(NotImplementedError, match="item 8"):
+            TM.check_supported(int8)
 
 
 # ---------------------------------------------------------------------------
