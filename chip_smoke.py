@@ -108,11 +108,22 @@ Phases, in order; any failure exits non-zero:
    step graphs, a stream replayed through the plain path on the same
    quantized weights and rings, and served again eagerly with the same
    streams.  Phase 14 also serves qwen3-moe with int8 dispatch on its
-   weights, replayed batch for batch.
+   weights, replayed batch for batch;
+18. minicpm-2b at full width and depth trained in bf16 on
+   ``launch/train.py``'s synthetic batch (B=4, S=1,024, remat, CE chunks
+   of 512): step 1's loss against the plain path and every gradient leaf
+   against the plain path on float32 weights, then ``TRAIN_STEPS`` WSD
+   steps with exact flash_prefill / flash_backward launches and a loss
+   that falls, the median step, tokens/s, peak and one step's device
+   time by kernel group, and a checkpoint round trip at reduced size
+   that repeats a step bit for bit.
 
 The kernel phase holds flash_prefill at head dim 80 without the causal
 mask (hubert's) in both dtypes and times it at hubert's shape beside
-SDPA on the same key mask.
+SDPA on the same key mask, and holds flash_backward (dq, dk, dv) against
+the plain backward at minicpm's training shape, llama's GQA, gemma2's
+window and softcap and hubert's head dim 80, in both dtypes, each call
+repeated bit for bit, timed in bf16 beside SDPA's backward.
 
 It prints the ``kernels`` JSON line and, last, the device line.
 
@@ -192,6 +203,29 @@ MESH_TIMEOUT_S = 600.0  # the parent's wait for the phase 9 world
 # frame (8-30 s of 16 kHz audio), padded to the longest
 HUBERT_CLIPS = (400, 750, 1100, 1500)
 HUBERT_FRAMES = max(HUBERT_CLIPS)
+# the flash backward against the plain backward (autograd through the
+# float32 reference), each gradient relative to its largest magnitude:
+# the bf16 kernel rounds P and dS to bf16 for its tensor-core products
+BWD_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
+# phase 18: minicpm-2b trained at full width and depth on the synthetic
+# batch of launch/train.py, remat on, the CE over 512-token chunks
+TRAIN_ARCH = "minicpm-2b"
+TRAIN_BATCH = 4
+TRAIN_SEQ = 1024
+TRAIN_CE_CHUNK = 512
+TRAIN_STEPS = 5
+# step 1 through the kernels against the plain path on the same weights:
+# the loss within TRAIN_LOSS_TOL relative.  Each leaf's gradient is held
+# against the plain path run on a float32 copy of the weights: its
+# relative L2 error must stay within TRAIN_GRAD_TOL or within
+# TRAIN_GRAD_RATIO times the bf16 plain path's own error against that
+# float32 gradient.  The bf16 model is the limit, not the kernel: on an
+# H100 the two bf16 paths lie 2.5-6.3% apart at 40 layers, every kind of
+# leaf alike, and each lies about as far from the float32 gradient
+# (PERF.md)
+TRAIN_LOSS_TOL = 1e-2
+TRAIN_GRAD_TOL = 5e-2
+TRAIN_GRAD_RATIO = 1.25
 
 
 def check(cond: bool, msg: str) -> None:
@@ -218,6 +252,7 @@ def card_identity() -> str:
 # (LDGSTS), ldmatrix (LDSM)
 REDESIGNED = {
     "flash_prefill": ("HMMA", "LDGSTS", "LDSM"),
+    "flash_backward": ("HMMA", "LDGSTS", "LDSM"),
     "paged_attention": ("HMMA", "LDGSTS", "LDSM"),
     "ring_decode": ("HMMA", "LDGSTS", "LDSM"),
     "ssd_scan": ("HMMA", "LDGSTS", "LDSM"),
@@ -502,6 +537,99 @@ def flash_case(torch, F, B, S, Hq, Hkv, Dh, dtype, kv_frac, window, softcap,
         lib_dev_ms, _ = queued_ms(torch, lib, sets)
     else:
         row["library_note"] = "SDPA has no softcap: no library call"
+    b_ms, b_by = bound(flops, nbytes, dtype)
+    row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+               bound_by=b_by, device_ms=dev_ms, host_ms=host_ms,
+               library_device_ms=lib_dev_ms, flops=flops, bytes=nbytes)
+    row.update(ratios(row))
+    return row
+
+
+def flash_backward_case(torch, F, B, S, Hq, Hkv, Dh, dtype, causal, window,
+                        softcap, timed: bool):
+    """One backward case: the training forward (``flash_prefill`` with its
+    row log-sum-exp), then dq, dk and dv from ``flash_backward`` against
+    autograd through the float32 plain version on the same inputs, each
+    relative to its largest magnitude (``BWD_TOL``), and a second call
+    that must repeat the first bit for bit.  Timed: the kernel call, the
+    plain backward and, where SDPA computes the same function (no softcap
+    and no window), SDPA's backward alone (its forward's graph kept)."""
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import attention_backward_ref
+
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(S * 7 + Dh + Hq)
+    q, k, v = (torch.randn(shape, generator=g, device="cuda").to(dt)
+               for shape in ((B, S, Hq, Dh), (B, S, Hkv, Dh), (B, S, Hkv, Dh)))
+    dout = torch.randn((B, S, Hq, Dh), generator=g, device="cuda").to(dt)
+    mask = dict(causal=causal, window=window, softcap=softcap)
+    lse = torch.empty((B, Hq, S), dtype=torch.float32, device="cuda")
+    out = fops._launch(q, k, v, causal, window, softcap, None, None, lse)
+    got = fops.flash_backward(q, k, v, out, dout, lse, **mask)
+    again = fops.flash_backward(q, k, v, out, dout, lse, **mask)
+    want = attention_backward_ref(q, k, v, dout, **mask)
+    torch.cuda.synchronize()
+    label = (f"flash_backward at B={B} S={S} Hq={Hq} Hkv={Hkv} Dh={Dh} "
+             f"{dtype} causal={causal} window={window} softcap={softcap}")
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"{label}: two calls differ")
+    errs, rel = [], []
+    for a, b in zip(got, want):
+        e = float((a.float() - b).abs().max())
+        errs.append(e)
+        rel.append(e / float(b.abs().max()))
+        check(bool(torch.isfinite(a).all()), f"{label}: non-finite values")
+    check(max(rel) <= BWD_TOL[dtype],
+          f"{label} disagrees with the plain backward: errors relative to "
+          f"each gradient's max (dq, dk, dv) {rel}")
+    row = {"shape": f"B={B} S={S} Hq={Hq} Hkv={Hkv} Dh={Dh}", "dtype": dtype,
+           "causal": causal, "window": window, "softcap": softcap,
+           "max_abs_err": max(errs), "rel_err_dq_dk_dv": rel,
+           "repeats_bitwise": True}
+    if not timed:
+        return row
+    # the work of the function: per valid (query, key) pair and q head,
+    # S = q.k, dP = dO.v, dV += P dO, dK += dS q, dQ += dS k (10 Dh)
+    qpos = torch.arange(S)
+    hi = qpos if causal else torch.full_like(qpos, S - 1)
+    lo = torch.zeros_like(qpos) if window is None else torch.clamp(
+        qpos - window + 1, min=0)
+    pairs = int(torch.clamp(hi - lo + 1, min=0).sum()) * Hq * B
+    esz = q.element_size()
+    # q, k, v, out, dout and lse read once; dq, dk, dv written once
+    nbytes = (4 * q.numel() + 4 * k.numel()) * esz + lse.numel() * 4
+    flops = 10.0 * pairs * Dh
+    sets = copies(torch, (q, k, v, out, dout, lse), nbytes)
+
+    def kernel(a, b, c, o, d, ls):
+        return fops.flash_backward(a, b, c, o, d, ls, **mask)
+
+    def plain(a, b, c, o, d, ls):
+        return attention_backward_ref(a, b, c, d, **mask)
+
+    ms = cuda_ms(torch, kernel, sets)
+    plain_ms = cuda_ms(torch, plain, sets, iters=5)
+    dev_ms, host_ms = queued_ms(torch, kernel, sets)
+    lib_ms = lib_dev_ms = None
+    if softcap is None and window is None:
+        # library yardstick (never called by the port): SDPA's backward
+        # on the same inputs, head-major, its forward's graph kept
+        graphs = []
+        for a, b, c, o, d, ls in sets:
+            leaves = [t.transpose(1, 2).detach().requires_grad_()
+                      for t in (a, b, c)]
+            res = F.scaled_dot_product_attention(
+                *leaves, is_causal=causal, enable_gqa=Hq != Hkv)
+            graphs.append((res, leaves, d.transpose(1, 2)))
+
+        def lib(res, leaves, d):
+            return torch.autograd.grad(res, leaves, d, retain_graph=True)
+        lib_sets = [tuple(x) for x in graphs]
+        lib_ms = cuda_ms(torch, lib, lib_sets)
+        lib_dev_ms, _ = queued_ms(torch, lib, lib_sets)
+        del graphs, lib_sets
+    else:
+        row["library_note"] = "SDPA has no softcap or window: no library call"
     b_ms, b_by = bound(flops, nbytes, dtype)
     row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
                bound_by=b_by, device_ms=dev_ms, host_ms=host_ms,
@@ -1035,7 +1163,25 @@ def kernel_phase(torch, F):
                                  timed=False, **mamba))
         ssd_rows.append(ssd_case(torch, dtype=dtype, fused=True, law=True,
                                  timed=False, **mamba))
-    rows = {"flash_prefill": flash_rows, "ring_decode": decode_rows,
+    # the flash backward (phase 18's training path): minicpm-2b's training
+    # shape, llama's GQA, gemma2's window with its softcap and hubert's
+    # bidirectional head dim 80; both dtypes, bf16 timed
+    bwd_rows = []
+    for dtype in ("bfloat16", "float32"):
+        timed = dtype == "bfloat16"
+        bwd_rows.append(flash_backward_case(
+            torch, F, TRAIN_BATCH, TRAIN_SEQ, 36, 36, 64, dtype, True, None,
+            None, timed))
+        for case, shape in (
+                ("llama GQA", (1, TRAIN_SEQ, 32, 8, 128, True, None, None)),
+                ("gemma2 window softcap",
+                 (1, TRAIN_SEQ, 32, 16, 128, True, 256, 50.0)),
+                ("hubert bidirectional", (2, 750, 16, 16, 80, False, None,
+                                          None))):
+            bwd_rows.append(dict(flash_backward_case(
+                torch, F, *shape[:5], dtype, *shape[5:], timed), case=case))
+    rows = {"flash_prefill": flash_rows, "flash_backward": bwd_rows,
+            "ring_decode": decode_rows,
             "paged_decode": paged_rows[1],
             "paged_verify": paged_rows[SPEC_K + 1], "ssd_scan": ssd_rows,
             "ring_decode@shard": decode_shard_rows,
@@ -1159,7 +1305,7 @@ def serve_phase(torch, arch, label, per_iter, params=None, tp=0,
     prof = loopprof.install(cluster)
     free(torch)
     torch.cuda.reset_peak_memory_stats()
-    fops.launches = fops.q_offset_launches = 0
+    fops.launches = fops.q_offset_launches = fops.backward_launches = 0
     dops.launches = 0
     dops.paged_launches.clear()
     dops.sharded_launches.clear()
@@ -1855,7 +2001,7 @@ def paged_serve_phase(torch, cfg, params, pred, drafter=None, tp=0,
     prof = loopprof.install(cluster)
     free(torch)
     torch.cuda.reset_peak_memory_stats()
-    fops.launches = fops.q_offset_launches = 0
+    fops.launches = fops.q_offset_launches = fops.backward_launches = 0
     dops.launches = 0
     dops.paged_launches.clear()
     dops.sharded_launches.clear()
@@ -2404,7 +2550,7 @@ def kernel_path_phase(torch, arch):
                 "paged": sum(dops.paged_launches.values()),
                 "ssd_scan": sops.launches}
 
-    fops.launches = fops.q_offset_launches = 0
+    fops.launches = fops.q_offset_launches = fops.backward_launches = 0
     dops.launches = 0
     dops.paged_launches.clear()
     sops.launches = 0
@@ -2648,7 +2794,7 @@ def zero_launch_counts():
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.ssd import ops as sops
 
-    fops.launches = fops.q_offset_launches = 0
+    fops.launches = fops.q_offset_launches = fops.backward_launches = 0
     dops.launches = 0
     dops.paged_launches.clear()
     dops.sharded_launches.clear()
@@ -2858,6 +3004,248 @@ def int8_phase(torch):
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: training minicpm-2b at full width and depth
+# ---------------------------------------------------------------------------
+
+
+def train_batch(torch, vocab: int, seed: int = 0):
+    """``launch/train.py``'s synthetic batch, on the card."""
+    import numpy as np
+
+    from repro_torch.launch.train import synthetic_batch
+
+    return synthetic_batch(np.random.default_rng(seed), vocab, TRAIN_BATCH,
+                           TRAIN_SEQ, "cuda")
+
+
+def train_launches(cfg, remat: bool = True) -> dict:
+    """A train step's launches: flash_prefill once a layer in the forward
+    and once more in the remat recompute, flash_backward once a layer."""
+    return {"flash_prefill": (2 if remat else 1) * cfg.n_layers,
+            "flash_backward": cfg.n_layers}
+
+
+def train_counts() -> dict:
+    from repro_torch.kernels.flash_attention import ops as fops
+
+    return {"flash_prefill": fops.launches,
+            "flash_backward": fops.backward_launches}
+
+
+def named_leaves(tree, prefix=""):
+    """(path, leaf) in the training modules' leaf order (keys sorted)."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from named_leaves(tree[k], f"{prefix}/{k}")
+    else:
+        yield prefix, tree
+
+
+def rel_l2(a, b) -> float:
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm().clamp(min=1e-30))
+
+
+def kernel_group(name: str) -> str:
+    """The group a profiled kernel's time is reported under."""
+    if name.startswith("flash_prefill"):
+        return "flash forward"
+    if name.startswith(("dkdv_", "dq_", "delta_kernel")):
+        return "flash backward"
+    low = name.lower()
+    if low == "kernel2" or any(w in low for w in (
+            "gemm", "cutlass", "xmma", "cublas", "sm90", "nvjet")):
+        return "cuBLAS"
+    if "elementwise" in low or "vectorized" in low or "unrolled" in low:
+        return "elementwise (AdamW, norms, RoPE, CE)"
+    if "reduce" in low or "softmax" in low or "logsumexp" in low:
+        return "reductions (CE, norms, global norm)"
+    return "other"
+
+
+def checkpoint_round_trip(torch, tmpdir: str):
+    """At reduced size on the card: save after one step, take a step,
+    restore, take the same step again; the two must agree bit for bit
+    (params, moments, step and loss)."""
+    import dataclasses
+
+    from repro_torch.configs.registry import REGISTRY
+    from repro_torch.models import model as M
+    from repro_torch.training import (
+        CheckpointManager,
+        TrainStepConfig,
+        init_opt_state,
+        make_train_step,
+        wsd_schedule,
+    )
+    from repro_torch.training._tree import leaves
+
+    cfg = dataclasses.replace(REGISTRY[TRAIN_ARCH].reduced(), n_layers=2)
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           device="cuda")
+    opt = init_opt_state(params)
+    step = make_train_step(cfg, TrainStepConfig(ce_chunk=64),
+                           wsd_schedule(1, 10, 5, 1e-3))
+    g = torch.Generator(device="cuda").manual_seed(3)
+    toks = torch.randint(0, cfg.vocab_size, (4, 128), generator=g,
+                         device="cuda", dtype=torch.int32)
+    labels = torch.roll(toks, -1, 1)
+    labels[:, -1] = -100
+    batch = {"tokens": toks, "labels": labels}
+    params, opt, _ = step(params, opt, batch)
+    mgr = CheckpointManager(tmpdir, keep=1, async_write=True)
+    mgr.save(1, {"params": params, "opt": opt})
+    mgr.wait()
+    params, opt, m1 = step(params, opt, batch)
+    like = {"params": params, "opt": opt}
+    restored, at = mgr.restore_latest(like, device="cuda")
+    check(at == 1, f"checkpoint: restored step {at}, expected 1")
+    p2, o2, m2 = step(restored["params"], restored["opt"], batch)
+    same = all(torch.equal(a, b) for a, b in zip(
+        leaves(params) + leaves(opt), leaves(p2) + leaves(o2)))
+    check(same and float(m1["loss"]) == float(m2["loss"]),
+          "checkpoint: a step after restore differs from the same step "
+          "without it")
+    return {"config": cfg.name, "layers": cfg.n_layers, "bitwise": same,
+            "leaves": len(leaves(like))}
+
+
+def train_phase(torch):
+    """Phase 18: minicpm-2b at full width and depth in bf16 trained on
+    ``launch/train.py``'s synthetic batch (B=4, S=1,024), remat on, the
+    CE over 512-token chunks.  Step 1's loss through the kernels against
+    the plain path on the same weights, and every leaf's gradient against
+    the plain path on a float32 copy of them (``TRAIN_GRAD_TOL``,
+    ``TRAIN_GRAD_RATIO``); then
+    ``TRAIN_STEPS`` steps of WSD on the one batch: exact launches a step
+    (``train_launches``), a falling loss, the median step and tokens/s,
+    the peak, one step's device time by kernel group; then the checkpoint
+    round trip at reduced size.  Frees its weights; returns the launch
+    counts and stats."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch.training import (
+        TrainStepConfig,
+        init_opt_state,
+        make_train_step,
+        wsd_schedule,
+    )
+    from repro_torch.training._tree import leaves, tree_map
+    from repro_torch.training.trainstep import make_grad_fn
+
+    cfg, params = init_model(torch, TRAIN_ARCH)
+    batch = train_batch(torch, cfg.vocab_size)
+    tcfg = TrainStepConfig(ce_chunk=TRAIN_CE_CHUNK, remat=True)
+    want = train_launches(cfg)
+
+    # step 1's loss and gradients: the kernel path, the plain path, and
+    # the plain path on a float32 copy of the weights
+    zero_launch_counts()
+    (loss_p, _), grads_p = make_grad_fn(
+        cfg, dataclasses.replace(tcfg, plain_attention=True))(params, batch)
+    torch.cuda.synchronize()
+    check(train_counts() == {k: 0 for k in want},
+          "train: the plain path launched a kernel")
+    (loss_k, _), grads_k = make_grad_fn(cfg, tcfg)(params, batch)
+    torch.cuda.synchronize()
+    got = train_counts()
+    check(got == want, f"train: step 1's gradient launched {got}, "
+                       f"expected {want}")
+    loss_rel = abs(float(loss_k) / float(loss_p) - 1)
+    check(math.isfinite(float(loss_k)) and loss_rel <= TRAIN_LOSS_TOL,
+          f"train: step 1 loss {float(loss_k)} against the plain path's "
+          f"{float(loss_p)} ({loss_rel:.3g} relative)")
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    (loss_32, _), grads_32 = make_grad_fn(
+        cfg32, dataclasses.replace(tcfg, plain_attention=True))(
+        tree_map(lambda t: t.float(), params), batch)
+    torch.cuda.synchronize()
+    errs = []  # (leaf, kernel vs plain, kernel vs f32, plain vs f32)
+    for (name, a), b, c in zip(named_leaves(grads_k), leaves(grads_p),
+                               leaves(grads_32)):
+        errs.append((name, rel_l2(a, b), rel_l2(a, c), rel_l2(b, c)))
+    bad = [e for e in errs if not (math.isfinite(e[2]) and e[2] <= max(
+        TRAIN_GRAD_TOL, TRAIN_GRAD_RATIO * e[3]))]
+    check(not bad, "train: a leaf's gradient through the kernels is further "
+                   f"from the float32 plain path's than the limit allows "
+                   f"(leaf, vs plain, vs f32, plain vs f32): {bad[:3]}")
+    col = {k: [e[i] for e in errs] for i, k in
+           ((1, "kernel_vs_plain"), (2, "kernel_vs_f32"),
+            (3, "plain_vs_f32"))}
+    step1 = {"loss_kernel": float(loss_k), "loss_plain": float(loss_p),
+             "loss_f32": float(loss_32), "loss_rel": loss_rel,
+             **{f"grad_rel_l2_{k}_max": max(v) for k, v in col.items()},
+             **{f"grad_rel_l2_{k}_median": statistics.median(v)
+                for k, v in col.items()},
+             "worst_ratio_to_plain": max(e[2] / e[3] for e in errs),
+             "leaves": len(errs)}
+    print("train[step 1, kernel vs plain vs float32]: " + json.dumps(step1))
+    print("train[step 1 by leaf: kernel vs plain, kernel vs f32, plain vs "
+          "f32]: " + json.dumps({e[0]: [round(x, 5) for x in e[1:]]
+                                 for e in errs}))
+    del grads_p, grads_k, grads_32
+    free(torch)
+
+    # TRAIN_STEPS steps on the one batch
+    opt = init_opt_state(params)
+    step = make_train_step(cfg, tcfg, wsd_schedule(
+        warmup=2, stable=TRAIN_STEPS, decay=TRAIN_STEPS, peak_lr=1e-3))
+    torch.cuda.reset_peak_memory_stats()
+    walls, losses = [], []
+    zero_launch_counts()
+    for i in range(TRAIN_STEPS):
+        before = train_counts()
+        params, opt, m = timed(torch, step, walls)(params, opt, batch)
+        got = {k: n - before[k] for k, n in train_counts().items()}
+        check(got == want, f"train: step {i + 1} launched {got}, expected "
+                           f"{want}")
+        losses.append(float(m["loss"]))
+        check(math.isfinite(losses[-1]) and math.isfinite(
+            float(m["grad_norm"])), f"train: step {i + 1} loss {losses[-1]}")
+    launches = train_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(losses[-1] < losses[0],
+          f"train: the loss did not fall over {TRAIN_STEPS} steps: {losses}")
+    # one more step under the profiler: device time by kernel and group
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        params, opt, _ = step(params, opt, batch)
+        torch.cuda.synchronize()
+    by_kernel, by_group = {}, {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", 0)
+        if us:
+            name = kernel_name(ev.key)
+            by_kernel[name] = by_kernel.get(name, 0.0) + us / 1e3
+            grp = kernel_group(name)
+            by_group[grp] = by_group.get(grp, 0.0) + us / 1e3
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    med = statistics.median(walls[1:])
+    stats = {"arch": cfg.name, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+             "ce_chunk": TRAIN_CE_CHUNK, "remat": True, "dtype": cfg.dtype,
+             "params": sum(t.numel() for t in leaves(params)),
+             "losses": losses, "step_ms": walls,
+             "step_ms_median": med, "tokens_per_s": tokens / med * 1e3,
+             "max_memory_allocated_gb": peak / 1e9,
+             "launches": launches, "launches_per_step": want,
+             "device_busy_ms": sum(by_group.values()),
+             "device_ms_by_group": by_group,
+             "top_kernels_ms": top(by_kernel, 8), "step1": step1}
+    print("train[minicpm-2b]: " + json.dumps(stats))
+    peak_line("train", stats)
+    del params, opt, batch, m, prof
+    free(torch)
+    with tempfile.TemporaryDirectory() as d:
+        stats["checkpoint"] = checkpoint_round_trip(torch, d)
+    print("train[checkpoint round trip]: " + json.dumps(stats["checkpoint"]))
+    free(torch)
+    return {"train": (launches, stats)}
+
+
 # name -> (source, the Pallas kernel it replaces, the serve phase whose
 # launch count the kernels line reports)
 KERNELS = {
@@ -2875,6 +3263,14 @@ KERNELS = {
                      "paged"),
     "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
                  "src/repro/kernels/ssd/kernel.py:98", "mamba"),
+    "flash_backward": ("src/repro_torch/kernels/csrc/flash_backward.cu",
+                       "src/repro/kernels/flash_attention/kernel.py:93",
+                       "train"),
+}
+# what a row's "replaces" cannot say alone
+KERNEL_NOTES = {
+    "flash_backward": "backward; the JAX package differentiates "
+                      "L.chunked_attention with XLA",
 }
 # the head-sharded wrappers: name -> (source, the JAX wrapper it
 # replaces, the phase 9 serve whose launches the line reports, the
@@ -3066,7 +3462,8 @@ def main(argv=None) -> int:
         family[arch.split("-")[0]] = kernel_path_phase(torch, arch)
     seconds["10-12"] = time.perf_counter() - t0
     for n, phase in ((13, gemma2_phase), (14, moe_phase), (15, jamba_phase),
-                     (16, hubert_phase), (17, int8_phase)):
+                     (16, hubert_phase), (17, int8_phase),
+                     (18, train_phase)):
         t0 = time.perf_counter()
         family.update(phase(torch))
         seconds[str(n)] = time.perf_counter() - t0
@@ -3089,7 +3486,9 @@ def main(argv=None) -> int:
         check(n > 0, f"{name} was never launched in the {phase} phase")
         rows.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": n, "launches_phase": phase,
+            "replaces": replaces,
+            **({"note": KERNEL_NOTES[name]} if name in KERNEL_NOTES else {}),
+            "launches": n, "launches_phase": phase,
             "launches_by_phase": {p: by_phase[p].get(name, 0)
                                   for p in by_phase},
             "max_abs_err": max(errs[name].values()),

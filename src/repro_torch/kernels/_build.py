@@ -25,7 +25,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-KERNELS = ("flash_prefill", "ring_decode", "paged_attention", "ssd_scan")
+KERNELS = ("flash_prefill", "flash_backward", "ring_decode",
+           "paged_attention", "ssd_scan")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -94,8 +95,9 @@ def load(name: str) -> ctypes.CDLL:
 
 DTYPE_CODES = {"torch.float32": 0, "torch.bfloat16": 1}
 HEAD_DIMS = (16, 64, 128)  # reduced configs, minicpm, llama and most others
-# the prefill kernel also takes hubert-xlarge's 80; the decode kernels
-# (ring_decode.cu, paged_attention.cu) instantiate HEAD_DIMS only
+# the prefill kernel and its backward also take hubert-xlarge's 80; the
+# decode kernels (ring_decode.cu, paged_attention.cu) instantiate
+# HEAD_DIMS only
 FLASH_HEAD_DIMS = (16, 64, 80, 128)
 
 

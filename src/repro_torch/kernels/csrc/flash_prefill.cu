@@ -17,6 +17,9 @@
 //   tanh softcap, then the mask (causal, window, key < kv_len) with the
 //   finite -1e30; online softmax in float32; l clamped at 1e-37.  A row
 //   with no valid key averages V over every key, as the reference does.
+//   With a non-null lse pointer the kernel also writes each row's float32
+//   log-sum-exp m + log(l), (B, Hq, Sq): the training forward saves it
+//   for flash_backward.cu; serving passes null.
 //
 // Head dims: 16, 64, 80 (hubert-xlarge's bidirectional encoder) and 128,
 // the switch at the end of this file and _build.FLASH_HEAD_DIMS alike.
@@ -108,6 +111,7 @@ struct Params {
   const void* k;
   const void* v;
   void* o;
+  float* lse;          // (B, Hq, Sq) float32 or null: m + log(l) per row
   const int* kv_len;   // (B,) or null
   const int* q_start;  // (B,) or null: position of query row 0
   int B, Sq, Skv, Hq, Hkv;
@@ -267,6 +271,8 @@ __global__ void __launch_bounds__(THREADS) flash_prefill_kernel(Params p) {
     T* dst = o + ((size_t)(b * p.Sq + qi) * p.Hq + h) * DH;
 #pragma unroll
     for (int j = 0; j < DPT; ++j) dst[sub + TPR * j] = from_f<T>(acc[j] * inv);
+    if (p.lse && sub == 0)
+      p.lse[((size_t)b * p.Hq + h) * p.Sq + qi] = m_i + logf(fmaxf(l_i, 1e-37f));
   }
 }
 
@@ -497,6 +503,9 @@ __global__ void __launch_bounds__(TC_THREADS)
       for (int j = 0; j < OB; ++j)
         *reinterpret_cast<uint32_t*>(dst + 8 * j) =
             mma::pack_bf16x2(acc[j][2 * h] * inv, acc[j][2 * h + 1] * inv);
+      if (p.lse && tq == 0)
+        p.lse[((size_t)b * p.Hq + (size_t)hk * G + r % G) * p.Sq + pos] =
+            m_r[h] + logf(fmaxf(l, 1e-37f));
     }
   }
 }
@@ -543,14 +552,17 @@ cudaError_t launch(const Params& p, int dtype, cudaStream_t stream) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns the cudaError_t of the launch.
+// dtype: 0 = float32, 1 = bfloat16.  lse (float32, (B, Hq, Sq)) may be
+// null: the serve path passes null, the training path takes the row
+// log-sum-exp for flash_backward.cu.  Returns the cudaError_t of the
+// launch.
 extern "C" int repro_flash_prefill(const void* q, const void* k, const void* v,
-                                   void* o, const void* kv_len,
+                                   void* o, void* lse, const void* kv_len,
                                    const void* q_start, int B, int Sq,
                                    int Skv, int Hq, int Hkv, int Dh, int causal,
                                    int window, float softcap, float scale,
                                    int dtype, void* stream) {
-  Params p{q, k, v, o, static_cast<const int*>(kv_len),
+  Params p{q, k, v, o, static_cast<float*>(lse), static_cast<const int*>(kv_len),
            static_cast<const int*>(q_start), B, Sq, Skv, Hq, Hkv,
            causal, window, softcap, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -1,22 +1,33 @@
-"""Wrapper of the prefill flash-attention kernel (``csrc/flash_prefill.cu``).
+"""Wrappers of the prefill flash-attention kernel (``csrc/flash_prefill.cu``)
+and its backward (``csrc/flash_backward.cu``).
 
 A CUDA tensor launches the Hopper kernel (or raises); a CPU tensor takes
-the plain version in ``ref.py``.  ``launches`` counts kernel launches,
-``q_offset_launches`` those among them that took ``q_start``.
+the plain version in ``ref.py``, which autograd differentiates.  On the
+card, a call that needs a gradient goes through :class:`_FlashAttention`:
+its forward launches ``flash_prefill`` with the row log-sum-exp saved,
+its backward launches ``flash_backward``.  ``launches`` counts forward
+launches, ``q_offset_launches`` those among them that took ``q_start``,
+``backward_launches`` the backward calls (three kernels on one stream,
+one call).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import (
+    attention_backward_ref,
+    attention_ref,
+)
 
 launches = 0
 q_offset_launches = 0
+backward_launches = 0
 _fn = None
+_bwd = None
 
 
 def _kernel():
@@ -25,7 +36,7 @@ def _kernel():
         lib = _build.load("flash_prefill")
         fn = lib.repro_flash_prefill
         fn.argtypes = (
-            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
             + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
@@ -33,6 +44,177 @@ def _kernel():
         lib.repro_flash_prefill_error_string.restype = ctypes.c_char_p
         _fn = (fn, lib.repro_flash_prefill_error_string)
     return _fn
+
+
+def _backward_kernel():
+    global _bwd
+    if _bwd is None:
+        lib = _build.load("flash_backward")
+        fn = lib.repro_flash_backward
+        fn.argtypes = (
+            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
+            + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p]
+        )
+        fn.restype = ctypes.c_int
+        lib.repro_flash_backward_error_string.argtypes = [ctypes.c_int]
+        lib.repro_flash_backward_error_string.restype = ctypes.c_char_p
+        _bwd = (fn, lib.repro_flash_backward_error_string)
+    return _bwd
+
+
+def _check_shapes(q, k, v):
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}")
+    B, _, Hq, Dh = q.shape
+    if k.shape[0] != B or k.shape[3] != Dh or Hq % k.shape[2]:
+        raise ValueError(f"q {tuple(q.shape)} does not match k {tuple(k.shape)}")
+    if not (q.dtype == k.dtype == v.dtype):
+        raise TypeError(f"dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
+
+
+def _check_card(q, k, named) -> int:
+    """The checks every launch makes; returns the dtype code."""
+    code = _build.dtype_code(q)
+    Dh = q.shape[3]
+    if Dh not in _build.FLASH_HEAD_DIMS:
+        raise ValueError(f"head_dim {Dh} not in {_build.FLASH_HEAD_DIMS}")
+    G = q.shape[2] // k.shape[2]
+    if code == 1 and G > 64:  # a bf16 forward block holds 64 (pos, head) rows
+        raise ValueError(f"at most 64 q heads per kv head, got {G}")
+    for name, t in named:
+        _build.check_operand(name, t, q.device)
+    return code
+
+
+def _launch(q, k, v, causal, window, softcap, kv_len, q_start,
+            lse: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One ``flash_prefill`` launch; ``lse`` (float32, (B, Hq, Sq)), when
+    given, receives each row's log-sum-exp."""
+    global launches, q_offset_launches
+    B, Sq, Hq, Dh = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    code = _check_card(q, k, (("q", q), ("k", k), ("v", v)))
+    for name, t in (("kv_len", kv_len), ("q_start", q_start)):
+        if t is None:
+            continue
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32, got {t.dtype}")
+        _build.check_operand(name, t, q.device, align=4)
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    fn, err_str = _kernel()
+    with torch.cuda.device(q.device):
+        err = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if lse is not None else None,
+            kv_len.data_ptr() if kv_len is not None else None,
+            q_start.data_ptr() if q_start is not None else None,
+            B, Sq, Skv, Hq, Hkv, Dh, int(causal),
+            int(window) if window is not None else 0,
+            float(softcap) if softcap is not None else 0.0,
+            1.0 / Dh ** 0.5, code,
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    if err:
+        raise RuntimeError(
+            f"flash_prefill launch failed: {err_str(err).decode()} ({err})"
+        )
+    launches += 1
+    q_offset_launches += q_start is not None
+    return out
+
+
+def flash_backward(
+    q: torch.Tensor,  # (B, Sq, Hq, Dh)
+    k: torch.Tensor,  # (B, Skv, Hkv, Dh)
+    v: torch.Tensor,  # (B, Skv, Hkv, Dh)
+    out: torch.Tensor,  # (B, Sq, Hq, Dh), the forward's output
+    dout: torch.Tensor,  # (B, Sq, Hq, Dh)
+    lse: Optional[torch.Tensor],  # (B, Hq, Sq) float32, the forward's
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    softcap: Optional[float] = None,
+    kv_len: Optional[torch.Tensor] = None,
+    q_start: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of :func:`flash_attention` (without ``kv_len`` and
+    ``q_start``) at ``dout``, in q's dtype.  On the card one call of
+    ``flash_backward.cu`` (its three kernels); on a CPU tensor the plain
+    backward (:func:`ref.attention_backward_ref`, which needs neither
+    ``out`` nor ``lse``).  ``kv_len`` and ``q_start`` are refused: the
+    training path never passes them."""
+    global backward_launches
+    if kv_len is not None or q_start is not None:
+        raise ValueError("flash_backward takes no kv_len or q_start: the "
+                         "training path attends over whole rows from 0")
+    _check_shapes(q, k, v)
+    if out.shape != q.shape or dout.shape != q.shape:
+        raise ValueError(f"out {tuple(out.shape)} and dout "
+                         f"{tuple(dout.shape)} must be q's {tuple(q.shape)}")
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    if q.device.type == "cpu":
+        dq, dk, dv = attention_backward_ref(q, k, v, dout, **kw)
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash_backward for device {q.device}")
+    B, Sq, Hq, Dh = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    if out.dtype != q.dtype or dout.dtype != q.dtype:
+        raise TypeError(f"out {out.dtype} and dout {dout.dtype} must be "
+                        f"{q.dtype}")
+    if lse is None or lse.dtype != torch.float32 \
+            or tuple(lse.shape) != (B, Hq, Sq):
+        raise ValueError(f"lse must be float32 ({B}, {Hq}, {Sq})")
+    code = _check_card(q, k, (("q", q), ("k", k), ("v", v), ("out", out),
+                              ("dout", dout)))
+    _build.check_operand("lse", lse, q.device, align=4)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.numel() == 0 or k.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    fn, err_str = _backward_kernel()
+    with torch.cuda.device(q.device):
+        err = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            B, Sq, Skv, Hq, Hkv, Dh, int(causal),
+            int(window) if window is not None else 0,
+            float(softcap) if softcap is not None else 0.0,
+            1.0 / Dh ** 0.5, code,
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    if err:
+        raise RuntimeError(
+            f"flash_backward launch failed: {err_str(err).decode()} ({err})"
+        )
+    backward_launches += 1
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The kernel pair as one differentiable op on the card: the forward
+    keeps (q, k, v, out, lse) for the backward kernel."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap):
+        B, Sq, Hq, _ = q.shape
+        lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+        out = _launch(q, k, v, causal, window, softcap, None, None, lse)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.mask = dict(causal=causal, window=window, softcap=softcap)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        # autograd may hand over a non-contiguous view
+        dq, dk, dv = flash_backward(q, k, v, out, dout.contiguous(), lse,
+                                    **ctx.mask)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(
@@ -50,17 +232,11 @@ def flash_attention(
     Without ``kv_len`` and ``q_start`` it equals the Pallas
     ``flash_attention``; with them, ``L.chunked_attention`` given
     ``q_positions = q_start + i`` and ``kv_valid = pos < kv_len`` (key j
-    at position j) — the paged prefill after a prefix hit."""
-    global launches, q_offset_launches
-    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
-        raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
-                         f"v {tuple(v.shape)}")
-    B, Sq, Hq, Dh = q.shape
-    _, Skv, Hkv, _ = k.shape
-    if k.shape[0] != B or k.shape[3] != Dh or Hq % Hkv:
-        raise ValueError(f"q {tuple(q.shape)} does not match k {tuple(k.shape)}")
-    if not (q.dtype == k.dtype == v.dtype):
-        raise TypeError(f"dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
+    at position j) — the paged prefill after a prefix hit.  On the card
+    a call under autograd that needs a gradient runs the kernel pair
+    (:class:`_FlashAttention`), and refuses ``kv_len`` and ``q_start``."""
+    _check_shapes(q, k, v)
+    B = q.shape[0]
     rows = {"kv_len": kv_len, "q_start": q_start}
     for name, t in rows.items():
         if t is not None and tuple(t.shape) != (B,):
@@ -70,38 +246,11 @@ def flash_attention(
                              softcap=softcap, kv_len=kv_len, q_start=q_start)
     if q.device.type != "cuda":
         raise ValueError(f"no flash_attention for device {q.device}")
-    code = _build.dtype_code(q)
-    if Dh not in _build.FLASH_HEAD_DIMS:
-        raise ValueError(f"head_dim {Dh} not in {_build.FLASH_HEAD_DIMS}")
-    if code == 1 and Hq // Hkv > 64:  # a bf16 block holds 64 (pos, head) rows
-        raise ValueError(f"at most 64 q heads per kv head, got {Hq // Hkv}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        _build.check_operand(name, t, q.device)
-    for name, t in rows.items():
-        if t is None:
-            continue
-        if t.dtype != torch.int32:
-            raise TypeError(f"{name} must be int32, got {t.dtype}")
-        _build.check_operand(name, t, q.device, align=4)
-    out = torch.empty_like(q)
-    if out.numel() == 0:
-        return out
-    fn, err_str = _kernel()
-    with torch.cuda.device(q.device):
-        err = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            kv_len.data_ptr() if kv_len is not None else None,
-            q_start.data_ptr() if q_start is not None else None,
-            B, Sq, Skv, Hq, Hkv, Dh, int(causal),
-            int(window) if window is not None else 0,
-            float(softcap) if softcap is not None else 0.0,
-            1.0 / Dh ** 0.5, code,
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
-    if err:
-        raise RuntimeError(
-            f"flash_prefill launch failed: {err_str(err).decode()} ({err})"
-        )
-    launches += 1
-    q_offset_launches += q_start is not None
-    return out
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        if kv_len is not None or q_start is not None:
+            raise ValueError("flash_attention has no backward with kv_len "
+                             "or q_start: the training path never takes "
+                             "them")
+        return _FlashAttention.apply(q, k, v, causal, window, softcap)
+    return _launch(q, k, v, causal, window, softcap, kv_len, q_start)

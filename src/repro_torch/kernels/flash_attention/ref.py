@@ -48,3 +48,23 @@ def attention_ref(
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
     return o.reshape(B, Sq, Hq, Dh).to(q.dtype)
+
+
+def attention_backward_ref(
+    q: torch.Tensor,  # (B, Sq, Hq, Dh)
+    k: torch.Tensor,  # (B, Skv, Hkv, Dh)
+    v: torch.Tensor,  # (B, Skv, Hkv, Dh)
+    dout: torch.Tensor,  # (B, Sq, Hq, Dh)
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    softcap: Optional[float] = None,
+):
+    """The plain backward of :func:`attention_ref` (no ``kv_len`` or
+    ``q_start``): autograd through it on float32 copies of the inputs.
+    Returns float32 (dq, dk, dv)."""
+    with torch.enable_grad():
+        qf, kf, vf = (t.detach().float().requires_grad_() for t in (q, k, v))
+        o = attention_ref(qf, kf, vf, causal=causal, window=window,
+                          softcap=softcap)
+        return torch.autograd.grad(o, (qf, kf, vf), dout.float())

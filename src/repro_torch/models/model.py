@@ -32,6 +32,13 @@ flash kernel masks the window itself) and the MoE FFN
 model computes them outside any Pallas kernel.  Caches (ring, recurrent
 and paged) are updated in place; the JAX model returns new ones.
 
+**Training.**  :func:`forward` differentiates (nothing is written in
+place into a tensor autograd saved; ``remat=True`` recomputes each block
+in the backward pass), and on the card attention's gradient is the
+``flash_backward`` kernel; :func:`check_trainable` refuses what the port
+does not train yet.  The training step is
+:mod:`repro_torch.training.trainstep`.
+
 **Mesh slices.**  Under :func:`repro_torch.distributed.mesh_context`
 every function runs on this rank's local shards (cut by
 :mod:`repro_torch.distributed.sharding`) with Megatron tensor
@@ -56,6 +63,7 @@ from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
@@ -83,6 +91,28 @@ def check_supported(cfg: ModelConfig) -> None:
     """Reject what the port does not serve yet: Mamba2, MoE and int8 on
     a mesh wider than 1 (ROADMAP queue 1, item 8)."""
     _check_mesh(cfg, ctx.axis_size("model"))
+
+
+def check_trainable(cfg: ModelConfig, params: Params) -> None:
+    """Reject, before any step, what the port does not train yet: a
+    Mamba2 mixer (no ``ssd_scan`` backward), int8 params and a mesh wider
+    than 1."""
+    if cfg.has_mamba:
+        raise NotImplementedError(
+            f"model '{cfg.name}': training a Mamba2 mixer needs an ssd_scan "
+            "backward kernel, ROADMAP queue 1, item 12"
+        )
+    if cfg.weight_dtype == "int8" or params_quantized(params):
+        raise NotImplementedError(
+            f"model '{cfg.name}': int8 params are the serving layout "
+            "(ROADMAP queue 1, item 6); train the float tree and quantize "
+            "it after"
+        )
+    if ctx.axis_size("model") > 1:
+        raise NotImplementedError(
+            f"model '{cfg.name}': training on a mesh wider than 1 is "
+            "ROADMAP queue 1, item 13"
+        )
 
 
 def _int8_modes(cfg: ModelConfig):
@@ -540,7 +570,9 @@ def _embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor):
     E = params["embed"]
     ids = tokens.long()
     if E.shape[0] == cfg.vocab_size:
-        return E[ids]
+        # F.embedding: its gradient (the training path) is a sort and a
+        # segment sum on the card, with no float atomics
+        return F.embedding(ids, E)
     n = E.shape[0]
     ids = ids - ctx.model_rank() * n
     hit = (ids >= 0) & (ids < n)
@@ -583,36 +615,75 @@ def _ring_write(cfg: ModelConfig, entry, blk: int, k, v, lengths) -> None:
             entry[name][blk][bidx, src % src.shape[1]] = full[bidx, src]
 
 
+def _block_trees(params: Params, cfg: ModelConfig):
+    """Each block's tree in turn, dequantized where it holds int8 leaves
+    (one block at a time, as :func:`_block`).  Each stacked leaf is split
+    once (``unbind``), so its gradient is one stack of the blocks'
+    gradients rather than one full-size scatter a block."""
+    def split(t):
+        if isinstance(t, dict):
+            return {k: split(v) for k, v in t.items()}
+        return t.unbind(0)
+
+    def pick(t, i):
+        if isinstance(t, dict):
+            return {k: pick(v, i) for k, v in t.items()}
+        return t[i]
+
+    parts = split(params["blocks"])
+    for i in range(cfg.n_blocks):
+        yield _dequant_tree(pick(parts, i), _dtype(cfg))
+
+
+def _block_full(bp, cfg: ModelConfig, x, positions, lengths, valid, cache,
+                blk: int, plain: bool):
+    """One super-block on (B, S, d).  With ``cache`` each attention
+    layer's K/V is written into its ring as it is produced
+    (:func:`_ring_take`'s layout), and each Mamba layer's final state and
+    conv tail into its entry.  Returns (x, the block's moe_loss)."""
+    moe_loss = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, spec in enumerate(cfg.block_pattern):
+        lp = bp[f"layer_{i}"]
+        entry = None if cache is None else cache[f"layer_{i}"]
+        if spec.mixer == "attn":
+            out, (k, v) = _attn_full(lp["attn"], cfg, spec, x, positions,
+                                     lengths, plain)
+            if entry is not None:
+                _ring_write(cfg, entry, blk, k, v, lengths)
+        else:
+            out, (ssm, conv) = _mamba_full(lp["mamba"], cfg, x, valid, plain)
+            if entry is not None:
+                entry["ssm"][blk] = ssm
+                entry["conv"][blk] = conv
+        x = x + out
+        if spec.ffn != "none":
+            out, aux = _ffn(lp, cfg, x)
+            x = x + out
+            if aux is not None:
+                moe_loss = moe_loss + _moe_loss(cfg, aux)
+    return x, moe_loss
+
+
 def _run_blocks(params, cfg: ModelConfig, x, positions, lengths, cache,
-                plain: bool):
-    """The JAX scan over blocks, as a loop.  With ``cache`` (from
-    :func:`init_cache`) each block's K/V is written into its ring as it
-    is produced (:func:`_ring_take`'s layout), and each Mamba block's
-    final state and conv tail into its entry.  Returns (x, moe_loss)."""
+                plain: bool, remat: bool = False):
+    """The JAX scan over blocks, as a loop (see :func:`_block_full`).
+    ``remat`` recomputes each block in the backward pass instead of
+    keeping its activations (``torch.utils.checkpoint`` per block, as the
+    reference's ``jax.checkpoint`` per scanned block); it writes no
+    cache.  Returns (x, moe_loss)."""
+    if remat and cache is not None:
+        raise ValueError("remat recomputes blocks: it cannot fill a cache")
     valid = None if lengths is None else positions < lengths[:, None]
     moe_loss = torch.zeros((), dtype=torch.float32, device=x.device)
-    for blk in range(cfg.n_blocks):
-        bp = _block(params, cfg, blk)
-        for i, spec in enumerate(cfg.block_pattern):
-            lp = bp[f"layer_{i}"]
-            entry = None if cache is None else cache[f"layer_{i}"]
-            if spec.mixer == "attn":
-                out, (k, v) = _attn_full(lp["attn"], cfg, spec, x, positions,
-                                         lengths, plain)
-                if entry is not None:
-                    _ring_write(cfg, entry, blk, k, v, lengths)
-            else:
-                out, (ssm, conv) = _mamba_full(lp["mamba"], cfg, x, valid,
-                                               plain)
-                if entry is not None:
-                    entry["ssm"][blk] = ssm
-                    entry["conv"][blk] = conv
-            x = x + out
-            if spec.ffn != "none":
-                out, aux = _ffn(lp, cfg, x)
-                x = x + out
-                if aux is not None:
-                    moe_loss = moe_loss + _moe_loss(cfg, aux)
+    for blk, bp in enumerate(_block_trees(params, cfg)):
+        args = (bp, cfg, x, positions, lengths, valid, cache, blk, plain)
+        if remat:
+            x, loss = torch.utils.checkpoint.checkpoint(
+                _block_full, *args, use_reentrant=False,
+                preserve_rng_state=False)
+        else:
+            x, loss = _block_full(*args)
+        moe_loss = moe_loss + loss
     return x, moe_loss
 
 
@@ -632,13 +703,17 @@ def forward(params: Params, cfg: ModelConfig,
             tokens: Optional[torch.Tensor] = None,
             inputs_embeds: Optional[torch.Tensor] = None,
             lengths: Optional[torch.Tensor] = None,
-            plain_attention: bool = False):
+            plain_attention: bool = False, remat: bool = False):
     """Returns (hidden (B,S,d), moe_aux_loss) for tokens (B, S), or for
     ``inputs_embeds`` (B, S, d) where the config takes embeddings.
     ``lengths`` (B,) masks keys at and past each row's length, as the
     reference's ``valid = arange(S) < lengths`` does.
     ``plain_attention`` runs every mixer's plain layer (attention and
-    the SSD scan) instead of its kernel."""
+    the SSD scan) instead of its kernel.  ``remat`` recomputes each block
+    in the backward pass (the training step's memory knob).  Nothing here
+    writes in place into a tensor autograd saved, so the function
+    differentiates; on the card attention's gradient is the
+    ``flash_backward`` kernel."""
     check_supported(cfg)
     x = _inputs(params, cfg, tokens, inputs_embeds)
     B, S = x.shape[:2]
@@ -646,7 +721,7 @@ def forward(params: Params, cfg: ModelConfig,
     if lengths is not None:
         lengths = lengths.to(device=x.device, dtype=torch.int32)
     x, moe_loss = _run_blocks(params, cfg, x, positions, lengths, None,
-                              plain_attention)
+                              plain_attention, remat)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x, moe_loss
 

@@ -500,3 +500,82 @@ def test_routes_force_near_ties_and_refuse_other_routings():
         assert routes.forced == 1
         assert torch.equal(e, routes.log[0])
         assert torch.allclose(w.sum(-1), torch.ones(6))
+
+
+# ---------------------------------------------------------------------------
+# Phase 18 and the flash_backward rows
+# ---------------------------------------------------------------------------
+
+
+def test_train_phase_names_minicpm_at_full_width_and_its_launches():
+    """Phase 18 trains the registered minicpm-2b at full width and depth
+    on launch/train.py's batch; a step launches flash_prefill twice a
+    layer under remat (forward and recompute) and flash_backward once."""
+    from repro_torch.configs.registry import REGISTRY
+
+    cfg = REGISTRY[cs.TRAIN_ARCH]
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+            cfg.head_dim, cfg.d_ff, cfg.vocab_size) == (
+        40, 2304, 36, 36, 64, 5760, 122753)
+    assert cs.train_launches(cfg) == {"flash_prefill": 80,
+                                      "flash_backward": 40}
+    assert cs.train_launches(cfg, remat=False)["flash_prefill"] == 40
+    assert cs.TRAIN_SEQ % cs.TRAIN_CE_CHUNK == 0
+    assert cs.TRAIN_STEPS == 5
+
+
+@pytest.mark.parametrize("name,group", [
+    ("flash_prefill_bf16_kernel", "flash forward"),
+    ("dkdv_bf16_kernel", "flash backward"),
+    ("dq_bf16_kernel", "flash backward"),
+    ("delta_kernel", "flash backward"),
+    ("sm90_xmma_gemm_bf16bf16_bf16f32", "cuBLAS"),
+    ("nvjet_tst_128x256_64x4_1x2_h_bz_coopA_TNN", "cuBLAS"),
+    ("Kernel2", "cuBLAS"),  # cuBLAS's product at minicpm's odd vocabulary
+    ("index_elementwise_kernel_with_sort",
+     "elementwise (AdamW, norms, RoPE, CE)"),
+    ("embedding_backward_feature_kernel", "other"),
+    ("vectorized_elementwise_kernel", "elementwise (AdamW, norms, RoPE, CE)"),
+    ("reduce_kernel", "reductions (CE, norms, global norm)"),
+])
+def test_kernel_group_sorts_the_profile(name, group):
+    assert cs.kernel_group(name) == group
+
+
+def test_flash_backward_is_a_kernel_of_the_line():
+    """The kernels line carries flash_backward from phase 18 with its
+    note, its SASS must show the tensor-core path, and its case rows
+    come from the kernel phase."""
+    source, replaces, phase = cs.KERNELS["flash_backward"]
+    assert (ROOT / source).is_file() and phase == "train"
+    assert replaces == "src/repro/kernels/flash_attention/kernel.py:93"
+    assert "XLA" in cs.KERNEL_NOTES["flash_backward"]
+    assert cs.REDESIGNED["flash_backward"] == ("HMMA", "LDGSTS", "LDSM")
+    head = {"flash_backward": {}, "flash_backward@llama GQA": {"x": 1}}
+    assert cs.case_rows(head, "flash_backward") == {"llama GQA": {"x": 1}}
+
+
+def test_flash_backward_case_holds_the_plain_backward_on_the_cpu(
+        monkeypatch):
+    """The kernel phase's backward row, untimed, with the forward launch
+    stood in by the plain version (the CPU has no kernel): the wrapper's
+    CPU path is the plain backward, so the errors are 0 and two calls
+    repeat."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    monkeypatch.setattr(fops, "_launch", lambda q, k, v, causal, window,
+                        softcap, *a, **kw: attention_ref(
+                            q, k, v, causal=causal, window=window,
+                            softcap=softcap))
+    src = (ROOT / "chip_smoke.py").read_text().replace('"cuda"', '"cpu"')
+    mod = type(cs)("chip_smoke_cpu")
+    mod.__file__ = str(ROOT / "chip_smoke.py")
+    exec(compile(src, "chip_smoke_cpu", "exec"), mod.__dict__)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    row = mod.flash_backward_case(torch, F, 2, 40, 4, 2, 16, "float32",
+                                  True, 8, 5.0, timed=False)
+    assert row["repeats_bitwise"] and row["max_abs_err"] == 0.0
+    assert row["shape"] == "B=2 S=40 Hq=4 Hkv=2 Dh=16"

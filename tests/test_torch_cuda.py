@@ -1515,3 +1515,202 @@ def test_int8_graph_replay_equals_eager_decode(card):
     counts = _graph_vs_eager(partial(TM.decode_step_greedy, cfg=cfg), params,
                              cache, inputs, chain=True)
     assert counts == {("decode_attention", "launches"): cfg.n_layers * steps}
+
+
+# ---------------------------------------------------------------------------
+# The flash backward kernel (training)
+# ---------------------------------------------------------------------------
+
+# dq, dk and dv against the plain backward in float32, each relative to
+# its gradient's max: the bf16 kernel rounds P and dS to bf16 for its
+# tensor-core products, as FlashAttention-2 does
+BWD_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+BWD_CASES = [  # (B, S, Hq, Hkv, causal, window, softcap)
+    pytest.param(2, 100, 8, 2, True, None, None, id="causal-G4"),
+    pytest.param(2, 100, 4, 4, False, None, None, id="bidirectional"),
+    pytest.param(1, 130, 8, 4, True, 24, 5.0, id="window-softcap"),
+]
+
+
+def _bwd_inputs(card, dtype, B, S, Hq, Hkv, Dh, seed):
+    g = torch.Generator(device=card).manual_seed(seed)
+    dt = getattr(torch, dtype)
+    q = torch.randn((B, S, Hq, Dh), generator=g, device=card).to(dt)
+    k = torch.randn((B, S, Hkv, Dh), generator=g, device=card).to(dt)
+    v = torch.randn((B, S, Hkv, Dh), generator=g, device=card).to(dt)
+    dout = torch.randn((B, S, Hq, Dh), generator=g, device=card).to(dt)
+    return q, k, v, dout
+
+
+def _kernel_grads(q, k, v, dout, **kw):
+    """(out, dq, dk, dv) through the autograd Function on the card."""
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = flash_attention(*leaves, **kw)
+    grads = torch.autograd.grad(out, leaves, dout)
+    return (out, *grads)
+
+
+def _grads_close(got, want, dtype):
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == getattr(torch, dtype) and a.shape == b.shape
+        scale = float(b.abs().max())
+        err = float((a.float() - b).abs().max()) / scale
+        assert err <= BWD_TOL[dtype], (name, err)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Dh", [16, 64, 80, 128])
+@pytest.mark.parametrize("B,S,Hq,Hkv,causal,window,softcap", BWD_CASES)
+def test_flash_backward_matches_plain_backward(card, dtype, Dh, B, S, Hq, Hkv,
+                                               causal, window, softcap):
+    """The kernel pair under autograd: the forward as before, dq, dk and
+    dv against autograd through ``attention_ref`` in float32, one
+    forward and one backward launch."""
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_backward_ref,
+    )
+
+    q, k, v, dout = _bwd_inputs(card, dtype, B, S, Hq, Hkv, Dh, Dh + S)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    n0, b0 = fops.launches, fops.backward_launches
+    out, *got = _kernel_grads(q, k, v, dout, **kw)
+    torch.cuda.synchronize()
+    assert (fops.launches, fops.backward_launches) == (n0 + 1, b0 + 1)
+    torch.testing.assert_close(out.float(), attention_ref(q, k, v, **kw)
+                               .float(), atol=TOL[dtype], rtol=TOL[dtype])
+    _grads_close(got, attention_backward_ref(q, k, v, dout, **kw), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_backward_repeats_bitwise_and_saves_the_row_lse(card, dtype):
+    """Two backward calls on the same inputs agree bit for bit (no float
+    atomics), and the forward's saved log-sum-exp is the plain one."""
+    q, k, v, dout = _bwd_inputs(card, dtype, 2, 200, 8, 2, 64, 3)
+    kw = dict(causal=True, window=None, softcap=None)
+    B, S, Hq, Dh = q.shape
+    lse = torch.empty((B, Hq, S), dtype=torch.float32, device=card)
+    out = fops._launch(q, k, v, True, None, None, None, None, lse)
+    first = fops.flash_backward(q, k, v, out, dout, lse, **kw)
+    second = fops.flash_backward(q, k, v, out, dout, lse, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    qr = q.reshape(B, S, 2, 4, Dh).float()
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qr, k.float()) / math.sqrt(Dh)
+    causal = torch.ones((S, S), dtype=torch.bool, device=card).tril()
+    s = torch.where(causal, s, torch.full_like(s, -1e30))
+    want = torch.logsumexp(s, dim=-1).reshape(B, Hq, S)
+    torch.testing.assert_close(lse, want, atol=1e-4, rtol=1e-5)
+
+
+def test_flash_backward_refuses_kv_len_and_q_start(card):
+    """The training path never passes kv_len or q_start: both raise
+    before any launch, in the backward wrapper and in a forward that
+    needs a gradient."""
+    q, k, v, dout = _bwd_inputs(card, "bfloat16", 1, 32, 4, 4, 64, 0)
+    rows = torch.full((1,), 16, dtype=torch.int32, device=card)
+    before = (fops.launches, fops.backward_launches)
+    for name in ("kv_len", "q_start"):
+        with pytest.raises(ValueError, match="kv_len or q_start"):
+            fops.flash_backward(q, k, v, q, dout, None, **{name: rows})
+        with pytest.raises(ValueError, match="kv_len or q_start"):
+            flash_attention(q.requires_grad_(), k, v, **{name: rows})
+    torch.cuda.synchronize()
+    assert (fops.launches, fops.backward_launches) == before
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_serve_forward_without_lse_is_unchanged(card, dtype):
+    """The serve path passes a null log-sum-exp pointer: its output
+    equals the plain version's, and the training forward's output (lse
+    written) equals it bit for bit."""
+    q, k, v, _ = _bwd_inputs(card, dtype, 2, 150, 8, 2, 128, 9)
+    kw = dict(causal=True, window=None, softcap=None)
+    with torch.no_grad():
+        served = flash_attention(q, k, v, **kw)
+    torch.testing.assert_close(served.float(), attention_ref(q, k, v, **kw)
+                               .float(), atol=TOL[dtype], rtol=TOL[dtype])
+    lse = torch.empty((2, 8, 150), dtype=torch.float32, device=card)
+    trained = fops._launch(q, k, v, True, None, None, None, None, lse)
+    torch.cuda.synchronize()
+    assert torch.equal(served, trained)
+
+
+def _rel_l2(a, b):
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm().clamp(min=1e-30))
+
+
+@pytest.mark.parametrize("remat", [True, False])
+def test_train_step_kernel_path_matches_plain_path(card, remat):
+    """Reduced minicpm-2b in bf16 (two layers): the loss and every leaf's
+    gradient through the flash kernels against the plain path on the
+    same weights (loss 1e-2 relative, each leaf's relative L2 error at
+    most 5e-2, as chip_smoke's phase 18), with one flash_prefill launch a
+    layer (two under remat: the recompute) and one flash_backward."""
+    from repro_torch.training import TrainStepConfig
+    from repro_torch.training.trainstep import make_grad_fn
+    from repro_torch.training._tree import leaves
+
+    cfg = dataclasses.replace(REGISTRY["minicpm-2b"].reduced(), n_layers=2)
+    params = TM.init_params(cfg, torch.Generator(device=card).manual_seed(0),
+                            device=card)
+    g = torch.Generator(device=card).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (4, 128), generator=g,
+                         device=card, dtype=torch.int32)
+    labels = torch.roll(toks, -1, 1)
+    labels[:, -1] = -100
+    batch = {"tokens": toks, "labels": labels}
+    out = {}
+    for plain in (False, True):
+        tcfg = TrainStepConfig(ce_chunk=64, remat=remat,
+                               plain_attention=plain)
+        n0, b0 = fops.launches, fops.backward_launches
+        (loss, _), grads = make_grad_fn(cfg, tcfg)(params, batch)
+        torch.cuda.synchronize()
+        out[plain] = (loss, leaves(grads),
+                      fops.launches - n0, fops.backward_launches - b0)
+    assert out[False][2:] == ((2 if remat else 1) * cfg.n_layers,
+                              cfg.n_layers)
+    assert out[True][2:] == (0, 0)
+    assert abs(float(out[False][0]) / float(out[True][0]) - 1) <= 1e-2
+    for a, b in zip(out[False][1], out[True][1]):
+        assert a.dtype == torch.bfloat16
+        assert _rel_l2(a, b) <= 5e-2
+
+
+def test_train_steps_repeat_bitwise_and_the_loss_falls(card):
+    """Two runs of three train steps from the same weights agree bit for
+    bit (the flash backward, the embedding's gradient and the CE head
+    use no float atomics), and the loss falls."""
+    from repro_torch.training import (
+        TrainStepConfig,
+        init_opt_state,
+        make_train_step,
+        wsd_schedule,
+    )
+    from repro_torch.training._tree import leaves
+
+    cfg = dataclasses.replace(REGISTRY["minicpm-2b"].reduced(), n_layers=2)
+    g = torch.Generator(device=card).manual_seed(2)
+    toks = torch.randint(0, cfg.vocab_size, (4, 64), generator=g,
+                         device=card, dtype=torch.int32)
+    labels = torch.roll(toks, -1, 1)
+    labels[:, -1] = -100
+    runs = []
+    for _ in range(2):
+        params = TM.init_params(
+            cfg, torch.Generator(device=card).manual_seed(0), device=card)
+        opt = init_opt_state(params)
+        step = make_train_step(cfg, TrainStepConfig(ce_chunk=32),
+                               wsd_schedule(1, 10, 5, 1e-3))
+        losses = []
+        for _ in range(3):
+            params, opt, m = step(params, opt, {"tokens": toks,
+                                                "labels": labels})
+            losses.append(float(m["loss"]))
+        runs.append((losses, leaves(params), leaves(opt)))
+    assert runs[0][0] == runs[1][0]
+    assert runs[0][0][-1] < runs[0][0][0]
+    for a, b in zip(runs[0][1] + runs[0][2], runs[1][1] + runs[1][2]):
+        assert torch.equal(a, b)

@@ -42,6 +42,10 @@ def _imported_modules(path: Path):
 def test_no_module_imports_jax_or_repro():
     files = sorted(PORT.rglob("*.py"))
     assert len(files) > 20
+    for rel in ("training/trainstep.py", "training/optimizer.py",
+                "training/compress.py", "training/checkpoint.py",
+                "launch/train.py"):
+        assert PORT / rel in files, rel
     bad = []
     for f in files:
         for mod in _imported_modules(f):
@@ -70,6 +74,11 @@ def test_port_imports_with_jax_and_repro_blocked():
         "import repro_torch.core.state_space, repro_torch.serving.scenarios\n"
         "import repro_torch.serving.traces, repro_torch.serving.loadgen\n"
         "import repro_torch.launch.serve\n"
+        "import repro_torch.training, repro_torch.training.trainstep\n"
+        "import repro_torch.training.checkpoint\n"
+        "import repro_torch.training.compress\n"
+        "import repro_torch.training.optimizer\n"
+        "import repro_torch.launch.train\n"
         "print('ok')\n"
     )
     env = dict(os.environ)
@@ -246,6 +255,12 @@ HAND_PORTED = {
     "distributed/sharding.py",
     "serving/jitcache.py",
     "serving/realengine.py",
+    "training/__init__.py",
+    "training/checkpoint.py",
+    "training/compress.py",
+    "training/optimizer.py",
+    "training/trainstep.py",
+    "launch/train.py",
 }
 HAND_PORTED_DIRS = ("kernels/", "models/")
 
