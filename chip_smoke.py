@@ -14,7 +14,8 @@ Phases, in order; any failure exits non-zero:
    (registers, shared memory and spills of the tensor-core kernels from
    ``ptxas -v``), and a check that ``cuobjdump -sass`` of those libraries
    shows what ``REDESIGNED`` requires of each: the tensor-core product
-   (HMMA), and the async copy (LDGSTS) where a kernel stages by cp.async;
+   (HMMA, or HGMMA for wgmma), and the async copy (LDGSTS where a kernel
+   stages by cp.async, UTMALDG where it loads by TMA);
 3. each kernel against its plain PyTorch version on the card, at the
    main path's shapes, with CUDA-event times, the roofline bound and,
    where one PyTorch call computes the same function, its time as a
@@ -120,10 +121,13 @@ Phases, in order; any failure exits non-zero:
 
 The kernel phase holds flash_prefill at head dim 80 without the causal
 mask (hubert's) in both dtypes and times it at hubert's shape beside
-SDPA on the same key mask, and holds flash_backward (dq, dk, dv) against
-the plain backward at minicpm's training shape, llama's GQA, gemma2's
-window and softcap and hubert's head dim 80, in both dtypes, each call
-repeated bit for bit, timed in bf16 beside SDPA's backward.
+SDPA on the same key mask, and at minicpm's training shape writing its
+log-sum-exp (phase 18's forward) beside SDPA's forward; it holds
+flash_backward (dq, dk, dv) against the plain backward at minicpm's
+training shape, llama's GQA, gemma2's window and softcap and hubert's
+head dim 80, in both dtypes, each call repeated bit for bit, timed in
+bf16 beside SDPA's backward, each row naming the body it ran and that
+body's ``ptxas -v`` rows.
 
 It prints the ``kernels`` JSON line and, last, the device line.
 
@@ -248,11 +252,13 @@ def card_identity() -> str:
 # ---------------------------------------------------------------------------
 
 # the kernels rebuilt on the tensor cores, and what the SASS of each
-# library must show: the tensor-core product (HMMA), the async copy
-# (LDGSTS), ldmatrix (LDSM)
+# library must show: the tensor-core product (HMMA for mma.sync, HGMMA
+# for wgmma), the async copy (LDGSTS for cp.async, UTMALDG for a TMA
+# tensor load), ldmatrix (LDSM).  flash_backward's bf16 body at Dh 64
+# and 128 is wgmma + TMA; at Dh 16 and 80 it keeps mma.sync (HMMA)
 REDESIGNED = {
     "flash_prefill": ("HMMA", "LDGSTS", "LDSM"),
-    "flash_backward": ("HMMA", "LDGSTS", "LDSM"),
+    "flash_backward": ("HGMMA", "UTMALDG", "HMMA"),
     "paged_attention": ("HMMA", "LDGSTS", "LDSM"),
     "ring_decode": ("HMMA", "LDGSTS", "LDSM"),
     "ssd_scan": ("HMMA", "LDGSTS", "LDSM"),
@@ -295,6 +301,26 @@ def ptxas_table(log: str):
             "spill_load_bytes": int(spill.group(2)) if spill else None,
         }
     return rows
+
+
+# ``ptxas -v`` of the libraries this run built, by library ({kernel
+# instantiation: registers, smem, spills}); the backward rows quote the
+# entries of the body they ran
+PTXAS = {}
+# the kernels of each flash_backward body
+BODY_KERNELS = {"wgmma": ("dkdvq_wgmma_kernel",),
+                "mma_sync": ("dkdv_bf16_kernel", "dq_bf16_kernel"),
+                "cuda_cores": ("dkdv_f32_kernel", "dq_f32_kernel")}
+
+
+def body_ptxas(body: str, Dh: int):
+    """The ``ptxas -v`` rows of a flash_backward body at head dim ``Dh``
+    (None where this run did not build the library)."""
+    table = PTXAS.get("flash_backward")
+    if table is None:
+        return None
+    return {k: table[k] for k in (f"{n}<{Dh}>" for n in BODY_KERNELS[body])
+            if k in table}
 
 
 def sass_listings(_build):
@@ -449,13 +475,15 @@ def max_err(torch, got, want, dtype: str):
 
 
 def flash_case(torch, F, B, S, Hq, Hkv, Dh, dtype, kv_frac, window, softcap,
-               timed: bool, q_start=None, causal=True, kv_lens=None):
+               timed: bool, q_start=None, causal=True, kv_lens=None,
+               train_lse: bool = False):
     """One prefill case.  With ``q_start`` (the paged prefill after a
     prefix hit) the keys are the gathered view of a full table
     (``MAX_LEN`` positions), query row i sits at ``q_start + i`` and
     ``kv_len = q_start + S * kv_frac``.  ``kv_lens`` gives each batch
     row its own ``kv_len`` (padded clips of an encoder); ``causal=False``
-    drops the causal mask."""
+    drops the causal mask.  ``train_lse``: the training forward, which
+    also writes each row's log-sum-exp (no kv_len or q_start)."""
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
@@ -477,7 +505,17 @@ def flash_case(torch, F, B, S, Hq, Hkv, Dh, dtype, kv_frac, window, softcap,
         qst = torch.full((B,), q_start, dtype=torch.int32, device="cuda")
     kw = dict(causal=causal, window=window, softcap=softcap, kv_len=kv_len,
               q_start=qst)
-    got = fops.flash_attention(q, k, v, **kw)
+    if train_lse:
+        check(kv_len is None and qst is None,
+              "the training forward takes no kv_len or q_start")
+        lse = torch.empty((B, Hq, S), dtype=torch.float32, device="cuda")
+
+    def kernel(a, b, c):
+        if train_lse:
+            return fops._launch(a, b, c, causal, window, softcap, None, None,
+                                lse)
+        return fops.flash_attention(a, b, c, **kw)
+    got = kernel(q, k, v)
     want = attention_ref(q, k, v, **kw)
     torch.cuda.synchronize()
     err, ok = max_err(torch, got, want, dtype)
@@ -490,7 +528,8 @@ def flash_case(torch, F, B, S, Hq, Hkv, Dh, dtype, kv_frac, window, softcap,
            "dtype": dtype, "causal": causal, "q_start": q_start,
            "kv_len": None if kv_len is None else (
                lens if kv_lens is not None else lens[0]),
-           "window": window, "softcap": softcap, "max_abs_err": err}
+           "window": window, "softcap": softcap, "max_abs_err": err,
+           **({"writes_lse": True} if train_lse else {})}
     if not timed:
         return row
     # work this data needs: (q, key) pairs that are unmasked
@@ -507,13 +546,11 @@ def flash_case(torch, F, B, S, Hq, Hkv, Dh, dtype, kv_frac, window, softcap,
     nbytes = (2 * q.numel() + 2 * sum(lens) * Hkv * Dh) * esz
     flops = 4.0 * pairs * Dh
     sets = copies(torch, (q, k, v), (q.numel() + 2 * k.numel()) * esz)
-    ms = cuda_ms(torch, lambda a, b, c: fops.flash_attention(a, b, c, **kw),
-                 sets)
+    ms = cuda_ms(torch, kernel, sets)
     # the plain version materialises (Hq, S, Skv) float32 scores
     plain_ms = cuda_ms(torch, lambda a, b, c: attention_ref(a, b, c, **kw),
                        sets, iters=5 if B * S * Skv > 2 ** 24 else 20)
-    dev_ms, host_ms = queued_ms(
-        torch, lambda a, b, c: fops.flash_attention(a, b, c, **kw), sets)
+    dev_ms, host_ms = queued_ms(torch, kernel, sets)
     lib_ms = lib_dev_ms = None
     if softcap is None:
         # library yardstick (never called by the port): SDPA on the same
@@ -582,10 +619,17 @@ def flash_backward_case(torch, F, B, S, Hq, Hkv, Dh, dtype, causal, window,
     check(max(rel) <= BWD_TOL[dtype],
           f"{label} disagrees with the plain backward: errors relative to "
           f"each gradient's max (dq, dk, dv) {rel}")
+    # (an older checkout under --src names no bodies)
+    body = getattr(fops, "backward_body", lambda *a: None)(
+        1 if dtype == "bfloat16" else 0, Dh)
+    # the wgmma body's items per (b, kv head, key tile) on this card
+    split = (fops.backward_split(S, S, Hq, Hkv, Dh, causal, window, 1)
+             if body == "wgmma" else None)
     row = {"shape": f"B={B} S={S} Hq={Hq} Hkv={Hkv} Dh={Dh}", "dtype": dtype,
            "causal": causal, "window": window, "softcap": softcap,
            "max_abs_err": max(errs), "rel_err_dq_dk_dv": rel,
-           "repeats_bitwise": True}
+           "repeats_bitwise": True, "body": body, "split": split,
+           "ptxas": body_ptxas(body, Dh) if body else None}
     if not timed:
         return row
     # the work of the function: per valid (query, key) pair and q head,
@@ -1163,6 +1207,17 @@ def kernel_phase(torch, F):
                                  timed=False, **mamba))
         ssd_rows.append(ssd_case(torch, dtype=dtype, fused=True, law=True,
                                  timed=False, **mamba))
+    # the training forward at minicpm-2b's training shape, writing its
+    # lse (phase 18 launches it twice a layer a step under remat)
+    from repro_torch.configs.registry import REGISTRY
+
+    per_step = 2 * REGISTRY[TRAIN_ARCH].n_layers
+    for dtype in ("bfloat16", "float32"):
+        flash_rows.append(dict(flash_case(
+            torch, F, TRAIN_BATCH, TRAIN_SEQ, 36, 36, 64, dtype=dtype,
+            kv_frac=None, window=None, softcap=None,
+            timed=dtype == "bfloat16", train_lse=True),
+            case="minicpm training forward", launches_a_train_step=per_step))
     # the flash backward (phase 18's training path): minicpm-2b's training
     # shape, llama's GQA, gemma2's window with its softcap and hubert's
     # bidirectional head dim 80; both dtypes, bf16 timed
@@ -3051,7 +3106,7 @@ def kernel_group(name: str) -> str:
     """The group a profiled kernel's time is reported under."""
     if name.startswith("flash_prefill"):
         return "flash forward"
-    if name.startswith(("dkdv_", "dq_", "delta_kernel")):
+    if name.startswith(("dkdv", "dq_", "delta_")):  # both bodies' kernels
         return "flash backward"
     low = name.lower()
     if low == "kernel2" or any(w in low for w in (
@@ -3345,7 +3400,8 @@ def main(argv=None) -> int:
               f"spill stores up to {max(spills, default=0)} B (ptxas -v)")
     for name in REDESIGNED:
         if name in built:
-            print(f"ptxas[{name}]: " + json.dumps(ptxas_table(built[name][1])))
+            PTXAS[name] = ptxas_table(built[name][1])
+            print(f"ptxas[{name}]: " + json.dumps(PTXAS[name]))
     if args.kernels_only:
         head, errs = kernel_phase(torch, F)
         lm_head_case(torch)

@@ -7,13 +7,15 @@ card, a call that needs a gradient goes through :class:`_FlashAttention`:
 its forward launches ``flash_prefill`` with the row log-sum-exp saved,
 its backward launches ``flash_backward``.  ``launches`` counts forward
 launches, ``q_offset_launches`` those among them that took ``q_start``,
-``backward_launches`` the backward calls (three kernels on one stream,
-one call).
+``backward_launches`` the backward calls (one C call on one stream: a
+pre-pass, then one wgmma kernel or two mma.sync / CUDA-core kernels, as
+:func:`backward_body` says).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import functools
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -52,14 +54,104 @@ def _backward_kernel():
         lib = _build.load("flash_backward")
         fn = lib.repro_flash_backward
         fn.argtypes = (
-            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
+            [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
             + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
+        sizes = []
+        for kind in ("floats", "ints"):
+            size = getattr(lib, f"repro_flash_backward_scratch_{kind}")
+            size.argtypes = [ctypes.c_int] * 7
+            size.restype = ctypes.c_longlong
+            sizes.append(size)
+        lib.repro_flash_backward_body.argtypes = [ctypes.c_int] * 2
+        lib.repro_flash_backward_body.restype = ctypes.c_int
         lib.repro_flash_backward_error_string.argtypes = [ctypes.c_int]
         lib.repro_flash_backward_error_string.restype = ctypes.c_char_p
-        _bwd = (fn, lib.repro_flash_backward_error_string)
+        _bwd = (fn, tuple(sizes), lib.repro_flash_backward_body,
+                lib.repro_flash_backward_error_string)
     return _bwd
+
+
+# the bodies of flash_backward.cu, as its repro_flash_backward_body
+# numbers them
+BACKWARD_BODIES = ("cuda_cores", "mma_sync", "wgmma")
+BWD_TILE_Q = 64  # the wgmma body's query tile ...
+BWD_TILE_K = 128  # ... and key tile
+
+
+def backward_body(code: int, Dh: int) -> str:
+    """The body of ``flash_backward.cu`` that serves dtype ``code`` at head
+    dim ``Dh``: float32 on the CUDA cores; bf16 at Dh 64 and 128 in one
+    pass on wgmma and TMA, at Dh 16 and 80 in two passes on mma.sync."""
+    if Dh not in _build.FLASH_HEAD_DIMS or code not in (0, 1):
+        raise ValueError(f"no flash_backward body for dtype code {code} at "
+                         f"head_dim {Dh}")
+    if code == 0:
+        return "cuda_cores"
+    return "wgmma" if Dh in (64, 128) else "mma_sync"
+
+
+def backward_scratch_shapes(B: int, Sq: int, Skv: int, Hq: int, Hkv: int,
+                            Dh: int, code: int) -> Dict[str, tuple]:
+    """The scratch a ``flash_backward`` call takes, by name, float32
+    first, then int32 (zeroed): ``delta`` (B, Hq, Sq) for the two-pass
+    bodies; for the wgmma body ``lse_delta`` by query tile, ``dq_sums``
+    (each query tile's dQ partials added in key-tile order), with G > 1
+    ``dkv_sums`` (a (b, kv head, key tile)'s dK and dV added in split
+    order, whatever :func:`backward_split` picks), then ``ticket``,
+    ``turns`` (one counter per (b, q head, query tile)) and, with G > 1,
+    ``kv_turns`` (per (b, kv head, key tile) and consumer warpgroup).  The
+    library sizes the same
+    (``repro_flash_backward_scratch_*``)."""
+    if backward_body(code, Dh) != "wgmma":
+        return {"delta": (B, Hq, Sq)}
+    n_qt = -(-Sq // BWD_TILE_Q)
+    n_kt = -(-Skv // BWD_TILE_K)
+    shapes = {"lse_delta": (B, Hq, n_qt, 2, BWD_TILE_Q),
+              "dq_sums": (B, Hq, n_qt, BWD_TILE_Q, Dh)}
+    if Hq > Hkv:
+        shapes["dkv_sums"] = (2, B, Hkv, n_kt * BWD_TILE_K, Dh)
+    shapes.update(ticket=(1,), turns=(B, Hq, n_qt))
+    if Hq > Hkv:
+        shapes["kv_turns"] = (B, Hkv, n_kt, 2)
+    return shapes
+
+
+def backward_split(Sq: int, Skv: int, Hq: int, Hkv: int, Dh: int,
+                   causal: bool, window: Optional[int], code: int) -> int:
+    """How many work items the wgmma body makes of each (batch row, kv
+    head, 128-key tile) on the current card: each takes G / split of the
+    kv head's G query heads in turn, holding dK and dV in registers, and
+    with split > 1 they add dK and dV through ``dkv_sums`` in split order.
+    The library counts one batch row's tiles, so the batch size does not
+    enter and a row alone sums in its batch's order; 0 for the other
+    bodies.  Card only."""
+    fn = _build.load("flash_backward").repro_flash_backward_split
+    fn.argtypes = [ctypes.c_int] * 8
+    fn.restype = ctypes.c_int
+    return int(fn(Sq, Skv, Hq, Hkv, Dh, int(causal),
+                  int(window) if window is not None else 0, code))
+
+
+@functools.lru_cache(maxsize=None)
+def _backward_scratch_sizes(*shape_and_dtype: int) -> Tuple[int, int]:
+    """(floats, int32s) of scratch the library asks for (B, Sq, Skv, Hq,
+    Hkv, Dh, dtype code)."""
+    floats, ints = _backward_kernel()[1]
+    return int(floats(*shape_and_dtype)), int(ints(*shape_and_dtype))
+
+
+def _backward_scratch(q: torch.Tensor, k: torch.Tensor, code: int):
+    """The float32 scratch and the zeroed int32 scratch (None where the
+    body takes none) of one call, sized by the library."""
+    B, Sq, Hq, Dh = q.shape
+    n_f, n_i = _backward_scratch_sizes(B, Sq, k.shape[1], Hq, k.shape[2],
+                                       Dh, code)
+    scratch = torch.empty(n_f, dtype=torch.float32, device=q.device)
+    ints = (torch.zeros(n_i, dtype=torch.int32, device=q.device)
+            if n_i else None)
+    return scratch, ints
 
 
 def _check_shapes(q, k, v):
@@ -142,9 +234,9 @@ def flash_backward(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of :func:`flash_attention` (without ``kv_len`` and
     ``q_start``) at ``dout``, in q's dtype.  On the card one call of
-    ``flash_backward.cu`` (its three kernels); on a CPU tensor the plain
-    backward (:func:`ref.attention_backward_ref`, which needs neither
-    ``out`` nor ``lse``).  ``kv_len`` and ``q_start`` are refused: the
+    ``flash_backward.cu`` (the body :func:`backward_body` names); on a
+    CPU tensor the plain backward (:func:`ref.attention_backward_ref`,
+    which needs neither ``out`` nor ``lse``).  ``kv_len`` and ``q_start`` are refused: the
     training path never passes them."""
     global backward_launches
     if kv_len is not None or q_start is not None:
@@ -174,12 +266,13 @@ def flash_backward(
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0 or k.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
-    fn, err_str = _backward_kernel()
+    fn, _, _, err_str = _backward_kernel()
     with torch.cuda.device(q.device):
+        scratch, ints = _backward_scratch(q, k, code)
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), scratch.data_ptr(),
+            ints.data_ptr() if ints is not None else None,
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             B, Sq, Skv, Hq, Hkv, Dh, int(causal),
             int(window) if window is not None else 0,

@@ -121,7 +121,9 @@ def test_ptxas_table_reads_the_ring_and_ssd_kernels(label, registers,
 # a SASS listing with every instruction the redesigned kernels use
 _SASS = ("/*0050*/ HMMA.16816.F32.BF16 R4, R8, R12, R4 ;\n"
          "/*0090*/ @P0 LDGSTS.E.BYPASS.128 [R3], desc[UR4][R4.64] ;\n"
-         "/*00a0*/ LDSM.16.M88.4 R8, [R2] ;\n")
+         "/*00a0*/ LDSM.16.M88.4 R8, [R2] ;\n"
+         "/*00b0*/ HGMMA.64x64x16.F32.BF16 R56, gdesc[UR16], RZ, !UPT ;\n"
+         "/*00c0*/ UTMALDG.4D [UR8], [UR4] ;\n")
 
 
 @pytest.mark.parametrize("lib,drop", [
@@ -130,6 +132,8 @@ _SASS = ("/*0050*/ HMMA.16816.F32.BF16 R4, R8, R12, R4 ;\n"
     ("ring_decode", "LDGSTS"),
     ("ssd_scan", "HMMA"),
     ("flash_prefill", "LDSM"),
+    ("flash_backward", "HGMMA"),
+    ("flash_backward", "UTMALDG"),
 ])
 def test_sass_ops_flag_a_library_missing_its_instructions(lib, drop):
     """Every redesigned library must show the tensor-core product; the
@@ -529,6 +533,8 @@ def test_train_phase_names_minicpm_at_full_width_and_its_launches():
     ("dkdv_bf16_kernel", "flash backward"),
     ("dq_bf16_kernel", "flash backward"),
     ("delta_kernel", "flash backward"),
+    ("dkdvq_wgmma_kernel", "flash backward"),
+    ("delta_tiles_kernel", "flash backward"),
     ("sm90_xmma_gemm_bf16bf16_bf16f32", "cuBLAS"),
     ("nvjet_tst_128x256_64x4_1x2_h_bz_coopA_TNN", "cuBLAS"),
     ("Kernel2", "cuBLAS"),  # cuBLAS's product at minicpm's odd vocabulary
@@ -544,13 +550,14 @@ def test_kernel_group_sorts_the_profile(name, group):
 
 def test_flash_backward_is_a_kernel_of_the_line():
     """The kernels line carries flash_backward from phase 18 with its
-    note, its SASS must show the tensor-core path, and its case rows
-    come from the kernel phase."""
+    note, its SASS must show the wgmma + TMA body (HGMMA, UTMALDG) and
+    the kept mma.sync body (HMMA), and its case rows come from the
+    kernel phase."""
     source, replaces, phase = cs.KERNELS["flash_backward"]
     assert (ROOT / source).is_file() and phase == "train"
     assert replaces == "src/repro/kernels/flash_attention/kernel.py:93"
     assert "XLA" in cs.KERNEL_NOTES["flash_backward"]
-    assert cs.REDESIGNED["flash_backward"] == ("HMMA", "LDGSTS", "LDSM")
+    assert cs.REDESIGNED["flash_backward"] == ("HGMMA", "UTMALDG", "HMMA")
     head = {"flash_backward": {}, "flash_backward@llama GQA": {"x": 1}}
     assert cs.case_rows(head, "flash_backward") == {"llama GQA": {"x": 1}}
 
@@ -579,3 +586,54 @@ def test_flash_backward_case_holds_the_plain_backward_on_the_cpu(
                                   True, 8, 5.0, timed=False)
     assert row["repeats_bitwise"] and row["max_abs_err"] == 0.0
     assert row["shape"] == "B=2 S=40 Hq=4 Hkv=2 Dh=16"
+
+
+def test_backward_rows_quote_the_ptxas_rows_of_their_body(monkeypatch):
+    """A backward row names its body and carries that body's ``ptxas -v``
+    rows from the library this run built (none when it built none)."""
+    table = {"dkdvq_wgmma_kernel<64>": {"registers": 168},
+             "dkdv_bf16_kernel<80>": {"registers": 155},
+             "dq_bf16_kernel<80>": {"registers": 121},
+             "dkdv_f32_kernel<64>": {"registers": 94}}
+    monkeypatch.setattr(cs, "PTXAS", {})
+    assert cs.body_ptxas("wgmma", 64) is None
+    monkeypatch.setattr(cs, "PTXAS", {"flash_backward": table})
+    assert cs.body_ptxas("wgmma", 64) == {
+        "dkdvq_wgmma_kernel<64>": {"registers": 168}}
+    assert set(cs.body_ptxas("mma_sync", 80)) == {"dkdv_bf16_kernel<80>",
+                                                 "dq_bf16_kernel<80>"}
+    assert cs.body_ptxas("cuda_cores", 64) == {
+        "dkdv_f32_kernel<64>": {"registers": 94}}
+    assert set(cs.BODY_KERNELS) == set(
+        __import__("repro_torch.kernels.flash_attention.ops",
+                   fromlist=["x"]).BACKWARD_BODIES)
+
+
+def test_training_forward_case_writes_the_row_lse_on_the_cpu(monkeypatch):
+    """The kernel phase's training-forward row, untimed: it launches
+    through ``_launch`` with an lse buffer (stood in by the plain version
+    on the CPU, which fills it) and holds the output against the plain
+    version."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    seen = []
+
+    def launch(q, k, v, causal, window, softcap, kv_len, q_start, lse=None):
+        seen.append((kv_len, q_start, None if lse is None else lse.shape))
+        return attention_ref(q, k, v, causal=causal, window=window,
+                             softcap=softcap)
+
+    monkeypatch.setattr(fops, "_launch", launch)
+    src = (ROOT / "chip_smoke.py").read_text().replace('"cuda"', '"cpu"')
+    mod = type(cs)("chip_smoke_cpu")
+    mod.__file__ = str(ROOT / "chip_smoke.py")
+    exec(compile(src, "chip_smoke_cpu", "exec"), mod.__dict__)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    row = mod.flash_case(torch, F, 2, 40, 4, 4, 16, "float32", kv_frac=None,
+                         window=None, softcap=None, timed=False,
+                         train_lse=True)
+    assert row["writes_lse"] and row["max_abs_err"] == 0.0
+    assert seen == [(None, None, torch.Size([2, 4, 40]))]

@@ -1529,6 +1529,11 @@ BWD_CASES = [  # (B, S, Hq, Hkv, causal, window, softcap)
     pytest.param(2, 100, 8, 2, True, None, None, id="causal-G4"),
     pytest.param(2, 100, 4, 4, False, None, None, id="bidirectional"),
     pytest.param(1, 130, 8, 4, True, 24, 5.0, id="window-softcap"),
+    # S not a multiple of the wgmma body's 64-query or 128-key tiles
+    pytest.param(3, 200, 8, 2, True, None, None, id="ragged-B3"),
+    # a window of 32: every even query tile sees one 128-key tile
+    pytest.param(2, 300, 4, 4, True, 32, None, id="window-one-key-tile"),
+    pytest.param(1, 150, 12, 1, False, None, None, id="bidirectional-G12"),
 ]
 
 
@@ -1601,6 +1606,162 @@ def test_flash_backward_repeats_bitwise_and_saves_the_row_lse(card, dtype):
     s = torch.where(causal, s, torch.full_like(s, -1e30))
     want = torch.logsumexp(s, dim=-1).reshape(B, Hq, S)
     torch.testing.assert_close(lse, want, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("Dh", [64, 128])
+@pytest.mark.parametrize("B,S,Hq,Hkv,causal", [
+    (3, 1000, 4, 1, True), (3, 200, 4, 4, False), (2, 1000, 12, 1, True),
+    (1, 1000, 8, 2, False),
+])
+def test_flash_backward_wgmma_body_matches_plain(card, Dh, B, S, Hq, Hkv,
+                                                 causal):
+    """The one-pass wgmma body at the head dims it serves: ragged S (not
+    a multiple of 64 or 128), G = 1, 4 and 12, causal and not, against
+    the plain backward."""
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_backward_ref,
+    )
+
+    assert fops.backward_body(1, Dh) == "wgmma"
+    q, k, v, dout = _bwd_inputs(card, "bfloat16", B, S, Hq, Hkv, Dh, S + Hq)
+    kw = dict(causal=causal, window=None, softcap=None)
+    lse = torch.empty((B, Hq, S), dtype=torch.float32, device=card)
+    out = fops._launch(q, k, v, causal, None, None, None, None, lse)
+    got = fops.flash_backward(q, k, v, out, dout, lse, **kw)
+    torch.cuda.synchronize()
+    _grads_close(got, attention_backward_ref(q, k, v, dout, **kw),
+                 "bfloat16")
+
+
+@pytest.mark.parametrize("Dh", [64, 128])
+@pytest.mark.parametrize("Hq,Hkv,causal,window", [
+    (4, 1, True, None), (8, 8, False, None), (8, 2, True, 96),
+    (12, 1, True, None)])
+def test_flash_backward_rows_alone_equal_the_batch_bitwise(card, Dh, Hq, Hkv,
+                                                           causal, window):
+    """dQ partials are added in key-tile order and dK, dV in split order,
+    whatever the batch or the schedule (G = 4, 1, 4 and 12): each batch
+    row alone equals that row of the batch bit for bit, and two calls
+    agree bit for bit."""
+    B, S = 3, 700
+    q, k, v, dout = _bwd_inputs(card, "bfloat16", B, S, Hq, Hkv, Dh, Dh + 5)
+    kw = dict(causal=causal, window=window, softcap=None)
+    lse = torch.empty((B, Hq, S), dtype=torch.float32, device=card)
+    out = fops._launch(q, k, v, causal, window, None, None, None, lse)
+    batch = fops.flash_backward(q, k, v, out, dout, lse, **kw)
+    again = fops.flash_backward(q, k, v, out, dout, lse, **kw)
+    for b in range(B):
+        rows = [t[b:b + 1].contiguous() for t in (q, k, v, out, dout, lse)]
+        alone = fops.flash_backward(*rows, **kw)
+        for x, y in zip(alone, batch):
+            assert torch.equal(x[0], y[b])
+    for x, y in zip(batch, again):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("Dh", [64, 128])
+@pytest.mark.parametrize("S,Hq,Hkv,window,split", [
+    (2048, 32, 8, 512, 1), (1000, 32, 8, None, 2), (1000, 12, 1, None, 12)])
+def test_flash_backward_items_over_several_heads(card, Dh, S, Hq, Hkv, window,
+                                                 split):
+    """An item of the wgmma body loops over G / split of its kv head's
+    query heads with dK and dV in registers, and with split > 1 the items
+    of a key tile add dK and dV in split order.  On the H100 (132 SMs)
+    these causal shapes take split 1, 2 and G (the library counts one
+    batch row, so a row alone takes its batch's split); each against the
+    plain backward, two calls bitwise equal, and row 1 alone equal to the
+    batch's."""
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_backward_ref,
+    )
+
+    B = 2
+    assert fops.backward_split(S, S, Hq, Hkv, Dh, True, window, 1) == split
+    q, k, v, dout = _bwd_inputs(card, "bfloat16", B, S, Hq, Hkv, Dh,
+                                S + Dh + split)
+    kw = dict(causal=True, window=window, softcap=None)
+    lse = torch.empty((B, Hq, S), dtype=torch.float32, device=card)
+    out = fops._launch(q, k, v, True, window, None, None, None, lse)
+    got = fops.flash_backward(q, k, v, out, dout, lse, **kw)
+    again = fops.flash_backward(q, k, v, out, dout, lse, **kw)
+    alone = fops.flash_backward(
+        *(t[1:].contiguous() for t in (q, k, v, out, dout, lse)), **kw)
+    torch.cuda.synchronize()
+    for x, y, z in zip(got, again, alone):
+        assert torch.equal(x, y) and torch.equal(x[1], z[0])
+    _grads_close(got, attention_backward_ref(q, k, v, dout, **kw),
+                 "bfloat16")
+
+
+_LARGE_GRID = """
+import sys, torch
+from repro_torch.kernels.flash_attention import ops as fops
+from repro_torch.kernels.flash_attention.ref import attention_backward_ref
+torch.backends.cuda.matmul.allow_tf32 = False
+B, S, Hq, Hkv, Dh = 8, 4096, 32, 8, 128
+g = torch.Generator(device="cuda").manual_seed(0)
+q, k, v, dout = (torch.randn(s, generator=g, device="cuda").bfloat16()
+                 for s in ((B, S, Hq, Dh), (B, S, Hkv, Dh), (B, S, Hkv, Dh),
+                           (B, S, Hq, Dh)))
+lse = torch.empty((B, Hq, S), dtype=torch.float32, device="cuda")
+out = fops._launch(q, k, v, True, None, None, None, None, lse)
+got = fops.flash_backward(q, k, v, out, dout, lse)
+again = fops.flash_backward(q, k, v, out, dout, lse)
+torch.cuda.synchronize()
+assert all(torch.equal(a, b) for a, b in zip(got, again))
+assert all(bool(torch.isfinite(a).all()) for a in got)
+want = attention_backward_ref(q[:1], k[:1], v[:1], dout[:1])
+errs = [float((a[:1].float() - w).abs().max() / w.abs().max())
+        for a, w in zip(got, want)]
+print("rel", errs)
+sys.exit(0 if max(errs) <= 2e-2 else 1)
+"""
+
+
+def test_flash_backward_grid_far_beyond_the_resident_blocks(card, tmp_path):
+    """B=8, S=4,096, 32/8 heads at Dh 128: 8,192 work items on a
+    persistent grid of one block an SM, every query tile's dQ summed in
+    key-tile order across blocks.  Run in a child process with a time
+    limit, so that a deadlock fails the test instead of stalling the
+    suite; batch row 0 against the plain backward."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    src = Path(__file__).resolve().parents[1] / "src"
+    script = tmp_path / "large_grid.py"
+    script.write_text(_LARGE_GRID)
+    env = dict(__import__("os").environ, PYTHONPATH=str(src))
+    r = subprocess.run([sys.executable, str(script)], env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr[-3000:]
+
+
+@pytest.mark.parametrize("B,Sq,Skv,Hq,Hkv,Dh,dtype", [
+    (4, 1024, 1024, 36, 36, 64, 1), (3, 1000, 1000, 32, 8, 128, 1),
+    (2, 100, 100, 8, 2, 16, 1), (2, 750, 750, 16, 16, 80, 1),
+    (1, 200, 200, 4, 4, 64, 0),
+])
+def test_flash_backward_scratch_is_what_the_library_sizes(
+        card, B, Sq, Skv, Hq, Hkv, Dh, dtype):
+    """The library owns the tiling: its scratch sizes are the sums of the
+    shapes ``backward_scratch_shapes`` names, float32 then int32, its body
+    is ``backward_body``'s, and the wrapper allocates exactly that."""
+    fn, (floats, ints), body, _ = fops._backward_kernel()
+    shapes = fops.backward_scratch_shapes(B, Sq, Skv, Hq, Hkv, Dh, dtype)
+    n = {name: math.prod(shape) for name, shape in shapes.items()}
+    int_names = {"ticket", "turns", "kv_turns"}
+    args = (B, Sq, Skv, Hq, Hkv, Dh, dtype)
+    assert floats(*args) == sum(v for k, v in n.items() if k not in int_names)
+    assert ints(*args) == sum(v for k, v in n.items() if k in int_names)
+    assert fops.BACKWARD_BODIES[body(Dh, dtype)] == \
+        fops.backward_body(dtype, Dh)
+    dt = torch.bfloat16 if dtype else torch.float32
+    q = torch.empty((B, Sq, Hq, Dh), dtype=dt, device=card)
+    k = torch.empty((B, Skv, Hkv, Dh), dtype=dt, device=card)
+    scratch, zeroed = fops._backward_scratch(q, k, dtype)
+    assert scratch.numel() == floats(*args)
+    assert (0 if zeroed is None else zeroed.numel()) == ints(*args)
 
 
 def test_flash_backward_refuses_kv_len_and_q_start(card):

@@ -136,6 +136,85 @@ def test_backward_switch_names_the_flash_head_dims():
     assert "atomicAdd" not in text  # a call repeats bitwise
 
 
+@pytest.mark.parametrize("code,Dh,body", [
+    (1, 64, "wgmma"), (1, 128, "wgmma"), (1, 16, "mma_sync"),
+    (1, 80, "mma_sync"), (0, 64, "cuda_cores"), (0, 128, "cuda_cores"),
+    (0, 16, "cuda_cores"), (0, 80, "cuda_cores"),
+])
+def test_backward_body_by_dtype_and_head_dim(code, Dh, body):
+    """bf16 at Dh 64 and 128 (every model the port trains at full width)
+    goes to the one-pass wgmma body, bf16 at Dh 16 and 80 to the two-pass
+    mma.sync body, float32 to the CUDA cores."""
+    assert fops.backward_body(code, Dh) == body
+    assert body in fops.BACKWARD_BODIES
+
+
+@pytest.mark.parametrize("code,Dh", [(1, 96), (1, 256), (2, 64), (0, 32)])
+def test_backward_body_refuses_what_no_body_takes(code, Dh):
+    with pytest.raises(ValueError, match="no flash_backward body"):
+        fops.backward_body(code, Dh)
+
+
+def test_backward_scratch_shapes_follow_the_body_and_the_tiles():
+    """The wgmma body's scratch: lse/delta and dQ sums by 64-row query
+    tile, a ticket and one turn per (b, q head, query tile), and with
+    G > 1 the dK/dV sums and turns per (b, kv head, 128-key tile, half);
+    the two-pass bodies take delta alone."""
+    mha = fops.backward_scratch_shapes(4, 1024, 1024, 36, 36, 64, 1)
+    assert mha == {"lse_delta": (4, 36, 16, 2, 64),
+                   "dq_sums": (4, 36, 16, 64, 64),
+                   "ticket": (1,), "turns": (4, 36, 16)}
+    gqa = fops.backward_scratch_shapes(3, 1000, 1000, 32, 8, 128, 1)
+    assert gqa == {"lse_delta": (3, 32, 16, 2, 64),
+                   "dq_sums": (3, 32, 16, 64, 128),
+                   "dkv_sums": (2, 3, 8, 1024, 128),
+                   "ticket": (1,), "turns": (3, 32, 16),
+                   "kv_turns": (3, 8, 8, 2)}
+    for code, Dh in ((1, 16), (1, 80), (0, 64), (0, 128)):
+        assert fops.backward_scratch_shapes(2, 100, 100, 8, 2, Dh, code) \
+            == {"delta": (2, 8, 100)}
+
+
+def test_backward_scratch_is_what_the_library_asks_for(monkeypatch):
+    """The wrapper allocates the float32 scratch and the zeroed int32
+    scratch the library sizes (a stand-in library here: the CPU builds
+    none), and no int32 scratch where it asks for none."""
+    asked = []
+
+    def sizes(kind, n):
+        def size(*args):
+            asked.append((kind, args))
+            return n
+        return size
+
+    for n_ints in (7, 0):
+        monkeypatch.setattr(fops, "_bwd", (None, (sizes("floats", 11),
+                                                  sizes("ints", n_ints)),
+                                           None, None))
+        fops._backward_scratch_sizes.cache_clear()
+        q = torch.zeros((2, 100, 8, 64))
+        k = torch.zeros((2, 90, 2, 64))
+        scratch, ints = fops._backward_scratch(q, k, 1)
+        assert scratch.dtype == torch.float32 and scratch.numel() == 11
+        assert asked[-1] == ("ints", (2, 100, 90, 8, 2, 64, 1))
+        if n_ints:
+            assert ints.dtype == torch.int32 and ints.numel() == n_ints
+            assert not ints.any()
+        else:
+            assert ints is None
+    fops._backward_scratch_sizes.cache_clear()
+
+
+def test_backward_source_adds_no_floats_atomically():
+    """No float atomic and no float reduction in the backward or its
+    helpers: the only atomics are the int32 ticket and turn counters."""
+    for name in ("flash_backward.cu", "hopper.cuh"):
+        text = (_build.CSRC / name).read_text()
+        assert "atomicAdd" not in text and "cp.reduce" not in text
+        ops = re.findall(r"\b(?:red|atom)\.[\w.:]+", text)
+        assert all(op.endswith(".s32") for op in ops), ops
+
+
 # ---------------------------------------------------------------------------
 # The train step
 # ---------------------------------------------------------------------------
