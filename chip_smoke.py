@@ -117,7 +117,12 @@ Phases, in order; any failure exits non-zero:
    steps with exact flash_prefill / flash_backward launches and a loss
    that falls, the median step, tokens/s, peak and one step's device
    time by kernel group, and a checkpoint round trip at reduced size
-   that repeats a step bit for bit.
+   that repeats a step bit for bit;
+19. mamba2-2.7b at full width and depth (64 layers, 80 SSM heads of 64,
+   state 128, 2.70 B params) trained as phase 18: every Mamba2 layer's
+   gradient through ``ssd_backward`` (the forward writing the state
+   entering each 64-row sub-chunk), 128 ssd_scan and 64 ssd_backward
+   launches a step and no attention kernel; no checkpoint round trip.
 
 The kernel phase holds flash_prefill at head dim 80 without the causal
 mask (hubert's) in both dtypes and times it at hubert's shape beside
@@ -127,7 +132,13 @@ flash_backward (dq, dk, dv) against the plain backward at minicpm's
 training shape, llama's GQA, gemma2's window and softcap and hubert's
 head dim 80, in both dtypes, each call repeated bit for bit, timed in
 bf16 beside SDPA's backward, each row naming the body it ran and that
-body's ``ptxas -v`` rows.
+body's ``ptxas -v`` rows.  It holds ssd_scan at mamba2-2.7b's training
+shape writing its sub-chunk states (held against the plain recurrence's)
+and ssd_backward (dx, ddt, dA, dB, dC) against the plain backward at the
+SSD sweep's shapes and the training shape, with and without a final-state
+cotangent, in both dtypes, each call repeated bit for bit and the last
+batch rows alone equal to the batch; both timed in bf16 at the training
+shape.
 
 It prints the ``kernels`` JSON line and, last, the device line.
 
@@ -165,6 +176,11 @@ TOL = {"bfloat16": 2e-2, "float32": 2e-5}  # tests/test_kernels.py:18
 # the SSD scan's, scale-normalised by the reference's largest magnitude
 # (tests/test_kernels.py:256-262)
 SSD_TOL = {"bfloat16": 3e-2, "float32": 1e-5}
+# the SSD backward against autograd through the float32 plain scan, each
+# gradient relative to its largest magnitude.  Both compute in float32;
+# dA sums B * S terms (4,096 at mamba2's training shape) in another
+# order, and bf16 rounds dx, dB and dC once on output (2^-9)
+SSD_BWD_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 # Near-argmax replay margin for the bf16 model.  The served path and the
 # replay round bf16 activations at different points: attention output
 # (kernel vs plain), and every projection, since served decode runs its
@@ -230,6 +246,9 @@ TRAIN_STEPS = 5
 TRAIN_LOSS_TOL = 1e-2
 TRAIN_GRAD_TOL = 5e-2
 TRAIN_GRAD_RATIO = 1.25
+# phase 19: mamba2-2.7b trained at full width and depth as phase 18
+# trains minicpm-2b (the same batch, remat, CE chunks, steps and limits)
+MAMBA_TRAIN_ARCH = "mamba2-2.7b"
 
 
 def check(cond: bool, msg: str) -> None:
@@ -251,18 +270,24 @@ def card_identity() -> str:
 # What the compiler made of the redesigned kernels
 # ---------------------------------------------------------------------------
 
-# the kernels rebuilt on the tensor cores, and what the SASS of each
-# library must show: the tensor-core product (HMMA for mma.sync, HGMMA
-# for wgmma), the async copy (LDGSTS for cp.async, UTMALDG for a TMA
-# tensor load), ldmatrix (LDSM).  flash_backward's bf16 body at Dh 64
-# and 128 is wgmma + TMA; at Dh 16 and 80 it keeps mma.sync (HMMA)
+# what the SASS of each library must show: for the kernels rebuilt on
+# the tensor cores the tensor-core product (HMMA for mma.sync, HGMMA for
+# wgmma), the async copy (LDGSTS for cp.async, UTMALDG for a TMA tensor
+# load), ldmatrix (LDSM).  flash_backward's bf16 body at Dh 64 and 128 is
+# wgmma + TMA; at Dh 16 and 80 it keeps mma.sync (HMMA).  ssd_backward's
+# first body runs on the float32 CUDA cores: the fused multiply-add and
+# the exponential's MUFU.EX2
 REDESIGNED = {
     "flash_prefill": ("HMMA", "LDGSTS", "LDSM"),
     "flash_backward": ("HGMMA", "UTMALDG", "HMMA"),
     "paged_attention": ("HMMA", "LDGSTS", "LDSM"),
     "ring_decode": ("HMMA", "LDGSTS", "LDSM"),
     "ssd_scan": ("HMMA", "LDGSTS", "LDSM"),
+    "ssd_backward": ("FFMA", "MUFU.EX2"),
 }
+# what the SASS of a library must not show: the backward kernels add in
+# a fixed order, with no atomic (ATOM global or shared, RED)
+FORBIDDEN = {"ssd_backward": ("ATOM", " RED.")}
 
 
 def _mangled_name(mangled: str) -> str:
@@ -336,8 +361,11 @@ def sass_listings(_build):
 
 def sass_ops(listings):
     """{library: {op: shown}}: whether each redesigned library's SASS
-    listing shows each instruction ``REDESIGNED`` requires of it."""
-    return {name: {op: op in listings[name] for op in ops}
+    listing shows each instruction ``REDESIGNED`` requires of it, and
+    ``{"no " + op: absent}`` for each one ``FORBIDDEN`` rules out."""
+    return {name: {**{op: op in listings[name] for op in ops},
+                   **{f"no {op.strip()}": op not in listings[name]
+                      for op in FORBIDDEN.get(name, ())}}
             for name, ops in REDESIGNED.items()}
 
 
@@ -915,15 +943,37 @@ def model_law(torch, g, B, S, H):
     return torch.nn.functional.softplus(dt_raw + dt_bias), A
 
 
+def plain_sub_chunk_states(torch, x, dt, A, Bm, Cm):
+    """The plain recurrence's state entering each of the kernels' 64-row
+    sub-chunks, (B, n_sub, H, P, N) float32: what the training forward
+    writes for the backward."""
+    from repro_torch.kernels.ssd.ops import SUB_CHUNK
+    from repro_torch.kernels.ssd.ref import ssd_decode_step
+
+    B, S, H, P = x.shape
+    state = torch.zeros((B, H, P, Bm.shape[-1]), dtype=torch.float32,
+                        device=x.device)
+    out = []
+    for t in range(S):
+        if t % SUB_CHUNK == 0:
+            out.append(state)
+        _, state = ssd_decode_step(x[:, t], dt[:, t], A, Bm[:, t], Cm[:, t],
+                                   state)
+    return torch.stack(out, dim=1)
+
+
 def ssd_case(torch, B, S, H, P, N, chunk, dtype, timed: bool, length=None,
-             fused=False, law=False):
+             fused=False, law=False, train_states=False):
     """One SSD scan case.  ``length``: x = dt = 0 past it (the model's
     pad tail), so the final state must be the one after ``length``
     tokens.  ``fused``: x, B and C are slices of one (B, S, conv_dim)
     tensor, as the model passes them (only such a case is timed).
     ``law``: dt and A under the model's law (``model_law``), whose long
     memory carries across every sub-chunk and chunk; otherwise dt is
-    about 0.7 and A about -1, a memory of about 2 tokens."""
+    about 0.7 and A about -1, a memory of about 2 tokens.
+    ``train_states``: the training forward, which also writes the state
+    entering each sub-chunk (held against the plain recurrence's; timed
+    so)."""
     from repro_torch.kernels.ssd import ops as sops
     from repro_torch.kernels.ssd.ref import ssd_ref
 
@@ -954,11 +1004,21 @@ def ssd_case(torch, B, S, H, P, N, chunk, dtype, timed: bool, length=None,
     if length is not None:
         x[:, length:] = 0
         dt[:, length:] = 0
-    y, st = sops.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
+    states = None
+    if train_states:
+        states = torch.empty(sops.states_shape(B, S, H, P, N),
+                             dtype=torch.float32, device="cuda")
+        y, st = sops._launch(x, dt, A, Bm, Cm, states)
+    else:
+        y, st = sops.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
     yr, sr = ssd_ref(x, dt, A, Bm, Cm)
     torch.cuda.synchronize()
     errs, scaled = [], []
-    for got, want in ((y, yr), (st, sr)):
+    pairs = [(y, yr), (st, sr)]
+    if train_states:
+        pairs.append((states, plain_sub_chunk_states(torch, x, dt, A, Bm,
+                                                     Cm)))
+    for got, want in pairs:
         e = float((got.float() - want.float()).abs().max())
         errs.append(e)
         scaled.append(e / (float(want.float().abs().max()) + 1e-9))
@@ -979,6 +1039,9 @@ def ssd_case(torch, B, S, H, P, N, chunk, dtype, timed: bool, length=None,
            "dtype": dtype, "length": length, "fused": fused, "law": law,
            "max_abs_err": max(errs), "scaled_err_y": scaled[0],
            "scaled_err_state": scaled[1]}
+    if train_states:
+        row.update(writes_states=True, scaled_err_states=scaled[2],
+                   states_gb=states.numel() * 4 / 1e9)
     if not timed:
         return row
     # bytes: x, dt, A, B, C read once, y and the state written once;
@@ -988,7 +1051,8 @@ def ssd_case(torch, B, S, H, P, N, chunk, dtype, timed: bool, length=None,
     esz = x.element_size()
     L = min(chunk, S)
     nbytes = (2 * B * S * H * P + 2 * B * S * N) * esz \
-        + (B * S * H + H + B * H * P * N) * 4
+        + (B * S * H + H + B * H * P * N) * 4 \
+        + (states.numel() * 4 if train_states else 0)
     flops = float(B * (S // L)) * (L * (L + 1) * N
                                     + H * (L * (L + 1) * P + 4 * L * N * P))
     sets = copies(torch, (xbc, dt), xbc.numel() * esz + dt.numel() * 4)
@@ -999,17 +1063,141 @@ def ssd_case(torch, B, S, H, P, N, chunk, dtype, timed: bool, length=None,
             return fn(x_, dt_, A, b_, c_)
         return call
 
-    ms = cuda_ms(torch, on_views(partial(sops.ssd_scan, chunk=chunk)), sets)
+    call = (partial(sops._launch, states=states) if train_states
+            else partial(sops.ssd_scan, chunk=chunk))
+    ms = cuda_ms(torch, on_views(call), sets)
     plain_ms = cuda_ms(torch, on_views(ssd_ref), sets, iters=5)
-    dev_ms, host_ms = queued_ms(
-        torch, on_views(partial(sops.ssd_scan, chunk=chunk)), sets)
-    by_kernel = device_ms_by_kernel(
-        torch, lambda: sops.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk))
+    dev_ms, host_ms = queued_ms(torch, on_views(call), sets)
+    by_kernel = device_ms_by_kernel(torch, lambda: call(x, dt, A, Bm, Cm))
     b_ms, b_by = bound(flops, nbytes, dtype)
     row.update(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
                bound_by=b_by, device_ms=dev_ms, host_ms=host_ms,
                library_device_ms=None, bytes=nbytes, flops=flops,
                library_note="no single PyTorch call computes the SSD scan",
+               device_ms_by_kernel=by_kernel)
+    row.update(ratios(row))
+    return row
+
+
+def ssd_backward_case(torch, B, S, H, P, N, dtype, dstate: bool,
+                      timed: bool, fused=False):
+    """One SSD backward case: the training forward (``ssd_scan`` writing
+    the state entering each sub-chunk), then (dx, ddt, dA, dB, dC) from
+    ``ssd_backward`` against autograd through the float32 plain scan on
+    the same inputs (``ssd_backward_ref``), each relative to its largest
+    magnitude (``SSD_BWD_TOL``), with a cotangent on the final state when
+    ``dstate``; a second call must repeat the first bit for bit, and for
+    B > 1 the last rows alone must equal theirs in the batch (dA, a sum
+    over the batch, aside).  ``fused``: x, B and C are slices of one
+    (B, S, conv_dim) tensor, as the model passes them.  Timed: the kernel
+    call and the plain backward."""
+    from repro_torch.kernels.ssd import ops as sops
+    from repro_torch.kernels.ssd.ref import ssd_backward_ref
+
+    dt_ = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(S * 13 + H + N + dstate)
+    di = H * P
+    def split(t):
+        return (t[..., :di].reshape(B, S, H, P), t[..., di: di + N],
+                t[..., di + N:])
+
+    if fused:
+        xbc = torch.randn((B, S, di + 2 * N), generator=g, device="cuda")
+        xbc[..., di:] *= 0.3
+        xbc = xbc.to(dt_)
+        x, Bm, Cm = split(xbc)
+    else:
+        x = torch.randn((B, S, H, P), generator=g, device="cuda").to(dt_)
+        Bm = (torch.randn((B, S, N), generator=g, device="cuda") * 0.3).to(dt_)
+        Cm = (torch.randn((B, S, N), generator=g, device="cuda") * 0.3).to(dt_)
+    dt = torch.nn.functional.softplus(
+        torch.randn((B, S, H), generator=g, device="cuda"))
+    A = -torch.exp(torch.randn((H,), generator=g, device="cuda") * 0.3)
+    dy = torch.randn((B, S, H, P), generator=g, device="cuda").to(dt_)
+    ds = (torch.randn((B, H, P, N), generator=g, device="cuda") if dstate
+          else None)
+    states = torch.empty(sops.states_shape(B, S, H, P, N),
+                         dtype=torch.float32, device="cuda")
+    sops._launch(x, dt, A, Bm, Cm, states)
+    got = sops.ssd_backward(x, dt, A, Bm, Cm, dy, states, ds)
+    again = sops.ssd_backward(x, dt, A, Bm, Cm, dy, states, ds)
+    want = ssd_backward_ref(x, dt, A, Bm, Cm, dy, ds)
+    torch.cuda.synchronize()
+    label = (f"ssd_backward at B={B} S={S} H={H} P={P} N={N} {dtype} "
+             f"dstate={dstate} fused={fused}")
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"{label}: two calls differ")
+    alone = None
+    if B > 1:
+        one = sops.ssd_backward(
+            x[1:], dt[1:], A, Bm[1:], Cm[1:], dy[1:], states[1:],
+            None if ds is None else ds[1:])
+        alone = all(torch.equal(a, b[1:]) for i, (a, b) in
+                    enumerate(zip(one, got)) if i != 2)
+        check(alone, f"{label}: the last rows alone differ from the batch")
+    errs, rel = [], []
+    for a, b in zip(got, want):
+        check(bool(torch.isfinite(a).all()), f"{label}: non-finite values")
+        e = float((a.float() - b).abs().max())
+        errs.append(e)
+        rel.append(e / (float(b.abs().max()) + 1e-30))
+    check(max(rel) <= SSD_BWD_TOL[dtype],
+          f"{label} disagrees with the plain backward: errors relative to "
+          f"each gradient's max (dx, ddt, dA, dB, dC) {rel}")
+    row = {"shape": f"B={B} S={S} H={H} P={P} N={N}", "dtype": dtype,
+           "dstate": dstate, "fused": fused, "max_abs_err": max(errs),
+           "rel_err_dx_ddt_dA_dB_dC": rel, "repeats_bitwise": True,
+           "row_alone_equals_batch": alone,
+           "ptxas": {k: v for k, v in PTXAS.get("ssd_backward", {}).items()
+                     if k.endswith(f"<float,{N}>" if dtype == "float32"
+                                   else f"<{N}>")
+                     or k.startswith("ssd_bwd_sum")} or None}
+    if not timed:
+        return row
+    # bytes: the function's inputs x, dt, A, B, C, dy (and dstate) read
+    # once and dx, ddt, dA, dB, dC written once (the forward's states are
+    # the design's own traffic, not counted); operations: per (b, h) and
+    # 64-row sub-chunk of T = 64 * 65 / 2 causal pairs, dy.x^T, the
+    # intra-chunk dx, dB and dC (T P, T P, 2 T N) and the state terms of
+    # dx, dB, dC and the state gradient's walk (4 L N P); C.B^T (T N) once
+    # per (b, sub-chunk), shared by the heads
+    esz = x.element_size()
+    L = sops.SUB_CHUNK
+    n_sub = -(-S // L)
+    T = L * (L + 1) // 2
+    nbytes = (3 * B * S * H * P + 4 * B * S * N) * esz \
+        + (2 * B * S * H + 2 * H) * 4 + (ds.numel() * 4 if dstate else 0)
+    macs = B * n_sub * (T * N + H * (2 * T * P + 2 * T * N + 4 * L * N * P))
+    flops = 2.0 * macs
+    sets = copies(torch, (xbc if fused else x, dt, dy, states), nbytes)
+
+    def on_views(fn):
+        def call(s_, dt__, dy_, st_):
+            if fused:
+                x_, b_, c_ = split(s_)
+            else:
+                x_, b_, c_ = s_, Bm, Cm
+            return fn(x_, dt__, A, b_, c_, dy_, st_)
+        return call
+
+    def kernel(x_, dt__, A_, b_, c_, dy_, st_):
+        return sops.ssd_backward(x_, dt__, A_, b_, c_, dy_, st_, ds)
+
+    def plain(x_, dt__, A_, b_, c_, dy_, st_):
+        return ssd_backward_ref(x_, dt__, A_, b_, c_, dy_, ds)
+
+    ms = cuda_ms(torch, on_views(kernel), sets)
+    plain_ms = cuda_ms(torch, on_views(plain), sets, iters=2)
+    dev_ms, host_ms = queued_ms(torch, on_views(kernel), sets)
+    by_kernel = device_ms_by_kernel(
+        torch, lambda: kernel(x, dt, A, Bm, Cm, dy, states))
+    b_ms, b_by = bound(flops, nbytes, dtype)
+    row.update(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+               bound_by=b_by, device_ms=dev_ms, host_ms=host_ms,
+               library_device_ms=None, bytes=nbytes, flops=flops,
+               states_bytes=states.numel() * 4,
+               library_note="no single PyTorch call computes the SSD "
+                            "scan's backward",
                device_ms_by_kernel=by_kernel)
     row.update(ratios(row))
     return row
@@ -1207,10 +1395,34 @@ def kernel_phase(torch, F):
                                  timed=False, **mamba))
         ssd_rows.append(ssd_case(torch, dtype=dtype, fused=True, law=True,
                                  timed=False, **mamba))
-    # the training forward at minicpm-2b's training shape, writing its
-    # lse (phase 18 launches it twice a layer a step under remat)
+    # the training forward at mamba2-2.7b's training shape, writing the
+    # state entering each sub-chunk (phase 19 launches it twice a layer a
+    # step under remat)
     from repro_torch.configs.registry import REGISTRY
 
+    mamba_train = dict(B=TRAIN_BATCH, S=TRAIN_SEQ, H=80, P=64, N=128)
+    per_step = 2 * REGISTRY[MAMBA_TRAIN_ARCH].n_layers
+    for dtype in ("bfloat16", "float32"):
+        ssd_rows.append(dict(ssd_case(
+            torch, chunk=256, dtype=dtype, fused=True,
+            timed=dtype == "bfloat16", train_states=True, **mamba_train),
+            case="mamba2 training forward", launches_a_train_step=per_step))
+    # the SSD backward (phase 19's training path): the sweep of
+    # tests/test_kernels.py:237 and mamba2-2.7b's training shape (x, B and
+    # C slices of one tensor), with and without a cotangent on the final
+    # state, both dtypes; the training shape timed in bf16
+    ssd_bwd_rows = []
+    for dtype in ("bfloat16", "float32"):
+        for dstate in (False, True):
+            ssd_bwd_rows.append(ssd_backward_case(
+                torch, dtype=dtype, dstate=dstate, fused=True,
+                timed=dtype == "bfloat16" and not dstate, **mamba_train))
+            for B, S, H, P, N in ((2, 256, 4, 64, 128), (1, 512, 8, 32, 64),
+                                  (2, 128, 2, 64, 32), (1, 96, 4, 16, 16)):
+                ssd_bwd_rows.append(ssd_backward_case(
+                    torch, B, S, H, P, N, dtype, dstate, timed=False))
+    # the training forward at minicpm-2b's training shape, writing its
+    # lse (phase 18 launches it twice a layer a step under remat)
     per_step = 2 * REGISTRY[TRAIN_ARCH].n_layers
     for dtype in ("bfloat16", "float32"):
         flash_rows.append(dict(flash_case(
@@ -1239,6 +1451,7 @@ def kernel_phase(torch, F):
             "ring_decode": decode_rows,
             "paged_decode": paged_rows[1],
             "paged_verify": paged_rows[SPEC_K + 1], "ssd_scan": ssd_rows,
+            "ssd_backward": ssd_bwd_rows,
             "ring_decode@shard": decode_shard_rows,
             "paged_decode@shard": paged_shard_rows[1],
             "paged_verify@shard": paged_shard_rows[SPEC_K + 1]}
@@ -1249,6 +1462,11 @@ def kernel_phase(torch, F):
           + json.dumps({d: [max(r[k] for r in ssd_rows if r["dtype"] == d)
                             for k in ("scaled_err_y", "scaled_err_state")]
                         for d in ("bfloat16", "float32")}))
+    print("ssd_backward worst error relative to each gradient's max, (dx, "
+          "ddt, dA, dB, dC), by dtype: " + json.dumps(
+              {d: [max(r["rel_err_dx_ddt_dA_dB_dC"][i] for r in ssd_bwd_rows
+                       if r["dtype"] == d) for i in range(5)]
+               for d in ("bfloat16", "float32")}))
     head = {name: next(r for r in rs if "ms" in r and "case" not in r)
             for name, rs in rows.items()}
     head.update({f"{name}@{r['case']}": r for name, rs in rows.items()
@@ -1364,7 +1582,7 @@ def serve_phase(torch, arch, label, per_iter, params=None, tp=0,
     dops.launches = 0
     dops.paged_launches.clear()
     dops.sharded_launches.clear()
-    sops.launches = 0
+    sops.launches = sops.backward_launches = 0
     graphs0 = (jitcache.capture_count(), jitcache.replay_count())
     t0 = time.perf_counter()
     m = cluster.run(reqs)
@@ -2608,7 +2826,7 @@ def kernel_path_phase(torch, arch):
     fops.launches = fops.q_offset_launches = fops.backward_launches = 0
     dops.launches = 0
     dops.paged_launches.clear()
-    sops.launches = 0
+    sops.launches = sops.backward_launches = 0
     torch.cuda.reset_peak_memory_stats()
     walls = {"prefill": [], "decode": []}
     logits, cache = timed(torch, M.prefill, walls["prefill"])(
@@ -2853,7 +3071,7 @@ def zero_launch_counts():
     dops.launches = 0
     dops.paged_launches.clear()
     dops.sharded_launches.clear()
-    sops.launches = 0
+    sops.launches = sops.backward_launches = 0
 
 
 def hubert_frames(torch, d_model):
@@ -3075,17 +3293,26 @@ def train_batch(torch, vocab: int, seed: int = 0):
 
 
 def train_launches(cfg, remat: bool = True) -> dict:
-    """A train step's launches: flash_prefill once a layer in the forward
-    and once more in the remat recompute, flash_backward once a layer."""
-    return {"flash_prefill": (2 if remat else 1) * cfg.n_layers,
-            "flash_backward": cfg.n_layers}
+    """A train step's launches: each attention layer's flash_prefill and
+    each Mamba2 layer's ssd_scan once in the forward and once more in the
+    remat recompute, and each one's backward (flash_backward,
+    ssd_backward) once."""
+    per = {m: sum(s.mixer == m for s in cfg.block_pattern) * cfg.n_blocks
+           for m in ("attn", "mamba")}
+    fwd = 2 if remat else 1
+    return {"flash_prefill": fwd * per["attn"],
+            "flash_backward": per["attn"],
+            "ssd_scan": fwd * per["mamba"], "ssd_backward": per["mamba"]}
 
 
 def train_counts() -> dict:
     from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.ssd import ops as sops
 
     return {"flash_prefill": fops.launches,
-            "flash_backward": fops.backward_launches}
+            "flash_backward": fops.backward_launches,
+            "ssd_scan": sops.launches,
+            "ssd_backward": sops.backward_launches}
 
 
 def named_leaves(tree, prefix=""):
@@ -3108,6 +3335,8 @@ def kernel_group(name: str) -> str:
         return "flash forward"
     if name.startswith(("dkdv", "dq_", "delta_")):  # both bodies' kernels
         return "flash backward"
+    if name.startswith("ssd_"):  # the scan and its backward
+        return "ssd"
     low = name.lower()
     if low == "kernel2" or any(w in low for w in (
             "gemm", "cutlass", "xmma", "cublas", "sm90", "nvjet")):
@@ -3166,18 +3395,19 @@ def checkpoint_round_trip(torch, tmpdir: str):
             "leaves": len(leaves(like))}
 
 
-def train_phase(torch):
-    """Phase 18: minicpm-2b at full width and depth in bf16 trained on
-    ``launch/train.py``'s synthetic batch (B=4, S=1,024), remat on, the
-    CE over 512-token chunks.  Step 1's loss through the kernels against
+def train_phase(torch, arch=TRAIN_ARCH, key="train", round_trip=True):
+    """Phase 18 (phase 19 with ``arch`` mamba2-2.7b, ``key`` train-mamba
+    and no ``round_trip``): ``arch`` at full width and depth in bf16
+    trained on ``launch/train.py``'s synthetic batch (B=4, S=1,024),
+    remat on, the CE over 512-token chunks.  Step 1's loss through the kernels against
     the plain path on the same weights, and every leaf's gradient against
     the plain path on a float32 copy of them (``TRAIN_GRAD_TOL``,
     ``TRAIN_GRAD_RATIO``); then
     ``TRAIN_STEPS`` steps of WSD on the one batch: exact launches a step
     (``train_launches``), a falling loss, the median step and tokens/s,
     the peak, one step's device time by kernel group; then the checkpoint
-    round trip at reduced size.  Frees its weights; returns the launch
-    counts and stats."""
+    round trip at reduced size.  Frees its weights; returns ``{key:
+    (launch counts, stats)}``."""
     import dataclasses
     import tempfile
 
@@ -3190,7 +3420,7 @@ def train_phase(torch):
     from repro_torch.training._tree import leaves, tree_map
     from repro_torch.training.trainstep import make_grad_fn
 
-    cfg, params = init_model(torch, TRAIN_ARCH)
+    cfg, params = init_model(torch, arch)
     batch = train_batch(torch, cfg.vocab_size)
     tcfg = TrainStepConfig(ce_chunk=TRAIN_CE_CHUNK, remat=True)
     want = train_launches(cfg)
@@ -3290,15 +3520,25 @@ def train_phase(torch):
              "device_busy_ms": sum(by_group.values()),
              "device_ms_by_group": by_group,
              "top_kernels_ms": top(by_kernel, 8), "step1": step1}
-    print("train[minicpm-2b]: " + json.dumps(stats))
-    peak_line("train", stats)
+    print(f"train[{cfg.name}]: " + json.dumps(stats))
+    peak_line(key, stats)
     del params, opt, batch, m, prof
     free(torch)
-    with tempfile.TemporaryDirectory() as d:
-        stats["checkpoint"] = checkpoint_round_trip(torch, d)
-    print("train[checkpoint round trip]: " + json.dumps(stats["checkpoint"]))
-    free(torch)
-    return {"train": (launches, stats)}
+    if round_trip:
+        with tempfile.TemporaryDirectory() as d:
+            stats["checkpoint"] = checkpoint_round_trip(torch, d)
+        print("train[checkpoint round trip]: "
+              + json.dumps(stats["checkpoint"]))
+        free(torch)
+    return {key: (launches, stats)}
+
+
+def mamba_train_phase(torch):
+    """Phase 19: mamba2-2.7b (64 layers, 80 SSM heads of 64, state 128)
+    trained at full width and depth as phase 18: every Mamba2 layer's
+    gradient through ``ssd_backward``."""
+    return train_phase(torch, MAMBA_TRAIN_ARCH, key="train-mamba",
+                       round_trip=False)
 
 
 # name -> (source, the Pallas kernel it replaces, the serve phase whose
@@ -3321,11 +3561,15 @@ KERNELS = {
     "flash_backward": ("src/repro_torch/kernels/csrc/flash_backward.cu",
                        "src/repro/kernels/flash_attention/kernel.py:93",
                        "train"),
+    "ssd_backward": ("src/repro_torch/kernels/csrc/ssd_backward.cu",
+                     "src/repro/kernels/ssd/kernel.py:98", "train-mamba"),
 }
 # what a row's "replaces" cannot say alone
 KERNEL_NOTES = {
     "flash_backward": "backward; the JAX package differentiates "
                       "L.chunked_attention with XLA",
+    "ssd_backward": "backward; the JAX package differentiates "
+                    "L.ssd_chunked with XLA",
 }
 # the head-sharded wrappers: name -> (source, the JAX wrapper it
 # replaces, the phase 9 serve whose launches the line reports, the
@@ -3519,7 +3763,7 @@ def main(argv=None) -> int:
     seconds["10-12"] = time.perf_counter() - t0
     for n, phase in ((13, gemma2_phase), (14, moe_phase), (15, jamba_phase),
                      (16, hubert_phase), (17, int8_phase),
-                     (18, train_phase)):
+                     (18, train_phase), (19, mamba_train_phase)):
         t0 = time.perf_counter()
         family.update(phase(torch))
         seconds[str(n)] = time.perf_counter() - t0

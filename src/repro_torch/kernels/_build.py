@@ -26,7 +26,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 KERNELS = ("flash_prefill", "flash_backward", "ring_decode",
-           "paged_attention", "ssd_scan")
+           "paged_attention", "ssd_scan", "ssd_backward")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

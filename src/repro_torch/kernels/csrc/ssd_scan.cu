@@ -118,6 +118,9 @@ struct Params {
   int B, S, H, P;
   float* cb;  // bf16 pre-pass: (B, n_sub, LC, LC) float32 C.B^T
   int n_sub;
+  // training only (null when serving): the state entering each sub-chunk,
+  // (B, n_sub, H, P, N) float32, which ssd_backward.cu reads
+  float* states;
 };
 
 template <int N>
@@ -161,6 +164,12 @@ __global__ void __launch_bounds__(THREADS, 1) ssd_scan_kernel(Params p) {
   for (int s0 = 0; s0 < p.S; s0 += LC) {
     const int rows = min(LC, p.S - s0);
     __syncthreads();  // the previous sub-chunk's readers are done
+    if (p.states) {
+      float* out = p.states +
+          ((((size_t)b * p.n_sub + s0 / LC) * p.H + h) * p.P + p0) * N;
+      for (int i = tid; i < PT * N; i += THREADS)
+        out[i] = St[(i / N) * NS + i % N];
+    }
 
     // warp 0: dt and the inclusive prefix sum of a = dt * A (two rows a
     // lane, a shuffle scan over the lanes)
@@ -421,6 +430,24 @@ __global__ void __launch_bounds__(TC_THREADS) ssd_chunk_kernel(Params p) {
   for (int sub = 0; sub < p.n_sub; ++sub) {
     const int s0 = sub * LC;
     const int rows = min(LC, p.S - s0);
+    if (p.states) {  // the state entering this sub-chunk, for the backward
+#pragma unroll
+      for (int i = 0; i < PPW; ++i) {
+        const int pair = warp + TC_WARPS * i;
+        if (pair >= NP) continue;
+#pragma unroll
+        for (int hb = 0; hb < 2; ++hb) {
+          const int n = pair * 16 + hb * 8 + 2 * t;
+          float* d = p.states +
+              ((((size_t)b * p.n_sub + sub) * p.H + h) * p.P + p0 + g) * N +
+              n;
+          *reinterpret_cast<float2*>(d) =
+              make_float2(st[i][hb][0], st[i][hb][1]);
+          *reinterpret_cast<float2*>(d + 8 * N) =
+              make_float2(st[i][hb][2], st[i][hb][3]);
+        }
+      }
+    }
     __syncthreads();  // the last sub-chunk's readers are done, Sp written
     stage_rows<N>(Bs, LDS, static_cast<const bf16*>(p.Bm), p.b_sb, p.b_ss,
                   b, s0, rows);
@@ -666,18 +693,22 @@ extern "C" long long repro_ssd_scan_scratch_floats(int B, int S, int dtype) {
 
 // dtype: 0 = float32 (one launch), 1 = bfloat16 (x, B, C and y: the C.B^T
 // pre-pass writes `cb`, then the scan, both on `stream`; `cb` holds
-// repro_ssd_scan_scratch_floats floats).  Returns the cudaError_t of the
+// repro_ssd_scan_scratch_floats floats).  `states`, null when serving,
+// receives the state entering each 64-row sub-chunk, (B, n_sub, H, P, N)
+// float32, for ssd_backward.cu.  Returns the cudaError_t of the
 // first launch that failed, else cudaSuccess.
 extern "C" int repro_ssd_scan(const void* x, const void* dt, const void* A,
                               const void* Bm, const void* Cm, void* y,
-                              void* state, void* cb, long long x_sb,
+                              void* state, void* cb, void* states,
+                              long long x_sb,
                               long long x_ss, long long b_sb, long long b_ss,
                               long long c_sb, long long c_ss, int B, int S,
                               int H, int P, int N, int dtype, void* stream) {
   if (P % PT) return static_cast<int>(cudaErrorInvalidValue);
   Params p{x, static_cast<const float*>(dt), static_cast<const float*>(A),
            Bm, Cm, y, static_cast<float*>(state), x_sb, x_ss, b_sb, b_ss,
-           c_sb, c_ss, B, S, H, P, static_cast<float*>(cb), n_subs(S)};
+           c_sb, c_ss, B, S, H, P, static_cast<float*>(cb), n_subs(S),
+           static_cast<float*>(states)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (N) {

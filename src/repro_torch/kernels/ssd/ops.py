@@ -1,25 +1,35 @@
-"""Wrapper of the Mamba2 SSD chunked-scan kernel (``csrc/ssd_scan.cu``).
+"""Wrappers of the Mamba2 SSD chunked-scan kernel (``csrc/ssd_scan.cu``)
+and its backward (``csrc/ssd_backward.cu``).
 
 A CUDA tensor launches the Hopper kernel (or raises); a CPU tensor takes
-the plain version in ``ref.py``.  ``launches`` counts the calls that
-launched.  In bfloat16 a call is two launches, the C.B^T pre-pass and the
-scan; it counts once.
+the plain version in ``ref.py``, which autograd differentiates.  On the
+card, a call that needs a gradient goes through :class:`_SSDScan`: its
+forward launches ``ssd_scan`` writing the state entering each 64-row
+sub-chunk, its backward launches ``ssd_backward``.  ``launches`` counts
+forward calls that launched, ``backward_launches`` backward calls.  In
+bfloat16 a forward call is two launches, the C.B^T pre-pass and the scan;
+a backward call is three (the state gradient's walk, the sub-chunks, the
+sums over heads); each call counts once.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ssd.ref import ssd_ref
+from repro_torch.kernels.ssd.ref import ssd_backward_ref, ssd_ref
 
 launches = 0
+backward_launches = 0
 _fn = None
+_bwd = None
 
 STATE_DIMS = (16, 32, 64, 128)  # reduced configs, the sweep, mamba2 (128)
 P_TILE = 16  # head-dim columns per block; the head dim must be a multiple
+SUB_CHUNK = 64  # the kernels' sequence rows per sub-chunk
 
 
 def _kernel():
@@ -28,7 +38,7 @@ def _kernel():
         lib = _build.load("ssd_scan")
         fn = lib.repro_ssd_scan
         fn.argtypes = (
-            [ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 6
+            [ctypes.c_void_p] * 9 + [ctypes.c_longlong] * 6
             + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
@@ -48,30 +58,47 @@ def _cb_scratch_floats(B: int, S: int, code: int) -> int:
     return int(_kernel()[1](B, S, code))
 
 
-def ssd_scan(
-    x: torch.Tensor,  # (B, S, H, P)
-    dt: torch.Tensor,  # (B, S, H) fp32 post-softplus
-    A: torch.Tensor,  # (H,) fp32 negative
-    Bm: torch.Tensor,  # (B, S, N)
-    Cm: torch.Tensor,  # (B, S, N)
-    *,
-    chunk: int = 256,
-):
-    """Returns (y (B,S,H,P) in x's dtype, final_state (B,H,P,N) fp32),
-    from a zero state: the Pallas ``ssd_scan``.  Its contract holds:
-    ``chunk = min(chunk, S)`` must divide S.  The kernel tiles the
-    sequence in 64-row sub-chunks of its own (exact algebra: rounding
-    only), and reads x, B and C through their batch and sequence
-    strides, so the model's slices of one ``(B, S, conv_dim)`` tensor go
-    in without a copy."""
-    global launches
+def _backward_kernel():
+    global _bwd
+    if _bwd is None:
+        lib = _build.load("ssd_backward")
+        fn = lib.repro_ssd_backward
+        fn.argtypes = (
+            [ctypes.c_void_p] * 17 + [ctypes.c_longlong] * 6
+            + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        )
+        fn.restype = ctypes.c_int
+        scratch = lib.repro_ssd_backward_scratch_floats
+        scratch.argtypes = [ctypes.c_int] * 6
+        scratch.restype = ctypes.c_longlong
+        lib.repro_ssd_backward_error_string.argtypes = [ctypes.c_int]
+        lib.repro_ssd_backward_error_string.restype = ctypes.c_char_p
+        _bwd = (fn, scratch, lib.repro_ssd_backward_error_string)
+    return _bwd
+
+
+def states_shape(B: int, S: int, H: int, P: int, N: int) -> Tuple[int, ...]:
+    """The forward's training output: the state entering each sub-chunk
+    (``ssd_backward.cu``'s ``repro_ssd_backward_scratch_floats(0, ...)``;
+    a card test ties the two)."""
+    return (B, -(-S // SUB_CHUNK), H, P, N)
+
+
+def backward_scratch_shapes(B: int, S: int, H: int, P: int, N: int):
+    """The backward's float32 scratch, as the library sizes it: the state
+    gradient leaving each sub-chunk, the per-head terms of dB and of dC,
+    the per-(row, sub-chunk) terms of dA."""
+    states = states_shape(B, S, H, P, N)
+    return (states, (B, S, H, N), (B, S, H, N), states[:3])
+
+
+def _check_shapes(x, dt, A, Bm, Cm, chunk):
     if x.dim() != 4 or dt.dim() != 3 or A.dim() != 1 or Bm.dim() != 3 \
             or Bm.shape != Cm.shape:
         raise ValueError(f"shapes x {tuple(x.shape)}, dt {tuple(dt.shape)}, "
                          f"A {tuple(A.shape)}, B {tuple(Bm.shape)}, "
                          f"C {tuple(Cm.shape)}")
     B, S, H, P = x.shape
-    N = Bm.shape[-1]
     if tuple(dt.shape) != (B, S, H) or tuple(A.shape) != (H,) \
             or tuple(Bm.shape[:2]) != (B, S):
         raise ValueError(f"x {tuple(x.shape)} does not match dt "
@@ -80,10 +107,12 @@ def ssd_scan(
     chunk = min(chunk, S)
     if chunk < 1 or S % chunk:
         raise ValueError(f"chunk must divide the sequence: {(S, chunk)}")
-    if x.device.type == "cpu":
-        return ssd_ref(x, dt, A, Bm, Cm)
-    if x.device.type != "cuda":
-        raise ValueError(f"no ssd_scan for device {x.device}")
+
+
+def _check_card(x, dt, A, Bm, Cm) -> int:
+    """The kernels' operand rules; returns the dtype code."""
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
     code = _build.dtype_code(x)
     if not (x.dtype == Bm.dtype == Cm.dtype):
         raise TypeError(f"dtypes differ: x {x.dtype}, B {Bm.dtype}, "
@@ -109,6 +138,17 @@ def ssd_scan(
                                         for st in t.stride()[:2]):
                 raise ValueError(f"{name} must be 16-byte aligned, its "
                                  "batch and sequence strides too")
+    return code
+
+
+def _launch(x, dt, A, Bm, Cm, states: Optional[torch.Tensor] = None):
+    """One ``repro_ssd_scan`` call on checked card operands; ``states``
+    (float32, :func:`states_shape`) receives the state entering each
+    sub-chunk, for the backward."""
+    global launches
+    code = _check_card(x, dt, A, Bm, Cm)
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
     y = torch.empty((B, S, H, P), dtype=x.dtype, device=x.device)
     state = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
     if y.numel() == 0:
@@ -122,6 +162,7 @@ def ssd_scan(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
             Cm.data_ptr(), y.data_ptr(), state.data_ptr(),
             cb.data_ptr() if cb is not None else None,
+            states.data_ptr() if states is not None else None,
             x.stride(0), x.stride(1), Bm.stride(0), Bm.stride(1),
             Cm.stride(0), Cm.stride(1), B, S, H, P, N, code,
             torch.cuda.current_stream(x.device).cuda_stream,
@@ -132,3 +173,135 @@ def ssd_scan(
         )
     launches += 1
     return y, state
+
+
+def ssd_backward(
+    x: torch.Tensor,  # (B, S, H, P)
+    dt: torch.Tensor,  # (B, S, H) fp32
+    A: torch.Tensor,  # (H,) fp32
+    Bm: torch.Tensor,  # (B, S, N)
+    Cm: torch.Tensor,  # (B, S, N)
+    dy: torch.Tensor,  # (B, S, H, P), x's dtype
+    states: Optional[torch.Tensor],  # states_shape(...) fp32, the forward's
+    dstate: Optional[torch.Tensor] = None,  # (B, H, P, N) fp32
+):
+    """(dx, ddt, dA, dB, dC) of :func:`ssd_scan` at the cotangents ``dy``
+    of y and ``dstate`` of the final state (zero when None): dx in x's
+    dtype, dB and dC in B's, ddt and dA float32.  On the card one call of
+    ``ssd_backward.cu``, reading the ``states`` the training forward wrote;
+    on a CPU tensor the plain backward (:func:`ref.ssd_backward_ref`, which
+    needs no ``states``)."""
+    global backward_launches
+    _check_shapes(x, dt, A, Bm, Cm, x.shape[1])
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    if tuple(dy.shape) != (B, S, H, P):
+        raise ValueError(f"dy {tuple(dy.shape)} must be x's {tuple(x.shape)}")
+    if dstate is not None and tuple(dstate.shape) != (B, H, P, N):
+        raise ValueError(f"dstate {tuple(dstate.shape)} must be "
+                         f"{(B, H, P, N)}")
+    if x.device.type == "cpu":
+        dx, ddt, dA, dB, dC = ssd_backward_ref(x, dt, A, Bm, Cm, dy, dstate)
+        return dx.to(x.dtype), ddt, dA, dB.to(Bm.dtype), dC.to(Cm.dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"no ssd_backward for device {x.device}")
+    code = _check_card(x, dt, A, Bm, Cm)
+    if dy.dtype != x.dtype:
+        raise TypeError(f"dy {dy.dtype} must be {x.dtype}")
+    _build.check_operand("dy", dy, x.device, align=4)
+    if dstate is not None:
+        if dstate.dtype != torch.float32:
+            raise TypeError(f"dstate must be float32, got {dstate.dtype}")
+        _build.check_operand("dstate", dstate, x.device, align=4)
+    if states is None or states.dtype != torch.float32 \
+            or tuple(states.shape) != states_shape(B, S, H, P, N):
+        raise ValueError("states must be the training forward's float32 "
+                         f"{states_shape(B, S, H, P, N)}")
+    _build.check_operand("states", states, x.device, align=4)
+    dx = torch.empty((B, S, H, P), dtype=x.dtype, device=x.device)
+    ddt = torch.empty((B, S, H), dtype=torch.float32, device=x.device)
+    dA = torch.empty((H,), dtype=torch.float32, device=x.device)
+    dB = torch.empty((B, S, N), dtype=Bm.dtype, device=x.device)
+    dC = torch.empty((B, S, N), dtype=Cm.dtype, device=x.device)
+    if dx.numel() == 0:
+        return dx.zero_(), ddt.zero_(), dA.zero_(), dB.zero_(), dC.zero_()
+    fn, _, err_str = _backward_kernel()
+    dS, dBp, dCp, dAp = (
+        torch.empty(shape, dtype=torch.float32, device=x.device)
+        for shape in backward_scratch_shapes(B, S, H, P, N))
+    with torch.cuda.device(x.device):
+        err = fn(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+            Cm.data_ptr(), dy.data_ptr(),
+            dstate.data_ptr() if dstate is not None else None,
+            states.data_ptr(), dS.data_ptr(), dBp.data_ptr(), dCp.data_ptr(),
+            dAp.data_ptr(), dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(),
+            dB.data_ptr(), dC.data_ptr(),
+            x.stride(0), x.stride(1), Bm.stride(0), Bm.stride(1),
+            Cm.stride(0), Cm.stride(1), B, S, H, P, N, code,
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    if err:
+        raise RuntimeError(
+            f"ssd_backward launch failed: {err_str(err).decode()} ({err})"
+        )
+    backward_launches += 1
+    return dx, ddt, dA, dB, dC
+
+
+class _SSDScan(torch.autograd.Function):
+    """The kernel pair as one differentiable op: the forward keeps
+    (x, dt, A, B, C) and the states it wrote for the backward kernel.  On
+    a CPU tensor (the tests) the forward is the plain scan and the
+    backward the plain backward."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm):
+        ctx.set_materialize_grads(False)
+        if x.device.type == "cpu":
+            states = None
+            y, state = ssd_ref(x, dt, A, Bm, Cm)
+        else:
+            B, S, H, P = x.shape
+            states = torch.empty(states_shape(B, S, H, P, Bm.shape[-1]),
+                                 dtype=torch.float32, device=x.device)
+            y, state = _launch(x, dt, A, Bm, Cm, states)
+        ctx.save_for_backward(x, dt, A, Bm, Cm, states)
+        return y, state
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        x, dt, A, Bm, Cm, states = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros(x.shape, dtype=x.dtype, device=x.device)
+        # autograd may hand over a non-contiguous view
+        return ssd_backward(x, dt, A, Bm, Cm, dy.contiguous(), states,
+                            None if dstate is None else dstate.contiguous())
+
+
+def ssd_scan(
+    x: torch.Tensor,  # (B, S, H, P)
+    dt: torch.Tensor,  # (B, S, H) fp32 post-softplus
+    A: torch.Tensor,  # (H,) fp32 negative
+    Bm: torch.Tensor,  # (B, S, N)
+    Cm: torch.Tensor,  # (B, S, N)
+    *,
+    chunk: int = 256,
+):
+    """Returns (y (B,S,H,P) in x's dtype, final_state (B,H,P,N) fp32),
+    from a zero state: the Pallas ``ssd_scan``.  Its contract holds:
+    ``chunk = min(chunk, S)`` must divide S.  The kernel tiles the
+    sequence in 64-row sub-chunks of its own (exact algebra: rounding
+    only), and reads x, B and C through their batch and sequence
+    strides, so the model's slices of one ``(B, S, conv_dim)`` tensor go
+    in without a copy.  On the card a call under autograd that needs a
+    gradient runs the kernel pair (:class:`_SSDScan`)."""
+    _check_shapes(x, dt, A, Bm, Cm, chunk)
+    if x.device.type == "cpu":
+        return ssd_ref(x, dt, A, Bm, Cm)
+    if x.device.type != "cuda":
+        raise ValueError(f"no ssd_scan for device {x.device}")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, A, Bm, Cm)):
+        return _SSDScan.apply(x, dt, A, Bm, Cm)
+    return _launch(x, dt, A, Bm, Cm)

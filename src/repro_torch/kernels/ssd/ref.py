@@ -8,6 +8,8 @@ linear recurrence, so this direct per-token scan is the ground truth:
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 
@@ -48,3 +50,27 @@ def ssd_ref(
                                    Cm[:, t], state)
         ys.append(y)
     return torch.stack(ys, dim=1), state
+
+
+def ssd_backward_ref(
+    x: torch.Tensor,  # (B, S, H, P)
+    dt: torch.Tensor,  # (B, S, H) fp32
+    A: torch.Tensor,  # (H,) fp32
+    Bm: torch.Tensor,  # (B, S, N)
+    Cm: torch.Tensor,  # (B, S, N)
+    dy: torch.Tensor,  # (B, S, H, P)
+    dstate: Optional[torch.Tensor] = None,  # (B, H, P, N)
+):
+    """The plain backward of :func:`ssd_ref`: autograd through it on
+    float32 copies of the inputs, at the cotangents ``dy`` of y and
+    ``dstate`` of the final state (zero when None).  Returns float32
+    (dx, ddt, dA, dB, dC)."""
+    with torch.enable_grad():
+        xf, dtf, Af, Bf, Cf = (t.detach().float().requires_grad_()
+                               for t in (x, dt, A, Bm, Cm))
+        y, state = ssd_ref(xf, dtf, Af, Bf, Cf)
+        outs, cots = [y], [dy.float()]
+        if dstate is not None:
+            outs.append(state)
+            cots.append(dstate.float())
+        return torch.autograd.grad(outs, (xf, dtf, Af, Bf, Cf), cots)

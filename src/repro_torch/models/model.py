@@ -94,14 +94,9 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 def check_trainable(cfg: ModelConfig, params: Params) -> None:
-    """Reject, before any step, what the port does not train yet: a
-    Mamba2 mixer (no ``ssd_scan`` backward), int8 params and a mesh wider
-    than 1."""
-    if cfg.has_mamba:
-        raise NotImplementedError(
-            f"model '{cfg.name}': training a Mamba2 mixer needs an ssd_scan "
-            "backward kernel, ROADMAP queue 1, item 12"
-        )
+    """Reject, before any step, what the port does not train yet: int8
+    params and a mesh wider than 1.  (Mamba2 mixers train: on the card
+    their gradient is the ``ssd_backward`` kernel.)"""
     if cfg.weight_dtype == "int8" or params_quantized(params):
         raise NotImplementedError(
             f"model '{cfg.name}': int8 params are the serving layout "

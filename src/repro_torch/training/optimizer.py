@@ -12,7 +12,11 @@ The optimizer state mirrors the params (``m`` and ``v``) with an int32
 ``step`` tensor.  Unlike the reference's pure function,
 :func:`adamw_update` writes the new params and moments **in place**: at
 minicpm-2b's full width a second copy of params, ``m`` and ``v`` would
-take 27 GB of the card.  A divisor is a tensor on the operand's device
+take 27 GB of the card.  A large leaf is updated in slices along its
+first dim (:data:`SLICE` elements at a time): the update is elementwise,
+so the slices give the same bits, and its float32 temporaries stay
+small (mamba2-2.7b's stacked ``in_proj`` has 1.73 B elements; whole, the
+temporaries of one update took over 30 GB).  A divisor is a tensor on the operand's device
 (:func:`_div`): the card multiplies by the reciprocal of a host scalar,
 which rounds differently.  The reference's ``opt_state_specs`` belongs
 to mesh training (ROADMAP queue 1, item 13).
@@ -38,6 +42,19 @@ class AdamWConfig:
     eps: float = 1e-8
     weight_decay: float = 0.1
     grad_clip: float = 1.0
+
+
+# elements of a leaf that one AdamW update handles at a time
+SLICE = 1 << 26
+
+
+def _slices(t: torch.Tensor):
+    """``t`` as views along its first dim of at most about :data:`SLICE`
+    elements each (whole rows; ``t`` itself when small or 0-dim)."""
+    if t.dim() == 0 or t.numel() <= SLICE:
+        return (t,)
+    rows = max(1, SLICE // (t.numel() // t.shape[0]))
+    return t.split(rows, 0)
 
 
 def _div(x: torch.Tensor, d: float) -> torch.Tensor:
@@ -80,8 +97,10 @@ def adamw_update(
     sf = step.float()
     corr1 = 1 - torch.pow(cfg.b1, sf)
     corr2 = 1 - torch.pow(cfg.b2, sf)
-    for p, g, m, v in zip(leaves(params), leaves(grads), leaves(state["m"]),
-                          leaves(state["v"])):
+    pieces = (zip(*map(_slices, leaf)) for leaf in zip(
+        leaves(params), leaves(grads), leaves(state["m"]),
+        leaves(state["v"])))
+    for p, g, m, v in (piece for leaf in pieces for piece in leaf):
         g = g.float() * scale
         m.copy_(cfg.b1 * m + (1 - cfg.b1) * g)
         v.copy_(cfg.b2 * v + (1 - cfg.b2) * g * g)

@@ -123,7 +123,9 @@ _SASS = ("/*0050*/ HMMA.16816.F32.BF16 R4, R8, R12, R4 ;\n"
          "/*0090*/ @P0 LDGSTS.E.BYPASS.128 [R3], desc[UR4][R4.64] ;\n"
          "/*00a0*/ LDSM.16.M88.4 R8, [R2] ;\n"
          "/*00b0*/ HGMMA.64x64x16.F32.BF16 R56, gdesc[UR16], RZ, !UPT ;\n"
-         "/*00c0*/ UTMALDG.4D [UR8], [UR4] ;\n")
+         "/*00c0*/ UTMALDG.4D [UR8], [UR4] ;\n"
+         "/*00d0*/ FFMA R5, R6, R7, R5 ;\n"
+         "/*00e0*/ MUFU.EX2 R9, R9 ;\n")
 
 
 @pytest.mark.parametrize("lib,drop", [
@@ -134,6 +136,7 @@ _SASS = ("/*0050*/ HMMA.16816.F32.BF16 R4, R8, R12, R4 ;\n"
     ("flash_prefill", "LDSM"),
     ("flash_backward", "HGMMA"),
     ("flash_backward", "UTMALDG"),
+    ("ssd_backward", "FFMA"),
 ])
 def test_sass_ops_flag_a_library_missing_its_instructions(lib, drop):
     """Every redesigned library must show the tensor-core product; the
@@ -522,7 +525,8 @@ def test_train_phase_names_minicpm_at_full_width_and_its_launches():
             cfg.head_dim, cfg.d_ff, cfg.vocab_size) == (
         40, 2304, 36, 36, 64, 5760, 122753)
     assert cs.train_launches(cfg) == {"flash_prefill": 80,
-                                      "flash_backward": 40}
+                                      "flash_backward": 40, "ssd_scan": 0,
+                                      "ssd_backward": 0}
     assert cs.train_launches(cfg, remat=False)["flash_prefill"] == 40
     assert cs.TRAIN_SEQ % cs.TRAIN_CE_CHUNK == 0
     assert cs.TRAIN_STEPS == 5
@@ -637,3 +641,95 @@ def test_training_forward_case_writes_the_row_lse_on_the_cpu(monkeypatch):
                          train_lse=True)
     assert row["writes_lse"] and row["max_abs_err"] == 0.0
     assert seen == [(None, None, torch.Size([2, 4, 40]))]
+
+
+# ---------------------------------------------------------------------------
+# Phase 19 and the ssd_backward rows
+# ---------------------------------------------------------------------------
+
+
+def test_mamba_train_phase_names_mamba2_at_full_width_and_its_launches():
+    """Phase 19 trains the registered mamba2-2.7b at full width and depth;
+    a step launches ssd_scan twice a layer under remat (forward and
+    recompute) and ssd_backward once, and no attention kernel.  jamba's
+    super-block counts its one attention and seven Mamba2 layers."""
+    from repro_torch.configs.registry import REGISTRY
+
+    cfg = REGISTRY[cs.MAMBA_TRAIN_ARCH]
+    m = cfg.mamba
+    assert (cfg.n_layers, cfg.d_model, m.d_inner(cfg.d_model),
+            m.n_heads(cfg.d_model), m.head_dim, m.d_state, m.chunk,
+            cfg.vocab_size) == (64, 2560, 5120, 80, 64, 128, 256, 50280)
+    assert cs.train_launches(cfg) == {"flash_prefill": 0,
+                                      "flash_backward": 0, "ssd_scan": 128,
+                                      "ssd_backward": 64}
+    assert cs.train_launches(cfg, remat=False)["ssd_scan"] == 64
+    jamba = REGISTRY["jamba-v0.1-52b"].reduced()
+    assert cs.train_launches(jamba) == {"flash_prefill": 2,
+                                        "flash_backward": 1, "ssd_scan": 14,
+                                        "ssd_backward": 7}
+
+
+def test_ssd_backward_is_a_kernel_of_the_line():
+    """The kernels line carries ssd_backward from phase 19 with its note;
+    its SASS must show the CUDA-core body and no atomic."""
+    source, replaces, phase = cs.KERNELS["ssd_backward"]
+    assert (ROOT / source).is_file() and phase == "train-mamba"
+    assert replaces == "src/repro/kernels/ssd/kernel.py:98"
+    assert "L.ssd_chunked" in cs.KERNEL_NOTES["ssd_backward"]
+    assert cs.REDESIGNED["ssd_backward"] == ("FFMA", "MUFU.EX2")
+    assert cs.kernel_group("ssd_bwd_chunk_kernel") == "ssd"
+    assert cs.kernel_group("ssd_chunk_kernel") == "ssd"
+
+
+@pytest.mark.parametrize("planted", [None, "ATOMG.E.ADD.F32.FTZ.RN",
+                                     "ATOMS.ADD", " RED.E.ADD.F32.FTZ.RN"])
+def test_sass_ops_flag_an_atomic_in_the_ssd_backward(planted):
+    listings = {name: _SASS for name in cs.REDESIGNED}
+    if planted:
+        listings["ssd_backward"] = _SASS + f"/*0100*/ {planted} [R2], R3 ;\n"
+    got = cs.sass_ops(listings)["ssd_backward"]
+    assert got["FFMA"] and got["MUFU.EX2"]
+    assert (got["no ATOM"] and got["no RED."]) is (planted is None)
+
+
+def test_ssd_backward_case_holds_the_plain_backward_on_the_cpu(monkeypatch):
+    """The kernel phase's SSD backward row, untimed, with the training
+    forward stood in by a no-op (the CPU has no kernel; the CPU backward
+    reads no states): the wrapper's CPU path is the plain backward, so
+    the errors are 0 and two calls repeat."""
+    from repro_torch.kernels.ssd import ops as sops
+
+    monkeypatch.setattr(sops, "_launch", lambda *a, **kw: None)
+    src = (ROOT / "chip_smoke.py").read_text().replace('"cuda"', '"cpu"')
+    mod = type(cs)("chip_smoke_cpu")
+    mod.__file__ = str(ROOT / "chip_smoke.py")
+    exec(compile(src, "chip_smoke_cpu", "exec"), mod.__dict__)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    for fused, dstate in ((False, True), (True, False)):
+        row = mod.ssd_backward_case(torch, 1, 96, 2, 16, 16, "float32",
+                                    dstate, timed=False, fused=fused)
+        assert row["repeats_bitwise"] and row["max_abs_err"] == 0.0
+        assert row["shape"] == "B=1 S=96 H=2 P=16 N=16"
+        assert row["dstate"] is dstate and row["fused"] is fused
+
+
+def test_plain_sub_chunk_states_are_the_recurrences():
+    """What the training forward's states are held against: the plain
+    recurrence's state entering each 64-row sub-chunk, the first zero,
+    the one entering sub-chunk c the final state of the first 64 c rows."""
+    from repro_torch.kernels.ssd.ref import ssd_ref
+
+    g = torch.Generator().manual_seed(0)
+    B, S, H, P, N = 2, 150, 2, 4, 8
+    x = torch.randn((B, S, H, P), generator=g)
+    dt = torch.nn.functional.softplus(torch.randn((B, S, H), generator=g))
+    A = -torch.rand((H,), generator=g) - 0.5
+    Bm, Cm = (torch.randn((B, S, N), generator=g) for _ in range(2))
+    st = cs.plain_sub_chunk_states(torch, x, dt, A, Bm, Cm)
+    assert st.shape == (B, 3, H, P, N)
+    assert not st[:, 0].any()
+    for c in (1, 2):
+        _, want = ssd_ref(x[:, :64 * c], dt[:, :64 * c], A, Bm[:, :64 * c],
+                          Cm[:, :64 * c])
+        torch.testing.assert_close(st[:, c], want, atol=1e-6, rtol=1e-5)

@@ -30,7 +30,7 @@ from repro_torch.kernels.decode_attention.ref import (
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention import ops as fops
 from repro_torch.kernels.flash_attention.ref import attention_ref
-from repro_torch.kernels.ssd import ssd_ref, ssd_scan
+from repro_torch.kernels.ssd import ssd_backward_ref, ssd_ref, ssd_scan
 from repro_torch.kernels.ssd import ops as sops
 from repro_torch.models import model as TM
 from repro_torch.serving import ClusterConfig, PDCluster, poisson_workload
@@ -1869,6 +1869,263 @@ def test_train_steps_repeat_bitwise_and_the_loss_falls(card):
         for _ in range(3):
             params, opt, m = step(params, opt, {"tokens": toks,
                                                 "labels": labels})
+            losses.append(float(m["loss"]))
+        runs.append((losses, leaves(params), leaves(opt)))
+    assert runs[0][0] == runs[1][0]
+    assert runs[0][0][-1] < runs[0][0][0]
+    for a, b in zip(runs[0][1] + runs[0][2], runs[1][1] + runs[1][2]):
+        assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# The SSD backward (ssd_backward.cu) and Mamba2 / hybrid training
+# ---------------------------------------------------------------------------
+
+# the SSD backward against autograd through the float32 plain scan, each
+# gradient relative to its largest magnitude (chip_smoke's SSD_BWD_TOL)
+SSD_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+def _ssd_bwd_inputs(card, dtype, B, S, H, P, N, seed, dstate=False):
+    x, dt, A, Bm, Cm = _ssd_inputs(card, dtype, B, S, H, P, N, seed)
+    g = torch.Generator(device=card).manual_seed(seed + 1)
+    dy = torch.randn((B, S, H, P), generator=g, device=card).to(x.dtype)
+    ds = (torch.randn((B, H, P, N), generator=g, device=card) if dstate
+          else None)
+    return x, dt, A, Bm, Cm, dy, ds
+
+
+def _training_forward(x, dt, A, Bm, Cm):
+    B, S, H, P = x.shape
+    states = torch.empty(sops.states_shape(B, S, H, P, Bm.shape[-1]),
+                         dtype=torch.float32, device=x.device)
+    y, st = sops._launch(x, dt, A, Bm, Cm, states)
+    return y, st, states
+
+
+def _ssd_grads_close(got, want, dtype):
+    for name, a, b in zip(("dx", "ddt", "dA", "dB", "dC"), got, want):
+        assert bool(torch.isfinite(a).all()), name
+        err = float((a.float() - b).abs().max()) / (
+            float(b.abs().max()) + 1e-30)
+        assert err <= SSD_BWD_TOL[dtype], (name, err)
+
+
+@pytest.mark.parametrize("dstate", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,P,N", [
+    (2, 256, 4, 64, 128), (1, 512, 8, 32, 64), (2, 128, 2, 64, 32),
+    (1, 96, 4, 16, 16),  # the reduced config's head and state dims
+    (2, 200, 3, 32, 128),  # a ragged last sub-chunk
+])
+def test_ssd_backward_matches_plain_backward(card, B, S, H, P, N, dtype,
+                                             dstate):
+    x, dt, A, Bm, Cm, dy, ds = _ssd_bwd_inputs(card, dtype, B, S, H, P, N,
+                                               S + N, dstate)
+    _, _, states = _training_forward(x, dt, A, Bm, Cm)
+    n0 = sops.backward_launches
+    got = sops.ssd_backward(x, dt, A, Bm, Cm, dy, states, ds)
+    torch.cuda.synchronize()
+    assert sops.backward_launches == n0 + 1
+    assert [t.dtype for t in got] == [x.dtype, torch.float32, torch.float32,
+                                      Bm.dtype, Cm.dtype]
+    _ssd_grads_close(got, ssd_backward_ref(x, dt, A, Bm, Cm, dy, ds), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_backward_reads_model_slices(card, dtype):
+    """x, B and C as slices of one (B, S, conv_dim) tensor, as the model
+    passes them: the backward reads them through their strides and
+    returns dense gradients."""
+    Bsz, S, H, P, N = 2, 192, 4, 32, 64
+    g = torch.Generator(device=card).manual_seed(9)
+    di = H * P
+    xbc = (torch.randn((Bsz, S, di + 2 * N), generator=g, device=card)
+           * 0.5).to(getattr(torch, dtype))
+    xs, Bm, Cm = (xbc[..., :di].reshape(Bsz, S, H, P), xbc[..., di: di + N],
+                  xbc[..., di + N:])
+    assert not Bm.is_contiguous()
+    _, dt, A, _, _, dy, ds = _ssd_bwd_inputs(card, dtype, Bsz, S, H, P, N, 5,
+                                             True)
+    _, _, states = _training_forward(xs, dt, A, Bm, Cm)
+    got = sops.ssd_backward(xs, dt, A, Bm, Cm, dy, states, ds)
+    assert all(t.is_contiguous() for t in got)
+    want = ssd_backward_ref(xs, dt, A, Bm.contiguous(), Cm.contiguous(), dy,
+                            ds)
+    _ssd_grads_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_backward_repeats_bitwise_and_rows_alone_equal_the_batch(
+        card, dtype):
+    """No float atomics and sums in a fixed order: two calls agree bit for
+    bit, and rows 1-2 of a B=3 call equal a call on those rows (dA, a sum
+    over the batch, aside)."""
+    x, dt, A, Bm, Cm, dy, ds = _ssd_bwd_inputs(card, dtype, 3, 320, 8, 64,
+                                               128, 43, True)
+    _, _, states = _training_forward(x, dt, A, Bm, Cm)
+    first = sops.ssd_backward(x, dt, A, Bm, Cm, dy, states, ds)
+    second = sops.ssd_backward(x, dt, A, Bm, Cm, dy, states, ds)
+    rows = sops.ssd_backward(x[1:], dt[1:], A, Bm[1:], Cm[1:], dy[1:],
+                             states[1:], ds[1:])
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    for i, (a, b) in enumerate(zip(rows, first)):
+        if i != 2:
+            assert torch.equal(a, b[1:])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_training_forward_writes_sub_chunk_states_and_serving_is_unchanged(
+        card, dtype):
+    """With its states pointer the forward writes the state entering each
+    64-row sub-chunk (the plain recurrence's); without it (serving) its
+    outputs are bit for bit the same."""
+    from repro_torch.kernels.ssd.ref import ssd_decode_step
+
+    x, dt, A, Bm, Cm = _ssd_inputs(card, dtype, 2, 200, 4, 32, 64, 17,
+                                   law=True)
+    served = sops._launch(x, dt, A, Bm, Cm)
+    y, st, states = _training_forward(x, dt, A, Bm, Cm)
+    torch.cuda.synchronize()
+    assert torch.equal(served[0], y) and torch.equal(served[1], st)
+    assert states.shape == (2, 4, 4, 32, 64)
+    assert not states[:, 0].any()
+    state = torch.zeros_like(st)
+    for t in range(200):
+        if t and t % 64 == 0:
+            _ssd_close(states[:, t // 64], state, "float32")
+        _, state = ssd_decode_step(x[:, t], dt[:, t], A, Bm[:, t], Cm[:, t],
+                                   state)
+
+
+def test_ssd_backward_scratch_is_what_the_library_sizes(card):
+    """The wrapper's scratch and states shapes are the library's sizes."""
+    fn, scratch, _ = sops._backward_kernel()
+    for B, S, H, P, N in ((4, 1024, 80, 64, 128), (1, 96, 4, 16, 16),
+                          (2, 200, 3, 32, 64)):
+        sizes = [math.prod(s) for s in
+                 sops.backward_scratch_shapes(B, S, H, P, N)]
+        assert sizes[0] == math.prod(sops.states_shape(B, S, H, P, N))
+        assert [scratch(0, B, S, H, P, N), scratch(1, B, S, H, P, N),
+                scratch(1, B, S, H, P, N), scratch(2, B, S, H, P, N)] == sizes
+
+
+def test_ssd_scan_under_autograd_runs_the_kernel_pair(card):
+    """The wrapper takes ``_SSDScan`` only when grad is enabled and an
+    input requires it: one forward and one backward launch, gradients as
+    the plain backward's; an unused final state passes no cotangent."""
+    x, dt, A, Bm, Cm, dy, _ = _ssd_bwd_inputs(card, "float32", 2, 256, 4,
+                                              64, 128, 29)
+    n0, b0 = sops.launches, sops.backward_launches
+    with torch.no_grad():
+        ssd_scan(x, dt, A, Bm, Cm)
+    live = [t.clone().requires_grad_() for t in (x, dt, A, Bm, Cm)]
+    y, _ = ssd_scan(*live, chunk=64)
+    assert sops.launches == n0 + 2 and sops.backward_launches == b0
+    got = torch.autograd.grad(y, live, dy)
+    torch.cuda.synchronize()
+    assert sops.backward_launches == b0 + 1
+    _ssd_grads_close(got, ssd_backward_ref(x, dt, A, Bm, Cm, dy), "float32")
+
+
+def _train_batch(card, vocab, B=4, S=64, seed=1):
+    g = torch.Generator(device=card).manual_seed(seed)
+    toks = torch.randint(0, vocab, (B, S), generator=g, device=card,
+                         dtype=torch.int32)
+    labels = torch.roll(toks, -1, 1)
+    labels[:, -1] = -100
+    return {"tokens": toks, "labels": labels}
+
+
+def _counts():
+    return (fops.launches, fops.backward_launches, sops.launches,
+            sops.backward_launches)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_jamba_train_step_kernel_path_matches_plain_path(card, dtype):
+    """Reduced jamba (one super-block: 7 Mamba2 layers and one attention
+    layer, MoE) under remat, with ``live_state`` weights so the scan
+    reaches the loss: every Mamba2 layer's gradient through ssd_backward
+    and the attention layer's through flash_backward, against the plain
+    path on the same weights.  float32: the loss within 1e-5 and every
+    leaf within 1e-4 (relative L2): this holds the kernels.  bf16: the
+    loss within 1e-2, every leaf finite, and each leaf of at least 1,024
+    elements within max(5e-2, 1.25 x the plain path's own error against
+    the float32 plain path), chip_smoke's phase 18/19 rule.  The rule is
+    for leaves of many elements: on an H100 an 8-element leaf (a Mamba2
+    layer's per-head vector) of the kernel path lay 0.061 from float32
+    where the plain path's lay 0.046, bf16 noise of the surrounding
+    model's roundings, while the float32 case held that leaf to 1e-4."""
+    from repro_torch.training import TrainStepConfig
+    from repro_torch.training._tree import leaves, tree_map
+    from repro_torch.training.trainstep import make_grad_fn
+
+    cfg = dataclasses.replace(REGISTRY["jamba-v0.1-52b"].reduced(),
+                              dtype=dtype)
+    params = live_state(TM.init_params(
+        cfg, torch.Generator(device=card).manual_seed(0), device=card), cfg)
+    batch = _train_batch(card, cfg.vocab_size, B=2)
+    out = {}
+    for plain in (False, True):
+        tcfg = TrainStepConfig(ce_chunk=32, remat=True, plain_attention=plain)
+        c0 = _counts()
+        (loss, _), grads = make_grad_fn(cfg, tcfg)(params, batch)
+        torch.cuda.synchronize()
+        out[plain] = (loss, leaves(grads),
+                      tuple(b - a for a, b in zip(c0, _counts())))
+    assert out[False][2] == (2, 1, 14, 7)
+    assert out[True][2] == (0, 0, 0, 0)
+    loss_tol, leaf_tol = (1e-5, 1e-4) if dtype == "float32" else (1e-2, 5e-2)
+    assert abs(float(out[False][0]) / float(out[True][0]) - 1) <= loss_tol
+    ref = None
+    if dtype == "bfloat16":
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        _, g32 = make_grad_fn(cfg32, TrainStepConfig(
+            ce_chunk=32, remat=True, plain_attention=True))(
+            tree_map(lambda t: t.float(), params), batch)
+        ref = leaves(g32)
+    for i, (a, b) in enumerate(zip(out[False][1], out[True][1])):
+        assert bool(torch.isfinite(a).all()), i
+        if ref is None:
+            assert _rel_l2(a, b) <= leaf_tol, i
+        elif a.numel() >= 1024:
+            assert _rel_l2(a, ref[i]) <= max(
+                leaf_tol, 1.25 * _rel_l2(b, ref[i])), i
+
+
+def test_mamba_train_steps_repeat_bitwise_and_the_loss_falls(card):
+    """Reduced mamba2 in bf16: two runs of three train steps from the same
+    weights agree bit for bit (ssd_backward sums in a fixed order), each
+    step launches ssd_scan twice and ssd_backward once a layer, and the
+    loss falls."""
+    from repro_torch.training import (
+        TrainStepConfig,
+        init_opt_state,
+        make_train_step,
+        wsd_schedule,
+    )
+    from repro_torch.training._tree import leaves
+
+    cfg = dataclasses.replace(REGISTRY["mamba2-2.7b"].reduced(),
+                              dtype="bfloat16")
+    batch = _train_batch(card, cfg.vocab_size, seed=2)
+    runs = []
+    for _ in range(2):
+        params = live_state(TM.init_params(
+            cfg, torch.Generator(device=card).manual_seed(0), device=card),
+            cfg)
+        opt = init_opt_state(params)
+        step = make_train_step(cfg, TrainStepConfig(ce_chunk=32),
+                               wsd_schedule(1, 10, 5, 1e-3))
+        losses = []
+        for _ in range(3):
+            c0 = _counts()
+            params, opt, m = step(params, opt, batch)
+            assert tuple(b - a for a, b in zip(c0, _counts())) == (
+                0, 0, 2 * cfg.n_layers, cfg.n_layers)
             losses.append(float(m["loss"]))
         runs.append((losses, leaves(params), leaves(opt)))
     assert runs[0][0] == runs[1][0]
