@@ -275,15 +275,15 @@ def card_identity() -> str:
 # wgmma), the async copy (LDGSTS for cp.async, UTMALDG for a TMA tensor
 # load), ldmatrix (LDSM).  flash_backward's bf16 body at Dh 64 and 128 is
 # wgmma + TMA; at Dh 16 and 80 it keeps mma.sync (HMMA).  ssd_backward's
-# first body runs on the float32 CUDA cores: the fused multiply-add and
-# the exponential's MUFU.EX2
+# bf16 body (walk and sub-chunks) runs on mma.sync, staged by cp.async
+# (and the state tiles by bulk copies)
 REDESIGNED = {
     "flash_prefill": ("HMMA", "LDGSTS", "LDSM"),
     "flash_backward": ("HGMMA", "UTMALDG", "HMMA"),
     "paged_attention": ("HMMA", "LDGSTS", "LDSM"),
     "ring_decode": ("HMMA", "LDGSTS", "LDSM"),
     "ssd_scan": ("HMMA", "LDGSTS", "LDSM"),
-    "ssd_backward": ("FFMA", "MUFU.EX2"),
+    "ssd_backward": ("HMMA", "LDGSTS", "LDSM"),
 }
 # what the SASS of a library must not show: the backward kernels add in
 # a fixed order, with no atomic (ATOM global or shared, RED)
@@ -1079,6 +1079,19 @@ def ssd_case(torch, B, S, H, P, N, chunk, dtype, timed: bool, length=None,
     return row
 
 
+def ssd_backward_scratch_bytes(sops, B, S, H, P, N, code: int) -> int:
+    """The design's own traffic beside the function's bytes: the
+    forward's states read once, the walk's dS written and read, and the
+    partial sums of dB and dC written and read (the scratch shapes the
+    wrapper allocates)."""
+    try:
+        shapes = sops.backward_scratch_shapes(B, S, H, P, N, code)
+    except TypeError:  # an older tree (--src): per-head partials
+        shapes = sops.backward_scratch_shapes(B, S, H, P, N)
+    states, dbp, dcp, dap = (math.prod(s) for s in shapes)
+    return 4 * (states + 2 * states + 2 * dbp + 2 * dcp + 2 * dap)
+
+
 def ssd_backward_case(torch, B, S, H, P, N, dtype, dstate: bool,
                       timed: bool, fused=False):
     """One SSD backward case: the training forward (``ssd_scan`` writing
@@ -1149,15 +1162,16 @@ def ssd_backward_case(torch, B, S, H, P, N, dtype, dstate: bool,
            "rel_err_dx_ddt_dA_dB_dC": rel, "repeats_bitwise": True,
            "row_alone_equals_batch": alone,
            "ptxas": {k: v for k, v in PTXAS.get("ssd_backward", {}).items()
-                     if k.endswith(f"<float,{N}>" if dtype == "float32"
-                                   else f"<{N}>")
+                     if k.endswith(f"<{N}>")
+                     and ("_tc_" in k) == (dtype == "bfloat16")
                      or k.startswith("ssd_bwd_sum")} or None}
     if not timed:
         return row
     # bytes: the function's inputs x, dt, A, B, C, dy (and dstate) read
-    # once and dx, ddt, dA, dB, dC written once (the forward's states are
-    # the design's own traffic, not counted); operations: per (b, h) and
-    # 64-row sub-chunk of T = 64 * 65 / 2 causal pairs, dy.x^T, the
+    # once and dx, ddt, dA, dB, dC written once (the forward's states and
+    # the scratch are the design's own traffic, ``scratch_bytes``, not
+    # counted); operations: per (b, h) and 64-row sub-chunk of
+    # T = 64 * 65 / 2 causal pairs, dy.x^T, the
     # intra-chunk dx, dB and dC (T P, T P, 2 T N) and the state terms of
     # dx, dB, dC and the state gradient's walk (4 L N P); C.B^T (T N) once
     # per (b, sub-chunk), shared by the heads
@@ -1196,6 +1210,8 @@ def ssd_backward_case(torch, B, S, H, P, N, dtype, dstate: bool,
                bound_by=b_by, device_ms=dev_ms, host_ms=host_ms,
                library_device_ms=None, bytes=nbytes, flops=flops,
                states_bytes=states.numel() * 4,
+               scratch_bytes=ssd_backward_scratch_bytes(
+                   sops, B, S, H, P, N, int(dtype == "bfloat16")),
                library_note="no single PyTorch call computes the SSD "
                             "scan's backward",
                device_ms_by_kernel=by_kernel)

@@ -9,7 +9,7 @@ sub-chunk, its backward launches ``ssd_backward``.  ``launches`` counts
 forward calls that launched, ``backward_launches`` backward calls.  In
 bfloat16 a forward call is two launches, the C.B^T pre-pass and the scan;
 a backward call is three (the state gradient's walk, the sub-chunks, the
-sums over heads); each call counts once.
+sums over head groups); each call counts once.
 """
 from __future__ import annotations
 
@@ -30,6 +30,8 @@ _bwd = None
 STATE_DIMS = (16, 32, 64, 128)  # reduced configs, the sweep, mamba2 (128)
 P_TILE = 16  # head-dim columns per block; the head dim must be a multiple
 SUB_CHUNK = 64  # the kernels' sequence rows per sub-chunk
+HEAD_GROUP = 8  # heads a bf16 backward block sums dB and dC over
+BWD_BF16_MAX_P = 64  # the largest head dim of the bf16 backward
 
 
 def _kernel():
@@ -69,7 +71,7 @@ def _backward_kernel():
         )
         fn.restype = ctypes.c_int
         scratch = lib.repro_ssd_backward_scratch_floats
-        scratch.argtypes = [ctypes.c_int] * 6
+        scratch.argtypes = [ctypes.c_int] * 7
         scratch.restype = ctypes.c_longlong
         lib.repro_ssd_backward_error_string.argtypes = [ctypes.c_int]
         lib.repro_ssd_backward_error_string.restype = ctypes.c_char_p
@@ -84,12 +86,16 @@ def states_shape(B: int, S: int, H: int, P: int, N: int) -> Tuple[int, ...]:
     return (B, -(-S // SUB_CHUNK), H, P, N)
 
 
-def backward_scratch_shapes(B: int, S: int, H: int, P: int, N: int):
-    """The backward's float32 scratch, as the library sizes it: the state
-    gradient leaving each sub-chunk, the per-head terms of dB and of dC,
-    the per-(row, sub-chunk) terms of dA."""
+def backward_scratch_shapes(B: int, S: int, H: int, P: int, N: int,
+                            code: int):
+    """The backward's float32 scratch for dtype ``code``, as the library
+    sizes it: the state gradient leaving each sub-chunk, the partial sums
+    of dB and of dC (one a head in float32, one a group of
+    :data:`HEAD_GROUP` heads in bf16), the per-(row, sub-chunk) terms of
+    dA."""
     states = states_shape(B, S, H, P, N)
-    return (states, (B, S, H, N), (B, S, H, N), states[:3])
+    groups = -(-H // HEAD_GROUP) if code == 1 else H
+    return (states, (B, S, groups, N), (B, S, groups, N), states[:3])
 
 
 def _check_shapes(x, dt, A, Bm, Cm, chunk):
@@ -208,7 +214,11 @@ def ssd_backward(
     code = _check_card(x, dt, A, Bm, Cm)
     if dy.dtype != x.dtype:
         raise TypeError(f"dy {dy.dtype} must be {x.dtype}")
-    _build.check_operand("dy", dy, x.device, align=4)
+    if code == 1 and P > BWD_BF16_MAX_P:
+        raise ValueError(f"the bf16 backward takes head dims up to "
+                         f"{BWD_BF16_MAX_P}, got {P}")
+    # the bf16 body copies dy in 16-byte pieces
+    _build.check_operand("dy", dy, x.device, align=16 if code == 1 else 4)
     if dstate is not None:
         if dstate.dtype != torch.float32:
             raise TypeError(f"dstate must be float32, got {dstate.dtype}")
@@ -228,7 +238,7 @@ def ssd_backward(
     fn, _, err_str = _backward_kernel()
     dS, dBp, dCp, dAp = (
         torch.empty(shape, dtype=torch.float32, device=x.device)
-        for shape in backward_scratch_shapes(B, S, H, P, N))
+        for shape in backward_scratch_shapes(B, S, H, P, N, code))
     with torch.cuda.device(x.device):
         err = fn(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
@@ -274,8 +284,12 @@ class _SSDScan(torch.autograd.Function):
         x, dt, A, Bm, Cm, states = ctx.saved_tensors
         if dy is None:
             dy = torch.zeros(x.shape, dtype=x.dtype, device=x.device)
-        # autograd may hand over a non-contiguous view
-        return ssd_backward(x, dt, A, Bm, Cm, dy.contiguous(), states,
+        # autograd may hand over a non-contiguous or offset view; the bf16
+        # kernel copies dy in 16-byte pieces
+        dy = dy.contiguous()
+        if dy.data_ptr() % 16:
+            dy = dy.clone()
+        return ssd_backward(x, dt, A, Bm, Cm, dy, states,
                             None if dstate is None else dstate.contiguous())
 
 

@@ -136,7 +136,8 @@ _SASS = ("/*0050*/ HMMA.16816.F32.BF16 R4, R8, R12, R4 ;\n"
     ("flash_prefill", "LDSM"),
     ("flash_backward", "HGMMA"),
     ("flash_backward", "UTMALDG"),
-    ("ssd_backward", "FFMA"),
+    ("ssd_backward", "HMMA"),
+    ("ssd_backward", "LDGSTS"),
 ])
 def test_sass_ops_flag_a_library_missing_its_instructions(lib, drop):
     """Every redesigned library must show the tensor-core product; the
@@ -672,13 +673,16 @@ def test_mamba_train_phase_names_mamba2_at_full_width_and_its_launches():
 
 def test_ssd_backward_is_a_kernel_of_the_line():
     """The kernels line carries ssd_backward from phase 19 with its note;
-    its SASS must show the CUDA-core body and no atomic."""
+    its SASS must show the tensor-core body (mma.sync, cp.async, ldmatrix)
+    and no atomic."""
     source, replaces, phase = cs.KERNELS["ssd_backward"]
     assert (ROOT / source).is_file() and phase == "train-mamba"
     assert replaces == "src/repro/kernels/ssd/kernel.py:98"
     assert "L.ssd_chunked" in cs.KERNEL_NOTES["ssd_backward"]
-    assert cs.REDESIGNED["ssd_backward"] == ("FFMA", "MUFU.EX2")
+    assert cs.REDESIGNED["ssd_backward"] == ("HMMA", "LDGSTS", "LDSM")
     assert cs.kernel_group("ssd_bwd_chunk_kernel") == "ssd"
+    assert cs.kernel_group("ssd_bwd_chunk_tc_kernel") == "ssd"
+    assert cs.kernel_group("ssd_dstate_tc_kernel") == "ssd"
     assert cs.kernel_group("ssd_chunk_kernel") == "ssd"
 
 
@@ -689,7 +693,7 @@ def test_sass_ops_flag_an_atomic_in_the_ssd_backward(planted):
     if planted:
         listings["ssd_backward"] = _SASS + f"/*0100*/ {planted} [R2], R3 ;\n"
     got = cs.sass_ops(listings)["ssd_backward"]
-    assert got["FFMA"] and got["MUFU.EX2"]
+    assert got["HMMA"] and got["LDGSTS"] and got["LDSM"]
     assert (got["no ATOM"] and got["no RED."]) is (planted is None)
 
 
@@ -712,6 +716,23 @@ def test_ssd_backward_case_holds_the_plain_backward_on_the_cpu(monkeypatch):
         assert row["repeats_bitwise"] and row["max_abs_err"] == 0.0
         assert row["shape"] == "B=1 S=96 H=2 P=16 N=16"
         assert row["dstate"] is dstate and row["fused"] is fused
+
+
+def test_ssd_backward_scratch_bytes_follow_the_body():
+    """The design's own traffic the SSD backward row reports: at
+    mamba2-2.7b's training shape the states read once (167.8 MB), the
+    walk's dS written and read, and the partials of dB and dC written and
+    read, one a group of 8 heads in bf16 (21.0 MB each), one a head in
+    float32 (167.8 MB each)."""
+    from repro_torch.kernels.ssd import ops as sops
+
+    states = 4 * 16 * 80 * 64 * 128 * 4
+    dap = 4 * 16 * 80 * 4
+    bf16 = cs.ssd_backward_scratch_bytes(sops, 4, 1024, 80, 64, 128, 1)
+    f32 = cs.ssd_backward_scratch_bytes(sops, 4, 1024, 80, 64, 128, 0)
+    assert bf16 == 3 * states + 4 * (4 * 1024 * 10 * 128 * 4) + 2 * dap
+    assert f32 == 3 * states + 4 * (4 * 1024 * 80 * 128 * 4) + 2 * dap
+    assert round(bf16 / 1e6, 1) == 587.2
 
 
 def test_plain_sub_chunk_states_are_the_recurrences():

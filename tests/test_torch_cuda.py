@@ -1917,6 +1917,9 @@ def _ssd_grads_close(got, want, dtype):
     (2, 256, 4, 64, 128), (1, 512, 8, 32, 64), (2, 128, 2, 64, 32),
     (1, 96, 4, 16, 16),  # the reduced config's head and state dims
     (2, 200, 3, 32, 128),  # a ragged last sub-chunk
+    # head counts the bf16 body's group of 8 heads does not divide, B = 1
+    # with a ragged last sub-chunk
+    (1, 200, 11, 64, 128), (2, 256, 3, 64, 128), (1, 130, 11, 16, 16),
 ])
 def test_ssd_backward_matches_plain_backward(card, B, S, H, P, N, dtype,
                                              dstate):
@@ -1955,13 +1958,14 @@ def test_ssd_backward_reads_model_slices(card, dtype):
     _ssd_grads_close(got, want, dtype)
 
 
+@pytest.mark.parametrize("H", [8, 80])  # 80: mamba2-2.7b's heads
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_ssd_backward_repeats_bitwise_and_rows_alone_equal_the_batch(
-        card, dtype):
+        card, dtype, H):
     """No float atomics and sums in a fixed order: two calls agree bit for
     bit, and rows 1-2 of a B=3 call equal a call on those rows (dA, a sum
     over the batch, aside)."""
-    x, dt, A, Bm, Cm, dy, ds = _ssd_bwd_inputs(card, dtype, 3, 320, 8, 64,
+    x, dt, A, Bm, Cm, dy, ds = _ssd_bwd_inputs(card, dtype, 3, 320, H, 64,
                                                128, 43, True)
     _, _, states = _training_forward(x, dt, A, Bm, Cm)
     first = sops.ssd_backward(x, dt, A, Bm, Cm, dy, states, ds)
@@ -2001,15 +2005,30 @@ def test_training_forward_writes_sub_chunk_states_and_serving_is_unchanged(
 
 
 def test_ssd_backward_scratch_is_what_the_library_sizes(card):
-    """The wrapper's scratch and states shapes are the library's sizes."""
+    """The wrapper's scratch and states shapes are the library's sizes,
+    in both dtypes (bf16 sums dB and dC over groups of heads)."""
     fn, scratch, _ = sops._backward_kernel()
     for B, S, H, P, N in ((4, 1024, 80, 64, 128), (1, 96, 4, 16, 16),
-                          (2, 200, 3, 32, 64)):
-        sizes = [math.prod(s) for s in
-                 sops.backward_scratch_shapes(B, S, H, P, N)]
-        assert sizes[0] == math.prod(sops.states_shape(B, S, H, P, N))
-        assert [scratch(0, B, S, H, P, N), scratch(1, B, S, H, P, N),
-                scratch(1, B, S, H, P, N), scratch(2, B, S, H, P, N)] == sizes
+                          (2, 200, 3, 32, 64), (1, 130, 11, 16, 16)):
+        for code in (0, 1):
+            sizes = [math.prod(s) for s in
+                     sops.backward_scratch_shapes(B, S, H, P, N, code)]
+            assert sizes[0] == math.prod(sops.states_shape(B, S, H, P, N))
+            assert [scratch(w, B, S, H, P, N, code)
+                    for w in (0, 1, 1, 2)] == sizes
+
+
+def test_ssd_backward_bf16_refuses_head_dims_above_64(card):
+    """The bf16 body stages x and dy tiles of at most 64 columns: a wider
+    head dim raises before any launch, and counts none."""
+    x, dt, A, Bm, Cm, dy, _ = _ssd_bwd_inputs(card, "bfloat16", 1, 64, 2,
+                                              128, 16, 3)
+    states = torch.empty(sops.states_shape(1, 64, 2, 128, 16),
+                         dtype=torch.float32, device=card)
+    n0 = sops.backward_launches
+    with pytest.raises(ValueError, match="up to 64"):
+        sops.ssd_backward(x, dt, A, Bm, Cm, dy, states)
+    assert sops.backward_launches == n0
 
 
 def test_ssd_scan_under_autograd_runs_the_kernel_pair(card):

@@ -289,11 +289,17 @@ def test_a_training_forward_saves_no_output_it_discards():
 # ---------------------------------------------------------------------------
 
 
-def _kernel_mirror(x, dt, A, Bm, Cm, dy, dstate, L=sops.SUB_CHUNK):
-    """``ssd_backward.cu``'s algebra in numpy float64: the forward's state
-    entering each L-row sub-chunk, the state gradient walked from the last
-    sub-chunk to the first, and per sub-chunk dx, ddt, each head's terms
-    of dB and dC, and dA, with exp taken only at arguments <= 0."""
+def _kernel_mirror(x, dt, A, Bm, Cm, dy, dstate, L=sops.SUB_CHUNK,
+                   G=sops.HEAD_GROUP):
+    """``ssd_backward.cu``'s algebra in numpy float64, in its bf16 body's
+    decomposition.  The walk: per (b, h) the forward's state entering each
+    L-row sub-chunk, and the state gradient walked from the last sub-chunk
+    to the first.  The sub-chunks: per (b, sub-chunk) and group of G heads
+    in head order, each head's dx, ddt and term of dA, the heads' state
+    terms of dC and dB summed into the group's, W summed over the group's
+    heads and multiplied by B and C once, after its last head; then the
+    groups' partials summed in group order.  exp is taken only at
+    arguments <= 0."""
     Bsz, S, H, P = x.shape
     N = Bm.shape[-1]
     n_sub = -(-S // L)
@@ -305,57 +311,84 @@ def _kernel_mirror(x, dt, A, Bm, Cm, dy, dstate, L=sops.SUB_CHUNK):
             [a, np.zeros((a.shape[0], pad) + a.shape[2:])], 1) if pad else a
 
     x, dt, Bm, Cm, dy = map(padded, (x, dt, Bm, Cm, dy))
-    dx, ddt = np.zeros_like(x), np.zeros_like(dt)
-    dA = np.zeros(H)
-    dBh = np.zeros((Bsz, n_sub * L, H, N))
-    dCh = np.zeros_like(dBh)
     tri = np.tril(np.ones((L, L), bool))
+
+    def vectors(b, c, h):
+        d = dt[b, c * L:(c + 1) * L, h]
+        cum = np.cumsum(d * A[h])
+        el = np.exp(cum[-1] - cum)
+        E = np.where(tri, np.exp(np.where(tri, cum[:, None] - cum[None, :],
+                                          0)), 0)
+        return d, np.exp(cum), el, el * d, E
+
+    # the walk
+    s_in = np.zeros((Bsz, n_sub, H, P, N))
+    dS = np.zeros_like(s_in)
     for b in range(Bsz):
         for h in range(H):
-            s_in, st = np.zeros((n_sub, P, N)), np.zeros((P, N))
+            st = np.zeros((P, N))
             for c in range(n_sub):
                 r = slice(c * L, (c + 1) * L)
-                s_in[c] = st
-                cum = np.cumsum(dt[b, r, h] * A[h])
-                w = np.exp(cum[-1] - cum) * dt[b, r, h]
-                st = np.exp(cum[-1]) * st + (x[b, r, h] * w[:, None]).T \
-                    @ Bm[b, r]
-            dS = (np.zeros((P, N)) if dstate is None
-                  else dstate[b, h].astype(np.float64))
+                s_in[b, c, h] = st
+                _, ecum, _, w, _ = vectors(b, c, h)
+                st = ecum[-1] * st + (x[b, r, h] * w[:, None]).T @ Bm[b, r]
+            g = (np.zeros((P, N)) if dstate is None
+                 else dstate[b, h].astype(np.float64))
             for c in reversed(range(n_sub)):
                 r = slice(c * L, (c + 1) * L)
-                d = dt[b, r, h]
-                cum = np.cumsum(d * A[h])
-                ecum, el = np.exp(cum), np.exp(cum[-1] - cum)
-                w = el * d
-                E = np.where(tri, np.exp(np.where(tri, cum[:, None]
-                                                  - cum[None, :], 0)), 0)
-                X, DY, Bc, Cc = x[b, r, h], dy[b, r, h], Bm[b, r], Cm[b, r]
-                cbe = (Cc @ Bc.T) * E
-                D = DY @ X.T
-                dx[b, r, h] = (cbe * d[None, :]).T @ DY + w[:, None] \
-                    * (Bc @ dS.T)
-                W = D * E * d[None, :]
-                q, rr = DY @ s_in[c], X @ dS
-                dCh[b, r, h] = W @ Bc + ecum[:, None] * q
-                dBh[b, r, h] = W.T @ Cc + w[:, None] * rr
-                G = cbe * D
-                u, v = (q * Cc).sum(1), (rr * Bc).sum(1)
-                dcum = (G * d[None, :]).sum(1) - d * G.sum(0) + ecum * u \
-                    - w * v
-                dcum[-1] += ecum[-1] * (dS * s_in[c]).sum() + (w * v).sum()
-                da = np.cumsum(dcum[::-1])[::-1]
-                ddt[b, r, h] = G.sum(0) + el * v + A[h] * da
-                dA[h] += (d * da).sum()
-                dS = ecum[-1] * dS + (DY * ecum[:, None]).T @ Cc
-    return (dx[:, :S], ddt[:, :S], dA, dBh.sum(2)[:, :S],
-            dCh.sum(2)[:, :S])
+                dS[b, c, h] = g
+                ecum = vectors(b, c, h)[1]
+                g = ecum[-1] * g + (dy[b, r, h] * ecum[:, None]).T @ Cm[b, r]
+    # the sub-chunks, a group of heads at a time
+    n_groups = -(-H // G)
+    dx, ddt = np.zeros_like(x), np.zeros_like(dt)
+    dAp = np.zeros((Bsz, n_sub, H))
+    dBp = np.zeros((Bsz, n_sub * L, n_groups, N))
+    dCp = np.zeros_like(dBp)
+    for b in range(Bsz):
+        for c in range(n_sub):
+            r = slice(c * L, (c + 1) * L)
+            Bc, Cc = Bm[b, r], Cm[b, r]
+            cb = Cc @ Bc.T
+            for grp in range(n_groups):
+                dCg, dBg, Wsum = np.zeros((L, N)), np.zeros((L, N)), 0.0
+                for h in range(grp * G, min(H, (grp + 1) * G)):
+                    d, ecum, el, w, E = vectors(b, c, h)
+                    X, DY = x[b, r, h], dy[b, r, h]
+                    Si, So = s_in[b, c, h], dS[b, c, h]
+                    dx[b, r, h] = ((cb * E) * d[None, :]).T @ DY \
+                        + w[:, None] * (Bc @ So.T)
+                    D = DY @ X.T
+                    G_ = cb * E * D
+                    Wsum = Wsum + D * E * d[None, :]
+                    q, rr = DY @ Si, X @ So
+                    dCg += ecum[:, None] * q
+                    dBg += w[:, None] * rr
+                    u, v = (q * Cc).sum(1), (rr * Bc).sum(1)
+                    dcum = (G_ * d[None, :]).sum(1) - d * G_.sum(0) \
+                        + ecum * u - w * v
+                    dcum[-1] += ecum[-1] * (So * Si).sum() + (w * v).sum()
+                    da = np.cumsum(dcum[::-1])[::-1]
+                    ddt[b, r, h] = G_.sum(0) + el * v + A[h] * da
+                    dAp[b, c, h] = (d * da).sum()
+                dCp[b, r, grp] = dCg + Wsum @ Bc
+                dBp[b, r, grp] = dBg + Wsum.T @ Cc
+    dB, dC = np.zeros((Bsz, n_sub * L, N)), np.zeros((Bsz, n_sub * L, N))
+    for grp in range(n_groups):  # the sums, in group order
+        dB += dBp[:, :, grp]
+        dC += dCp[:, :, grp]
+    dA = np.zeros(H)
+    for b in range(Bsz):  # over (b, sub-chunk) in index order
+        for c in range(n_sub):
+            dA += dAp[b, c]
+    return dx[:, :S], ddt[:, :S], dA, dB[:, :S], dC[:, :S]
 
 
 @pytest.mark.parametrize("B,S,H,P,N,dstate", [
     (2, 130, 3, 16, 16, True),  # a ragged last sub-chunk
     (1, 192, 2, 32, 32, False),
     (2, 64, 2, 16, 128, True),  # one sub-chunk
+    (1, 70, 11, 16, 16, True),  # two groups of heads, the last of 3
 ])
 def test_kernel_equations_match_the_plain_backward(B, S, H, P, N, dstate):
     rng = np.random.default_rng(B * S + N)
@@ -370,6 +403,72 @@ def test_kernel_equations_match_the_plain_backward(B, S, H, P, N, dstate):
     got = _kernel_mirror(x, dt, A, Bm, Cm, dy, ds)
     for name, w, g in zip(NAMES, want, got):
         assert _rel_err(w.numpy(), g) <= GRAD_TOL, name
+
+
+@pytest.mark.parametrize("H,code,groups", [
+    (80, 1, 10), (80, 0, 80), (11, 1, 2), (3, 1, 1), (8, 1, 1), (9, 0, 9),
+])
+def test_backward_scratch_holds_a_partial_per_head_group(H, code, groups):
+    """The bf16 body sums dB and dC over groups of ``HEAD_GROUP`` heads
+    (the last group short where 8 does not divide H), the float32 body
+    writes a partial a head; the group never depends on the batch."""
+    assert sops.HEAD_GROUP == 8
+    for B in (1, 4):
+        states, dbp, dcp, dap = sops.backward_scratch_shapes(
+            B, 200, H, 64, 128, code)
+        assert states == sops.states_shape(B, 200, H, 64, 128)
+        assert dbp == dcp == (B, 200, groups, 128)
+        assert dap == (B, 4, H)
+
+
+def _bf16_parts(a, k):
+    """A float32 tensor as a sum of k bf16 tensors, each holding what
+    rounding to the parts before it lost (``mma_bf16.cuh``
+    ``split_bf16x2``)."""
+    parts, rest = [], a
+    for _ in range(k):
+        part = rest.to(torch.bfloat16)
+        parts.append(part)
+        rest = rest - part.float()
+    return parts
+
+
+@pytest.mark.parametrize("product,m,k,n,float_left", [
+    ("W B (dC)", 64, 64, 128, True),
+    ("dy S_in (q)", 64, 64, 128, False),
+    ("(exp(cum) dy)^T C (the walk)", 64, 64, 128, True),
+    ("B dS_out^T (dx)", 64, 128, 64, False),
+])
+def test_three_bf16_parts_keep_float32_precision(product, m, k, n,
+                                                 float_left):
+    """The bf16 body's precision rule, emulated on the CPU at the
+    backward's products: a float32 operand split into three bf16 parts,
+    each multiplied by an exact bf16 operand with float32 accumulation
+    (the tensor cores' bf16 products are exact in float32, their sums
+    float32), smallest part first, lies within 1e-6 of the float32
+    product, relative to its largest magnitude; two parts do not."""
+    rng = np.random.default_rng(m * k + n + float_left)
+    fshape, bshape = ((m, k), (k, n)) if float_left else ((k, n), (m, k))
+    # float32 values over several magnitudes, as exp(cum) spreads them
+    f = torch.from_numpy((rng.normal(size=fshape) * np.exp(
+        rng.uniform(-6, 0, size=fshape))).astype(np.float32))
+    if product.startswith("W"):
+        f = torch.tril(f)  # W is 0 above the diagonal
+    bf = torch.from_numpy(rng.normal(size=bshape).astype(np.float32)).to(
+        torch.bfloat16)
+
+    def mm(a, b):
+        return a @ b if float_left else b @ a
+
+    want = mm(f, bf.float())
+    errs = {}
+    for n_parts in (2, 3):
+        got = torch.zeros_like(want)
+        for part in reversed(_bf16_parts(f, n_parts)):
+            got = got + mm(part.float(), bf.float())
+        errs[n_parts] = float((got - want).abs().max() / want.abs().max())
+    assert errs[3] <= 1e-6, (product, errs)
+    assert errs[2] > 1e-6, (product, errs)
 
 
 # ---------------------------------------------------------------------------
