@@ -122,7 +122,19 @@ Phases, in order; any failure exits non-zero:
    state 128, 2.70 B params) trained as phase 18: every Mamba2 layer's
    gradient through ``ssd_backward`` (the forward writing the state
    entering each 64-row sub-chunk), 128 ssd_scan and 64 ssd_backward
-   launches a step and no attention kernel; no checkpoint round trip.
+   launches a step and no attention kernel; no checkpoint round trip;
+20. (run right after phase 9, before phase 10) a world of
+   ``DISJOINT_WORLD`` = 2 ranks on the card, each holding llama-3.1-8b
+   at full width and depth: the prefill instance a tp=1 slice on rank 0,
+   the decode instance one on rank 1, eager, so every P→D handoff
+   crosses ranks (staged through pinned host memory under gloo).  Phase
+   4's requests over the dense ring must give each rank phase 4's eager
+   streams and the same virtual-clock finish times and energy, each
+   handoff moving the whole B=1 ring; phase 6's multi-turn workload over
+   the paged pool (radix reuse) must give both ranks the same streams,
+   drained pools, and a stream that replays on the full weights.  It
+   prints each crossing handoff's bytes and wall ms beside the bytes the
+   virtual clock prices, and each rank's walls and peak.
 
 The kernel phase holds flash_prefill at head dim 80 without the causal
 mask (hubert's) in both dtypes and times it at hubert's shape beside
@@ -138,7 +150,10 @@ and ssd_backward (dx, ddt, dA, dB, dC) against the plain backward at the
 SSD sweep's shapes and the training shape, with and without a final-state
 cotangent, in both dtypes, each call repeated bit for bit and the last
 batch rows alone equal to the batch; both timed in bf16 at the training
-shape.
+shape.  Where SDPA has no softcap (gemma2's prefill, its backward
+row and its rings), the library yardstick is ``flex_attention``
+compiled with a tanh softcap ``score_mod`` and the case's block mask,
+timed by both methods.
 
 It prints the ``kernels`` JSON line and, last, the device line.
 
@@ -488,6 +503,51 @@ def ratios(row):
             "device_bound_frac": row["bound_ms"] / row["device_ms"]}
 
 
+def flex_library(torch, mask_mod, softcap, B, q_len, kv_len):
+    """The library yardstick of a softcapped attention case (never called
+    by the port): ``flex_attention`` compiled by ``torch.compile``, with
+    the tanh softcap as its ``score_mod`` and ``mask_mod`` as its block
+    mask, on head-major (B, H, S, D) inputs with grouped kv heads."""
+    from torch.nn.attention.flex_attention import (
+        create_block_mask, flex_attention,
+    )
+
+    block = create_block_mask(mask_mod, B, None, q_len, kv_len,
+                              device="cuda")
+
+    def capped(score, b, h, q_idx, kv_idx):
+        return softcap * torch.tanh(score / softcap)
+
+    compiled = torch.compile(flex_attention, dynamic=False)
+
+    def call(q, k, v):
+        return compiled(q, k, v, score_mod=capped, block_mask=block,
+                        enable_gqa=True)
+    return call
+
+
+def flex_timings(torch, lib, sets, want, dtype: str):
+    """``library_ms`` (paced) and ``library_device_ms`` of ``lib`` over
+    ``sets``, after holding its first output against ``want`` (the plain
+    version's); where flex_attention fails to compile or run at the
+    shape, no times and the reason in ``library_note``."""
+    try:
+        got = lib(*sets[0])
+        torch.cuda.synchronize()
+        err = max(float((g.float() - w.float()).abs().max())
+                  for g, w in zip(got, want))
+        ms = cuda_ms(torch, lib, sets)
+        dev_ms, _ = queued_ms(torch, lib, sets)
+    except Exception as e:  # reported in the row, not a failed phase
+        return {"library_ms": None, "library_device_ms": None,
+                "library_note": f"flex_attention failed: {type(e).__name__}"
+                                f": {str(e)[:300]}"}
+    return {"library_ms": ms, "library_device_ms": dev_ms,
+            "library": "flex_attention (torch.compile), tanh softcap "
+                       "score_mod, block mask",
+            "library_max_abs_err": err}
+
+
 def max_err(torch, got, want, dtype: str):
     g, w = got.float(), want.float()
     err = (g - w).abs()
@@ -601,7 +661,24 @@ def flash_case(torch, F, B, S, Hq, Hkv, Dh, dtype, kv_frac, window, softcap,
         lib_ms = cuda_ms(torch, lib, sets)
         lib_dev_ms, _ = queued_ms(torch, lib, sets)
     else:
-        row["library_note"] = "SDPA has no softcap: no library call"
+        # SDPA has no softcap: flex_attention with the same mask
+        L_ = torch.tensor(lens, device="cuda")
+
+        def allowed(b, h, q_idx, kv_idx):
+            qpos = q_idx + qs
+            ok = (kv_idx < L_[b]) & (qpos >= kv_idx if causal else
+                                     kv_idx >= 0)
+            return ok & (qpos - kv_idx < window) if window is not None \
+                else ok
+        flex = flex_library(torch, allowed, softcap, B, S, Skv)
+
+        def lib(a, b, c):
+            return (flex(a.transpose(1, 2), b.transpose(1, 2),
+                         c.transpose(1, 2)).transpose(1, 2),)
+        flexed = flex_timings(torch, lib, sets, (want,), dtype)
+        lib_ms, lib_dev_ms = flexed.pop("library_ms"), flexed.pop(
+            "library_device_ms")
+        row.update(flexed)
     b_ms, b_by = bound(flops, nbytes, dtype)
     row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
                bound_by=b_by, device_ms=dev_ms, host_ms=host_ms,
@@ -700,8 +777,31 @@ def flash_backward_case(torch, F, B, S, Hq, Hkv, Dh, dtype, causal, window,
         lib_ms = cuda_ms(torch, lib, lib_sets)
         lib_dev_ms, _ = queued_ms(torch, lib, lib_sets)
         del graphs, lib_sets
+    elif softcap is not None:
+        # SDPA has no softcap: flex_attention's backward, its compiled
+        # forward's graph kept
+        def allowed(b, h, q_idx, kv_idx):
+            ok = q_idx >= kv_idx if causal else kv_idx >= 0
+            return ok & (q_idx - kv_idx < window) if window is not None \
+                else ok
+        flex = flex_library(torch, allowed, softcap, None, S, S)
+        graphs = []
+        for a, b, c, o, d, ls in sets:
+            leaves = [t.transpose(1, 2).detach().requires_grad_()
+                      for t in (a, b, c)]
+            graphs.append((flex(*leaves), leaves, d.transpose(1, 2)))
+
+        def lib(res, leaves, d):
+            return [t.transpose(1, 2) for t in torch.autograd.grad(
+                res, leaves, d, retain_graph=True)]
+        flexed = flex_timings(torch, lib, [tuple(x) for x in graphs], want,
+                              dtype)
+        lib_ms, lib_dev_ms = flexed.pop("library_ms"), flexed.pop(
+            "library_device_ms")
+        row.update(flexed)
+        del graphs
     else:
-        row["library_note"] = "SDPA has no softcap or window: no library call"
+        row["library_note"] = "SDPA has no window: no library call"
     b_ms, b_by = bound(flops, nbytes, dtype)
     row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
                bound_by=b_by, device_ms=dev_ms, host_ms=host_ms,
@@ -788,7 +888,17 @@ def decode_case(torch, F, B, C, Hq, Hkv, Dh, dtype, window, softcap,
         lib_ms = cuda_ms(torch, lib, sets)
         lib_dev_ms, _ = queued_ms(torch, lib, sets)
     else:
-        row["library_note"] = "SDPA has no softcap: no library call"
+        # SDPA has no softcap: flex_attention over one query a row
+        flex = flex_library(torch, lambda b, h, q_idx, kv_idx: live[b, kv_idx],
+                            softcap, B, 1, C)
+
+        def lib(a, b, c):
+            return (flex(a[:, :, None], b.transpose(1, 2),
+                         c.transpose(1, 2))[:, :, 0],)
+        flexed = flex_timings(torch, lib, sets, (want,), dtype)
+        lib_ms, lib_dev_ms = flexed.pop("library_ms"), flexed.pop(
+            "library_device_ms")
+        row.update(flexed)
     b_ms, b_by = bound(flops, nbytes, dtype)
     row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
                bound_by=b_by, device_ms=dev_ms, host_ms=host_ms,
@@ -1577,9 +1687,11 @@ def serve_phase(torch, arch, label, per_iter, params=None, tp=0,
 
     def factory(kind, idx, hw, seed, tp=None):
         be = base(kind, idx, hw, seed, tp=tp)
-        be._real_prefill = timed(torch, be._real_prefill, walls["prefill"])
-        be._real_decode_step = timed(torch, be._real_decode_step,
-                                     walls["decode"])
+        if be.local:  # an instance this rank computes
+            be._real_prefill = timed(torch, be._real_prefill,
+                                     walls["prefill"])
+            be._real_decode_step = timed(torch, be._real_decode_step,
+                                         walls["decode"])
         if recorder is not None:
             recorder.attach(be)
         return be
@@ -1623,7 +1735,9 @@ def serve_phase(torch, arch, label, per_iter, params=None, tp=0,
     for name, n in launches.items():
         kind = per_iter.get(name)
         want = kernel_layers(cfg, name) * len(walls[kind]) if kind else 0
-        check(n == want and (n > 0 or not kind),
+        # a mesh rank may compute no iteration of a kind (disjoint slices)
+        ran = not kind or walls[kind] or not tp
+        check(n == want and (n > 0 or not kind or not ran),
               f"{label}: {name} launched {n} times, expected {want}")
     n_dec = sum(r.decode_len for r in reqs)
     dec_s = sum(walls["decode"]) / 1e3
@@ -1636,11 +1750,11 @@ def serve_phase(torch, arch, label, per_iter, params=None, tp=0,
     stats = {
         "requests": len(reqs),
         "prefill_iters": len(walls["prefill"]),
-        "prefill_ms_mean": statistics.fmean(walls["prefill"]),
-        "prefill_ms_median": statistics.median(walls["prefill"]),
+        "prefill_ms_mean": _mean(walls["prefill"]),
+        "prefill_ms_median": _median(walls["prefill"]),
         "decode_iters": len(walls["decode"]),
-        "decode_ms_mean": statistics.fmean(walls["decode"]),
-        "decode_ms_median": statistics.median(walls["decode"]),
+        "decode_ms_mean": _mean(walls["decode"]),
+        "decode_ms_median": _median(walls["decode"]),
         "decode_tokens": n_dec,
         "decode_tok_s": n_dec / dec_s if dec_s else None,
         "max_memory_allocated_gb": peak / 1e9,
@@ -1651,12 +1765,23 @@ def serve_phase(torch, arch, label, per_iter, params=None, tp=0,
                            if graphs["cuda_graphs"] else None),
         "ring_max_position": (ring_positions(cluster) if cfg.has_attention
                               and not tp else None),
+        "virtual_energy_j": m.energy_j(),
+        "virtual_t_finish": [r.t_finish for r in reqs],
+        "handoffs": handoff_stats(cluster),
     }
     print(f"serve[{label}]: " + json.dumps(stats))
     print(f"{label}: virtual-clock A100 model (not measured on this card): "
           f"ttft_p50_ms={s['ttft_p50_ms']} itl_p50_ms={s['itl_p50_ms']} "
           f"energy_j={s['energy_j']} epot_mj={s['epot_mj']}")
     return cfg, params, reqs, launches, stats
+
+
+def _mean(xs):
+    return statistics.fmean(xs) if xs else None
+
+
+def _median(xs):
+    return statistics.median(xs) if xs else None
 
 
 def graph_counts(jitcache, before, cuda_graphs, tp, entries, steps, label):
@@ -1705,8 +1830,9 @@ def same_streams_eagerly(torch, reqs, arch, label, per_iter, params):
     (``cuda_graphs=False``, the graphs' oracle) on the same weights: the
     token streams must be equal, since the same kernels run on the same
     inputs."""
-    _, _, eager, _, _ = serve_phase(torch, arch, f"{label}-eager", per_iter,
-                                    params=params, cuda_graphs=False)
+    _, _, eager, _, stats = serve_phase(torch, arch, f"{label}-eager",
+                                        per_iter, params=params,
+                                        cuda_graphs=False)
     same = [r.output_tokens == e.output_tokens for r, e in zip(reqs, eager)]
     check(len(eager) == len(reqs) and all(same),
           f"{label}: graph replay and eager steps emitted different streams "
@@ -1714,6 +1840,7 @@ def same_streams_eagerly(torch, reqs, arch, label, per_iter, params):
     print(f"{label}: the eager serve emitted the same {len(reqs)} streams "
           "as the graph replays")
     free(torch)
+    return eager, stats
 
 
 def sharded_counts(dops):
@@ -2264,11 +2391,14 @@ def paged_serve_phase(torch, cfg, params, pred, drafter=None, tp=0,
 
     def factory(kind, idx, hw, seed, tp=None):
         be = base(kind, idx, hw, seed, tp=tp)
-        be._real_prefill = timed(torch, be._real_prefill, walls["prefill"])
-        be._real_decode_step = timed(torch, be._real_decode_step,
-                                     walls["decode"])
+        if be.local:  # an instance this rank computes
+            be._real_prefill = timed(torch, be._real_prefill,
+                                     walls["prefill"])
+            be._real_decode_step = timed(torch, be._real_decode_step,
+                                         walls["decode"])
         if be.spec_k:
-            inner = timed(torch, be._real_spec_step, walls["spec"])
+            inner = (timed(torch, be._real_spec_step, walls["spec"])
+                     if be.local else be._real_spec_step)
 
             def step(rs, k, accepts):
                 log.extend((r.rid, a) for r, a in zip(rs, accepts))
@@ -2334,14 +2464,16 @@ def paged_serve_phase(torch, cfg, params, pred, drafter=None, tp=0,
     check(pb.pool.in_use == len(set(radix)),
           f"{phase}: prefill pool holds {pb.pool.in_use} pages, its radix "
           f"tree {len(set(radix))}")
-    check(launches["flash_prefill_q_offset"] > 0,
+    # on disjoint slices a rank launches only its own instances' kernels
+    db = cluster.decode[0].backend
+    check(launches["flash_prefill_q_offset"] > 0 or not pb.local,
           f"{phase}: the q-offset flash_prefill was never launched")
     if drafter:
         check(m.spec_iterations() > 0, "spec: no speculative iteration")
-        check(dops.paged_launches.get(SPEC_K + 1, 0) > 0,
+        check(dops.paged_launches.get(SPEC_K + 1, 0) > 0 or not db.local,
               f"spec: paged_verify never launched at T={SPEC_K + 1}")
     else:
-        check(launches["paged_decode"] > 0,
+        check(launches["paged_decode"] > 0 or not db.local,
               "paged: paged_decode was never launched")
     iters = walls["spec"] if drafter else walls["decode"]
     n_dec = sum(r.decode_len for r in reqs)
@@ -2358,12 +2490,12 @@ def paged_serve_phase(torch, cfg, params, pred, drafter=None, tp=0,
         "reused_tokens": pb.reused_tokens,
         "computed_tokens": pb.computed_tokens,
         "prefill_iters": len(walls["prefill"]),
-        "prefill_ms_mean": statistics.fmean(walls["prefill"]),
-        "prefill_ms_median": statistics.median(walls["prefill"]),
+        "prefill_ms_mean": _mean(walls["prefill"]),
+        "prefill_ms_median": _median(walls["prefill"]),
         "iter_kind": "spec" if drafter else "decode",
         "iters": len(iters),
-        "iter_ms_mean": statistics.fmean(iters),
-        "iter_ms_median": statistics.median(iters),
+        "iter_ms_mean": _mean(iters),
+        "iter_ms_median": _median(iters),
         "decode_tokens": n_dec,
         "decode_tok_s": n_dec / dec_s if dec_s else None,
         "spec_iterations": m.spec_iterations(),
@@ -2374,6 +2506,9 @@ def paged_serve_phase(torch, cfg, params, pred, drafter=None, tp=0,
         **graphs, **loop_split(prof),
         "step_device_ms": (step_device_ms(torch, cluster)
                            if graphs["cuda_graphs"] else None),
+        "virtual_energy_j": m.energy_j(),
+        "virtual_t_finish": [r.t_finish for r in reqs],
+        "handoffs": handoff_stats(cluster, PAGE_SIZE),
     }
     print(f"serve[{phase}]: " + json.dumps(stats))
     print(f"{phase}: virtual-clock A100 model (not measured on this card): "
@@ -2525,23 +2660,21 @@ def time_sharded_wrapper(torch, mesh, iters: int = 50):
     return out
 
 
-def mesh_phase(torch, pred):
-    """Spawn the phase 9 world and check what its ranks report: the
-    sharded wrappers' errors and launches, every serve's completeness
-    and launches, and the same streams on every rank.  Returns rank 0's
-    results."""
+def spawn_world(target, world: int, label: str, *args):
+    """Run ``target(rank, world, init, out, *args)`` on ``world`` spawned
+    ranks of the card, wait at most ``MESH_TIMEOUT_S``, kill what is left
+    and check that every rank reported ok.  Returns each rank's results."""
     import multiprocessing as mp
     import pickle
     import tempfile
 
     ctx = mp.get_context("spawn")
-    t0 = time.perf_counter()
     sys.stdout.flush()  # the ranks write to the same stream
     with tempfile.TemporaryDirectory() as tmp:
-        outs = [Path(tmp) / f"rank{r}.pkl" for r in range(MESH_TP)]
-        procs = [ctx.Process(target=mesh_rank, args=(
-            r, MESH_TP, f"file://{tmp}/store", str(outs[r]), pred))
-            for r in range(MESH_TP)]
+        outs = [Path(tmp) / f"rank{r}.pkl" for r in range(world)]
+        procs = [ctx.Process(target=target, args=(
+            r, world, f"file://{tmp}/store", str(outs[r]), *args))
+            for r in range(world)]
         for p in procs:
             p.start()
         deadline = time.monotonic() + MESH_TIMEOUT_S
@@ -2557,9 +2690,20 @@ def mesh_phase(torch, pred):
                  for o, p in zip(outs, procs)]
     for r, res in enumerate(ranks):
         if not res["ok"]:
-            print(f"mesh rank {r} failed:\n{res['error']}", file=sys.stderr)
-    check(not hung, f"mesh: ranks {hung} outlasted {MESH_TIMEOUT_S} s")
-    check(all(res["ok"] for res in ranks), "mesh: a rank failed")
+            print(f"{label} rank {r} failed:\n{res['error']}",
+                  file=sys.stderr)
+    check(not hung, f"{label}: ranks {hung} outlasted {MESH_TIMEOUT_S} s")
+    check(all(res["ok"] for res in ranks), f"{label}: a rank failed")
+    return ranks
+
+
+def mesh_phase(torch, pred):
+    """Spawn the phase 9 world and check what its ranks report: the
+    sharded wrappers' errors and launches, every serve's completeness
+    and launches, and the same streams on every rank.  Returns rank 0's
+    results."""
+    t0 = time.perf_counter()
+    ranks = spawn_world(mesh_rank, MESH_TP, "mesh", pred)
     print(f"mesh: {MESH_TP} ranks on one card, {ranks[0]['backend']} "
           f"backend, {ranks[0]['local_params']:,} llama params per rank "
           f"(init {ranks[0]['init_s']:.1f} s), "
@@ -2617,6 +2761,173 @@ def mesh_phase(torch, pred):
         print(f"serve[mesh-{name}] per rank: " + json.dumps(
             {c: [st[c] for _, _, st in per] for c in cols}))
     return ranks[0]
+
+
+# ---------------------------------------------------------------------------
+# Phase 20: prefill and decode on disjoint ranks of the card
+# ---------------------------------------------------------------------------
+
+DISJOINT_WORLD = 2  # phase 20: the prefill instance on rank 0, decode on 1
+
+
+def handoff_stats(cluster, page_size: int = 0):
+    """The P→D handoffs the decode instances took, as this rank saw them
+    (None on the meshless path): how many crossed ranks and how many
+    stayed local (the same on every rank), and each one's context
+    tokens, the bytes this rank sent and received, its wall ms (staging
+    included) and the bytes the virtual clock prices for the context
+    (``hw.kv_transfer_bytes``)."""
+    if cluster.decode[0].backend.mesh is None:
+        return None
+    out = {"crossed": 0, "local": 0, "moves": []}
+    for e in cluster.decode:
+        be = e.backend
+        out["crossed"] += be.handoffs["crossed"]
+        out["local"] += be.handoffs["local"]
+        for tokens, sent, received, ms in be.handoff_log:
+            out["moves"].append({
+                "tokens": tokens, "bytes_sent": sent,
+                "bytes_received": received, "ms": ms,
+                "clock_bytes": be.hw.kv_transfer_bytes(tokens,
+                                                       page_size=page_size)})
+    return out
+
+
+def disjoint_rank(rank: int, world: int, init: str, out: str, pred) -> None:
+    """Phase 20 on one rank: join a world of ``DISJOINT_WORLD`` ranks on
+    the card, draw llama-3.1-8b's weights at full width and depth (both
+    ranks compute: the prefill instance is a tp=1 slice on rank 0, the
+    decode instance one on rank 1) and serve, eagerly, (a) phase 4's
+    requests over the dense ring and (b) phase 6's multi-turn workload
+    over the paged pool with radix reuse.  Writes its results (or its
+    traceback) to ``out``."""
+    import pickle
+    import traceback
+
+    sys.stdout.reconfigure(line_buffering=True, write_through=False)
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+
+    res = {"ok": False}
+    try:
+        from repro_torch.configs.registry import REGISTRY
+        from repro_torch.distributed import init_world
+        from repro_torch.models import model as M
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        res["backend"] = init_world(rank, world, init, "cuda",
+                                    timeout_s=300.0)
+        cfg = REGISTRY["llama-3.1-8b"]
+        params = M.init_params(
+            cfg, torch.Generator(device="cuda").manual_seed(0),
+            device="cuda")
+        torch.cuda.synchronize()
+        res["weights_gb"] = torch.cuda.memory_allocated() / 1e9
+        res["ring_bytes"] = sum(
+            t.numel() * t.element_size()
+            for t in _leaves(M.init_cache(cfg, 1, MAX_LEN, "meta")))
+        serves = {}
+        _, _, reqs, _, stats = serve_phase(
+            torch, "llama-3.1-8b", f"disjoint-dense rank {rank}",
+            {"flash_prefill": "prefill", "ring_decode": "decode"},
+            params=params, tp=1)
+        serves["dense"] = (_streams(reqs), [], stats)
+        reqs, log, _, stats = paged_serve_phase(
+            torch, cfg, params, pred, tp=1,
+            label=f"disjoint-paged rank {rank}")
+        serves["paged"] = (_streams(reqs), log, stats)
+        res.update(serves=serves, ok=True)
+    except BaseException:  # the parent fails the phase with it
+        res["error"] = traceback.format_exc()
+    Path(out).write_bytes(pickle.dumps(res))
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def disjoint_phase(torch, pred, phase4):
+    """Spawn the phase 20 world and check what its ranks report: each
+    rank's dense streams equal to phase 4's eager serve (``phase4``: its
+    streams, virtual-clock finish times and energy) with the same
+    virtual clock, every dense handoff crossing ranks with the whole B=1
+    ring, the paged streams equal on both ranks, and each rank launching
+    only its own instance's kernels.  Prints each crossing handoff's
+    bytes and wall ms beside the bytes the clock prices, and each rank's
+    peak and walls.  Returns (rank 0's results, the launches of each
+    serve summed over the ranks)."""
+    t0 = time.perf_counter()
+    ranks = spawn_world(disjoint_rank, DISJOINT_WORLD, "disjoint", pred)
+    streams4, t_finish4, energy4 = phase4
+    for r, res in enumerate(ranks):
+        got, _, st = res["serves"]["dense"]
+        same = [a["output_tokens"] == b["output_tokens"]
+                for a, b in zip(got, streams4)]
+        check(len(got) == len(streams4) and all(same),
+              f"disjoint-dense: rank {r} emitted other streams than phase "
+              f"4's eager serve (requests "
+              f"{[a['rid'] for a, ok in zip(got, same) if not ok]})")
+        check(st["virtual_t_finish"] == t_finish4
+              and st["virtual_energy_j"] == energy4,
+              f"disjoint-dense: rank {r}'s virtual clock differs from phase "
+              f"4's: t_finish {st['virtual_t_finish']} vs {t_finish4}, "
+              f"energy {st['virtual_energy_j']} vs {energy4}")
+        ho = st["handoffs"]
+        check(ho["crossed"] == len(got) and ho["local"] == 0,
+              f"disjoint-dense: rank {r} counted {ho['crossed']} crossing "
+              f"and {ho['local']} local handoffs for {len(got)} requests")
+        moved = [m["bytes_sent"] + m["bytes_received"] for m in ho["moves"]]
+        check(moved == [res["ring_bytes"]] * len(got),
+              f"disjoint-dense: rank {r} moved {moved} bytes, not the "
+              f"whole ring's {res['ring_bytes']} a request")
+    paged = [res["serves"]["paged"] for res in ranks]
+    check(all(p[0] == paged[0][0] for p in paged),
+          "disjoint-paged: the ranks emitted different streams")
+    for name in ("dense", "paged"):
+        per = [res["serves"][name][2] for res in ranks]
+        prefill = [st["launches"]["flash_prefill"] for st in per]
+        decode = [st["launches"]["ring_decode" if name == "dense"
+                                 else "paged_decode"] for st in per]
+        check(prefill[0] > 0 and prefill[1] == 0 and decode[0] == 0
+              and decode[1] > 0,
+              f"disjoint-{name}: flash_prefill {prefill} and decode "
+              f"{decode} launches by rank: each rank must launch its own "
+              "instance's kernels only")
+        moves = [m for st in per for m in st["handoffs"]["moves"]
+                 if m["bytes_received"]]
+        check(all(m["bytes_received"] > 0 for m in moves) and moves,
+              f"disjoint-{name}: no handoff reached rank 1")
+        print(f"disjoint-{name}: crossing handoffs as rank 1 received them "
+              "(context tokens, bytes moved, bytes the virtual clock "
+              "prices, wall ms with staging): " + json.dumps(
+                  [(m["tokens"], m["bytes_received"], m["clock_bytes"],
+                    m["ms"]) for m in moves]))
+        sent = [m["ms"] for m in per[0]["handoffs"]["moves"]
+                if m["bytes_sent"]]
+        print(f"disjoint-{name}: handoff medians: bytes moved "
+              f"{_median([m['bytes_received'] for m in moves])}, clock "
+              f"bytes {_median([m['clock_bytes'] for m in moves])}, wall ms "
+              f"received {_median([m['ms'] for m in moves])}, sent "
+              f"{_median(sent)} (rank 0: staging and send)")
+        iters = "decode_ms_median" if name == "dense" else "iter_ms_median"
+        print(f"serve[disjoint-{name}] per rank: " + json.dumps(
+            {c: [st[c] for st in per] for c in (
+                "prefill_ms_median", iters, "decode_tok_s",
+                "max_memory_allocated_gb", "launches", "captures",
+                "dispatch_s", "device_wait_s")}))
+    print(f"disjoint: {DISJOINT_WORLD} ranks on one card, "
+          f"{ranks[0]['backend']} backend (handoffs staged through pinned "
+          f"host memory), llama weights {ranks[0]['weights_gb']:.2f} GB a "
+          f"rank, {time.perf_counter() - t0:.1f} s wall")
+    launches = {}
+    for name in ("dense", "paged"):
+        total = {}
+        for res in ranks:
+            for k, n in res["serves"][name][2]["launches"].items():
+                if isinstance(n, int):
+                    total[k] = total.get(k, 0) + n
+        launches[f"disjoint-{name}"] = total
+    return ranks[0], launches
 
 
 # ---------------------------------------------------------------------------
@@ -3693,9 +4004,12 @@ def main(argv=None) -> int:
     cfg, params, reqs, dense_launches, _ = serve_phase(
         torch, "llama-3.1-8b", "dense", dense_kernels)
     replay_phase(torch, {"target": (cfg, params)}, reqs[0])
-    same_streams_eagerly(torch, reqs, "llama-3.1-8b", "dense", dense_kernels,
-                         params)
-    del reqs
+    eager, eager_stats = same_streams_eagerly(
+        torch, reqs, "llama-3.1-8b", "dense", dense_kernels, params)
+    # phase 20 holds its dense serve against this one
+    phase4 = (_streams(eager), eager_stats["virtual_t_finish"],
+              eager_stats["virtual_energy_j"])
+    del reqs, eager
     free(torch)  # the dense phase's ring caches
 
     from repro_torch.core.power import A100
@@ -3764,10 +4078,20 @@ def main(argv=None) -> int:
                                     f"rid {r.rid}")
             models["draft"] = (dcfg, dparams)
         replay_phase(torch, models, r, kinds)
+    seconds["9"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+
+    # phase 20, with phase 9's world gone: prefill and decode on
+    # disjoint ranks; one paged stream replayed on the full weights
+    disjoint, disjoint_launches = disjoint_phase(torch, pred, phase4)
+    streams, _, _ = disjoint["serves"]["paged"]
+    r = SimpleNamespace(**streams[-1])
+    r.rid = f"{r.rid} (disjoint-paged)"
+    replay_phase(torch, {"target": (cfg, params)}, r)
     # free llama and the drafter before phases 10-12
     del params, dparams, models, r
     free(torch)
-    seconds["9"] = time.perf_counter() - t0
+    seconds["20"] = time.perf_counter() - t0
     t0 = time.perf_counter()
 
     family = {}
@@ -3793,6 +4117,7 @@ def main(argv=None) -> int:
                 "spec": spec_launches, "mamba": mamba_launches}
     by_phase.update({f"mesh-{name}": mesh["serves"][name][2]["launches"]
                      for name in ("dense", "paged", "spec")})
+    by_phase.update(disjoint_launches)
     by_phase.update({name: launches
                      for name, (launches, _) in family.items()})
     rows = []

@@ -16,6 +16,7 @@ machine running the tokens.
     PYTHONPATH=src python examples/serve_pd_disaggregated_torch.py --device cpu
     PYTHONPATH=src python examples/serve_pd_disaggregated_torch.py --profile
     PYTHONPATH=src python examples/serve_pd_disaggregated_torch.py --tp 2
+    PYTHONPATH=src python examples/serve_pd_disaggregated_torch.py --world 2 --tp 1
 
 ``--profile`` (card only) traces the run with ``torch.profiler`` and
 prints device time by kernel and the device's busy share of the run.
@@ -23,6 +24,10 @@ prints device time by kernel and the device's busy share of the run.
 init_world``: NCCL with a card per rank, gloo on the CPU or when ranks
 share a card), every instance a tensor-parallel slice over all of them;
 each rank builds only its shards of the weights, and rank 0 prints.
+``--world W`` with ``--tp N`` below it spawns W ranks and carves N-wide
+slices from them in turn, so prefill and decode instances sit on
+disjoint ranks and the P→D handoff crosses ranks (``--world 2 --tp 1``:
+the prefill instance on rank 0, decode 0 on rank 1, decode 1 on rank 0).
 """
 import argparse
 import dataclasses
@@ -64,23 +69,30 @@ def main():
     ap.add_argument("--tp", type=int, default=0,
                     help="tensor-parallel degree: spawn a world of this "
                          "many ranks (0: one process, no mesh)")
+    ap.add_argument("--world", type=int, default=0,
+                    help="ranks of the world (default: --tp); above --tp "
+                         "the instances' slices are disjoint")
     args = ap.parse_args()
     if args.profile and args.device != "cuda":
         ap.error("--profile traces the card")
     if args.tp < 0 or (args.tp and args.profile):
         ap.error("--tp takes a degree >= 1 and no --profile")
+    args.world = args.world or args.tp
+    if args.world < args.tp or (args.world and not args.tp):
+        ap.error("--world takes a --tp of at least 1 and not above it")
     if not args.tp:
         serve(args)
         return
     with tempfile.TemporaryDirectory() as tmp:
         mp.spawn(_rank, args=(args, os.path.join(tmp, "store")),
-                 nprocs=args.tp, join=True)
+                 nprocs=args.world, join=True)
 
 
 def _rank(rank: int, args, store: str):
-    backend = init_world(rank, args.tp, f"file://{store}", args.device)
+    backend = init_world(rank, args.world, f"file://{store}", args.device)
     if rank == 0:
-        print(f"world of {args.tp} ranks, {backend} backend")
+        print(f"world of {args.world} ranks, {backend} backend, "
+              f"{args.tp}-wide slices")
     try:
         serve(args, rank)
     finally:
@@ -99,12 +111,15 @@ def serve(args, rank: int = 0):
         max_len, prompts, decodes = 1024, LengthDist(200.0, 150.0, hi=512), \
             LengthDist(32.0, 16.0, lo=16, hi=64)
     gen = torch.Generator(device=args.device).manual_seed(0)
-    mesh = make_slice_mesh(range(args.tp), args.device) if args.tp else None
+    # slices over the whole world: draw this rank's shards; narrower
+    # slices: the whole tree, which the factory cuts per slice
+    whole = args.tp and args.tp == args.world
+    mesh = make_slice_mesh(range(args.tp), args.device) if whole else None
     params = M.init_params(cfg, gen, device=args.device, mesh=mesh)
     n = sum(t.numel() for t in _leaves(params))
     say(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
         f"{cfg.dtype}, {n:,} params on {args.device}"
-        + (f" (rank 0's shards of a tp={args.tp} slice)" if args.tp else ""))
+        + (f" (rank 0's shards of a tp={args.tp} slice)" if whole else ""))
 
     pred = build_predictor(base, A100, A100.freq_levels_2, kv_cap=400_000)
     reqs = attach_tokens(
@@ -153,6 +168,14 @@ def serve(args, rank: int = 0):
     say(f"decode instance 0 failed at t=8 s -> {restarted} requests "
         f"re-prefilled; fleet scaled to {len(cluster.decode)} decode "
         "instances")
+    if args.world > args.tp:
+        crossed = sum(e.backend.handoffs["crossed"] for e in cluster.decode)
+        local = sum(e.backend.handoffs["local"] for e in cluster.decode)
+        say("slices: " + ", ".join(
+            f"{kind} {e.idx} on ranks {list(e.backend.ranks)}"
+            for kind, es in (("prefill", cluster.prefill),
+                             ("decode", cluster.decode)) for e in es)
+            + f"; P->D handoffs: {crossed} across ranks, {local} local")
     for r in [r for r in reqs if r.finished][:3]:
         say(f"req {r.rid}: prompt[{r.prompt_len}] -> "
             f"tokens {r.output_tokens[:8]}...")

@@ -144,6 +144,29 @@ def param_pspecs(cfg, param_tree: PyTree, mesh) -> PyTree:
 # ---------------------------------------------------------------------------
 
 
+def kv_head_dim(name: str, ndim: int):
+    """The kv-head dim of a serving cache leaf named ``name``: ``ndim -
+    2`` for K/V (the dense ring ``(n, B, C, Hkv, Dh)`` and the paged pool
+    ``(n, P+1, page, Hkv, Dh)``), ``ndim - 1`` for int8 ring scales
+    ``(n, B, C, H)``, None for a leaf without heads (``pos``, a Mamba2
+    conv tail or SSM state)."""
+    if name in ("k", "v"):
+        return ndim - 2
+    if name in ("k_sc", "v_sc"):
+        return ndim - 1
+    return None
+
+
+def head_shards(cfg, mesh) -> int:
+    """How many contiguous blocks ``mesh`` cuts the kv heads into: its
+    model-axis width when the layer's heads split
+    (:func:`heads_shardable`), else 1 (the heads stay whole on every
+    rank)."""
+    if heads_shardable(mesh, cfg.n_heads, cfg.n_kv_heads):
+        return model_width(mesh)
+    return 1
+
+
 def serving_cache_pspecs(cfg, cache_tree: PyTree, mesh) -> PyTree:
     """Serving-KV placements: **kv heads over the model axis** when the
     layer's heads split (:func:`heads_shardable`, the rule its weights
@@ -156,11 +179,8 @@ def serving_cache_pspecs(cfg, cache_tree: PyTree, mesh) -> PyTree:
     split = heads_shardable(mesh, cfg.n_heads, cfg.n_kv_heads)
 
     def visit(path, leaf):
-        if split and path[-1] in ("k", "v"):
-            return Shard(leaf.dim() - 2)
-        if split and path[-1] in ("k_sc", "v_sc"):
-            return Shard(leaf.dim() - 1)
-        return Replicate()
+        d = kv_head_dim(path[-1], leaf.dim())
+        return Shard(d) if split and d is not None else Replicate()
 
     return _map(visit, cache_tree)
 

@@ -58,11 +58,19 @@ holds this rank's shards of its weights, ring, page pool and drafter
 entry points run in the slice's mesh context.  Every rank of the
 ``torch.distributed`` world runs the same cluster, and the instance
 seed is the same on every rank, so all ranks draw the same speculative
-acceptance and take the same decisions.  The port serves slices that
-cover the whole world (``tp`` equal to the world size), where every
-instance sits on the same ranks and the P→D handoff is a shard-local
-copy; disjoint slices, whose handoff crosses ranks, and Mamba2, MoE or
-int8 on a mesh wider than 1 raise (ROADMAP queue 1, item 8).
+acceptance and take the same decisions.  On a rank outside the slice
+the instance is *remote*: it keeps the same host-side bookkeeping
+(slots, positions, page pool arithmetic, block tables, radix page refs,
+the deferred-emission ring) and holds no weights, cache or drafter.
+When a slice is narrower than the world, the tokens it computes (a
+prefill's first token, each drained decode or speculative iteration)
+are broadcast from its first rank at the same point of every rank's
+event order (:func:`~repro_torch.distributed.handoff.share`).  The P→D
+handoff carries a header every rank can build, and ``insert`` runs
+:func:`~repro_torch.distributed.handoff.move`: a local copy where the
+slices share a rank, a send or receive of kv-head pieces where they do
+not.  Mamba2, MoE and int8 on a mesh wider than 1 raise (ROADMAP queue
+1, item 8); at tp=1 their handoff trees cross ranks like any other.
 
 **int8.**  Weights quantized by
 :func:`~repro_torch.models.model.quantize_params` are served as they
@@ -80,10 +88,12 @@ from typing import Deque, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.hwmodel import HardwareModel
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed import handoff as HO
 from repro_torch.distributed import sharding as SH
 from repro_torch.distributed.context import mesh_context
 from repro_torch.distributed.meshslice import MeshSlicer
@@ -107,15 +117,10 @@ def _bucket(n: int, lo: int = 16, hi: Optional[int] = None) -> int:
     return b
 
 
-def _not_ported(cfg: ModelConfig, tp: int, n_ranks: int) -> None:
-    """Reject the mesh slices the port does not serve yet."""
-    if 1 <= tp < n_ranks:
-        raise NotImplementedError(
-            f"a {tp}-wide slice of a {n_ranks}-rank world puts instances on "
-            "disjoint ranks, whose P→D handoff crosses ranks: ROADMAP queue "
-            "1, item 8 of the port (serve with tp equal to the world size)"
-        )
-    M._check_mesh(cfg, tp)  # Mamba2, MoE and int8 on a slice
+def _not_ported(cfg: ModelConfig, tp: int) -> None:
+    """Reject the mesh slices the port does not serve yet: Mamba2, MoE
+    and int8 on a slice wider than 1 (ROADMAP queue 1, item 8)."""
+    M._check_mesh(cfg, tp)
 
 
 def _check_servable(cfg: ModelConfig) -> None:
@@ -175,12 +180,20 @@ class RealBackend(SimBackend):
         self.device = resolve_device(device)
         # mesh slice: this instance's ranks.  None = the meshless path.
         # Caches are allocated inside the slice's mesh context, at this
-        # rank's kv heads
+        # rank's kv heads; a rank outside the slice holds none
         self.mesh = mesh
-
-        def on_slice():
-            return (mesh_context(mesh) if mesh is not None
-                    else contextlib.nullcontext())
+        self.ranks: Optional[Tuple[int, ...]] = None
+        self.local = True  # this rank computes the instance
+        self._shared = False  # its tokens are broadcast to the world
+        if mesh is not None:
+            self.ranks = jitcache.mesh_fingerprint(mesh)[2]
+            self.local = dist.get_rank() in self.ranks
+            self._shared = len(self.ranks) < dist.get_world_size()
+        # handoffs this instance received: how many crossed ranks and how
+        # many stayed local (the same on every rank), and this rank's
+        # (tokens, bytes sent, bytes received, wall ms) of each
+        self.handoffs = {"crossed": 0, "local": 0}
+        self.handoff_log: List[Tuple[int, int, int, float]] = []
 
         entry_kw = dict(mesh=mesh) if mesh is not None else {}
         # decode slot state (both memory models batch decode over slots).
@@ -188,8 +201,7 @@ class RealBackend(SimBackend):
         # greedy ids feed the next step without a host round trip.
         self.slot_of: Dict[int, int] = {}  # rid -> slot
         self.free = list(range(slots))[::-1]
-        self._next_dev = torch.zeros(slots, dtype=torch.int32,
-                                     device=self.device)
+        self._next_dev = self._token_chain(slots)
         self.pos = np.zeros(slots, np.int32)
         # deferred emissions from in-flight decode/spec steps: a bounded
         # ring of up to ``pipeline_depth`` iterations.  Dispatch only
@@ -232,9 +244,10 @@ class RealBackend(SimBackend):
             self.pool_pages = pool_pages or (2 * slots + 8) * self.max_pages
             # the cache first: it rejects recurrent (Mamba) and int8-KV
             # configs before a pool exists
-            with on_slice():
-                self.kvcache = M.init_paged_cache(cfg, self.pool_pages,
-                                                  page_size, self.device)
+            self.kvcache = self._held(M.init_paged_cache, cfg,
+                                      self.pool_pages, page_size)
+            self._template = self._meta(M.init_paged_cache, cfg, 0,
+                                        page_size)
             self.params = self._place(cfg, params, self.kvcache)
             self.pool = KVPool(self.pool_pages, page_size)
             self.block_tables = np.full((slots, self.max_pages), -1,
@@ -253,8 +266,9 @@ class RealBackend(SimBackend):
                 M.decode_step_paged_greedy, cfg, **entry_kw
             )
         else:
-            with on_slice():
-                self.cache = M.init_cache(cfg, slots, max_len, self.device)
+            self.cache = self._held(M.init_cache, cfg, slots, max_len)
+            # a B=1 cache: a dense handoff's leaves on one rank
+            self._template = self._meta(M.init_cache, cfg, 1, max_len)
             self.params = self._place(cfg, params, self.cache)
             self._prefill_fn = jitcache.shared_entry(
                 M.prefill_greedy, cfg, max_len=max_len, **entry_kw
@@ -283,13 +297,11 @@ class RealBackend(SimBackend):
             # the drafter keeps a dense ring cache per decode slot; its
             # "rollback" is implicit (stale positions are masked by the
             # per-slot position array until overwritten)
-            with on_slice():
-                self.draft_cache = M.init_cache(draft_cfg, slots, max_len,
-                                                self.device)
+            self.draft_cache = self._held(M.init_cache, draft_cfg, slots,
+                                          max_len)
             self.draft_params = self._place(draft_cfg, draft_params,
                                             self.draft_cache)
-            self._prev_dev = torch.zeros(slots, dtype=torch.int32,
-                                         device=self.device)  # token at pos-1
+            self._prev_dev = self._token_chain(slots)  # token at pos-1
             self._draft_prefill_fn = jitcache.shared_entry(
                 M.prefill_greedy, draft_cfg, max_len=max_len, **entry_kw
             )
@@ -304,13 +316,89 @@ class RealBackend(SimBackend):
             self.spec_real_matches = 0
             self.spec_real_drafted = 0
 
+    def _on_slice(self):
+        return (mesh_context(self.mesh) if self.mesh is not None
+                else contextlib.nullcontext())
+
+    def _meta(self, init, *args):
+        """``init(*args)`` on the meta device in the slice's mesh context:
+        a cache's leaves at this slice's local widths, holding nothing."""
+        with self._on_slice():
+            return init(*args, "meta")
+
+    def _held(self, init, *args):
+        """A cache ``init(*args)`` on this rank's device, in the slice's
+        mesh context; a remote instance checks the config on the meta
+        device and holds nothing."""
+        if not self.local:
+            self._meta(init, *args)
+            return {}
+        with self._on_slice():
+            return init(*args, self.device)
+
+    def _token_chain(self, n: int) -> Optional[torch.Tensor]:
+        """A device-resident token chain of ``n`` slots (None on a remote
+        instance)."""
+        if not self.local:
+            return None
+        return torch.zeros(n, dtype=torch.int32, device=self.device)
+
     def _place(self, cfg: ModelConfig, params, cache):
         """``params`` on this instance's slice: this rank's shards, after
-        a check that ``cache`` was allocated at its local widths."""
+        a check that ``cache`` was allocated at its local widths; nothing
+        on a remote instance."""
         if self.mesh is None:
             return params
+        if not self.local:
+            return {}
         params, _ = SH.place_serving_state(cfg, params, [cache], self.mesh)
         return params
+
+    def _tokens(self, t: Optional[torch.Tensor], shape) -> np.ndarray:
+        """Token ids this instance computed (``t``, on its slice's ranks),
+        as this rank reads them: broadcast from the slice's first rank
+        when the slice is narrower than the world."""
+        if self._shared:
+            return HO.share(t if dist.get_rank() == self.ranks[0] else None,
+                            shape, self.ranks[0], self.device)
+        return t.cpu().numpy()
+
+    def _payload(self, tree, L: Optional[int] = None) -> HO.Payload:
+        """The migration payload of a prefill: this rank's shards (None
+        off the slice) and, on a slice, the header every rank builds
+        from the config and the request (a paged stack of the request's
+        ``pages_for(L)`` pages)."""
+        if self.mesh is None:
+            return HO.Payload(tree, L)
+        n_pages = None if L is None else self.pool.pages_for(L)
+        header = HO.Header(
+            self.ranks, SH.head_shards(self.cfg, self.mesh),
+            self.cfg.n_kv_heads, HO.leaves_of(self._template, n_pages))
+        if tree is not None:
+            got = HO.leaves_of(tree)
+            if got != header.leaves:
+                raise RuntimeError(
+                    f"handoff header {header.leaves} does not describe the "
+                    f"prefill's cache {got}"
+                )
+        return HO.Payload(tree, L, header)
+
+    def _receive(self, payload: HO.Payload, tokens: int):
+        """This rank's part of moving ``payload`` onto this instance's
+        slice: the request's cache at this rank's widths, or None on a
+        remote instance."""
+        if payload.header is None:
+            return payload.tree
+        t0 = time.perf_counter()
+        moved = HO.move(payload.header, payload.tree, self.ranks,
+                        SH.head_shards(self.cfg, self.mesh), self.device)
+        if moved.tree is not None and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.handoffs["crossed" if moved.crossed else "local"] += 1
+        self.handoff_log.append((tokens, moved.bytes_sent,
+                                 moved.bytes_received,
+                                 (time.perf_counter() - t0) * 1e3))
+        return moved.tree
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -415,15 +503,17 @@ class RealBackend(SimBackend):
         t0 = time.perf_counter()
         if p[0] == "decode":
             _, pairs, ids = p
-            nxt = ids.cpu().numpy()
+            nxt = self._tokens(ids, (self.slots,))
             self.device_wait_s += time.perf_counter() - t0
             for r, s in pairs:
                 r.output_tokens.append(int(nxt[s]))
         else:  # spec: accepted draft prefix + bonus/correction token
-            _, entries, drafts_dev, tgt_dev, match_dev = p
-            drafts = drafts_dev.cpu().numpy()
-            tgt = tgt_dev.cpu().numpy()
-            match = match_dev.cpu().numpy()
+            # one (slots, 2k + 2) block: drafts, targets, matches
+            _, entries, packed = p
+            k = self.spec_k
+            got = self._tokens(packed, (self.slots, 2 * k + 2))
+            drafts, tgt, match = got[:, :k], got[:, k:2 * k + 1], \
+                got[:, 2 * k + 1]
             self.device_wait_s += time.perf_counter() - t0
             for r, s, a in entries:
                 r.output_tokens.extend(int(drafts[s, j]) for j in range(a))
@@ -480,14 +570,18 @@ class RealBackend(SimBackend):
             self._real_prefill_dense(r, toks)
 
     def _real_prefill_dense(self, r: Request, toks: np.ndarray) -> None:
-        ids, cache = self._prefill_fn(
-            self.params,
-            tokens=self._padded(toks),
-            lengths=self._dev(np.array([len(toks)], np.int32)),
-        )
+        ids, cache = None, None
+        if self.local:
+            ids, cache = self._prefill_fn(
+                self.params,
+                tokens=self._padded(toks),
+                lengths=self._dev(np.array([len(toks)], np.int32)),
+            )
+            ids = ids[:1]
+        first = self._tokens(ids, (1,))
         if not r.resuming:
-            r.output_tokens.append(int(ids[0]))
-        r.kv_handoff = cache  # migrates with the request (P -> D)
+            r.output_tokens.append(int(first[0]))
+        r.kv_handoff = self._payload(cache)  # migrates with the request
 
     def _real_prefill_paged(self, r: Request, toks: np.ndarray) -> None:
         """Prefill into pool pages.  A radix prefix hit contributes its
@@ -507,26 +601,29 @@ class RealBackend(SimBackend):
             raise
         table = list(ctx_pages) + new_pages
         S = L - n_ctx
-        bt = np.full((1, self.max_pages), -1, np.int32)
-        bt[0, : len(table)] = table
-        ids, self.kvcache = self._prefill_fn(
-            self.params,
-            tokens=self._padded(toks[n_ctx:]),
-            lengths=self._dev(np.array([S], np.int32)),
-            ctx_lens=self._dev(np.array([n_ctx], np.int32)),
-            block_tables=self._dev(bt),
-            cache=self.kvcache,
-        )
+        ids, tree = None, None
+        if self.local:
+            bt = np.full((1, self.max_pages), -1, np.int32)
+            bt[0, : len(table)] = table
+            ids, self.kvcache = self._prefill_fn(
+                self.params,
+                tokens=self._padded(toks[n_ctx:]),
+                lengths=self._dev(np.array([S], np.int32)),
+                ctx_lens=self._dev(np.array([n_ctx], np.int32)),
+                block_tables=self._dev(bt),
+                cache=self.kvcache,
+            )
+            ids = ids[:1]
+            # migration payload: a copy of the request's pages (the pool
+            # may hand them out again at once); the decode side scatters
+            # them into its own pool
+            idx = torch.tensor(table, dtype=torch.long, device=self.device)
+            tree = {name: {key: leaf[:, idx] for key, leaf in entry.items()}
+                    for name, entry in self.kvcache.items()}
+        first = self._tokens(ids, (1,))
         if not r.resuming:
-            r.output_tokens.append(int(ids[0]))
-        # migration payload: a copy of the request's pages (the pool may
-        # hand them out again at once); the decode side scatters them
-        # into its own pool
-        idx = torch.tensor(table, dtype=torch.long, device=self.device)
-        r.kv_handoff = ({
-            name: {key: leaf[:, idx] for key, leaf in entry.items()}
-            for name, entry in self.kvcache.items()
-        }, L)
+            r.output_tokens.append(int(first[0]))
+        r.kv_handoff = self._payload(tree, L)
         self.reused_tokens += n_ctx
         self.computed_tokens += S
         if self._radix is not None and r.prompt_tokens:
@@ -562,29 +659,32 @@ class RealBackend(SimBackend):
         self._drain()  # the joining token seeds the device chain below
         slot = self.free.pop()
         self.slot_of[req.rid] = slot
-        handoff, req.kv_handoff = req.kv_handoff, None
-        # on a slice the handoff holds the prefill instance's shards,
-        # which are ours: both slices cover the same ranks and cut the
-        # heads alike, so the copies below stay shard-local
+        payload, req.kv_handoff = req.kv_handoff, None
+        # on a slice, the prefill instance's shards come over to ours
+        # (a local copy where the slices share this rank); a remote
+        # instance gets None and keeps only the bookkeeping
+        tree = self._receive(payload, req.prompt_len + req.tokens_out)
         if self.paged:
-            tree, L = handoff
             table = BlockTable(self.pool)
-            table.adopt(self._alloc_pages(self.pool.pages_for(L)), L)
-            dst = torch.tensor(table.pages, dtype=torch.long,
-                               device=self.device)
-            for name, entry in self.kvcache.items():
-                for key, leaf in entry.items():
-                    # leaf: (n_blocks, P+1, ps, ...); the request's page
-                    # stack: (n_blocks, n_pages, ps, ...)
-                    leaf[:, dst] = tree[name][key]
+            table.adopt(self._alloc_pages(self.pool.pages_for(payload.L)),
+                        payload.L)
+            if tree is not None:
+                dst = torch.tensor(table.pages, dtype=torch.long,
+                                   device=self.device)
+                for name, entry in self.kvcache.items():
+                    for key, leaf in entry.items():
+                        # leaf: (n_blocks, P+1, ps, ...); the request's
+                        # page stack: (n_blocks, n_pages, ps, ...)
+                        leaf[:, dst] = tree[name][key]
             self.table_of[req.rid] = table
             self.block_tables[slot] = -1
             self.block_tables[slot, : len(table.pages)] = table.pages
-        else:
-            _put_slot(self.cache, handoff, slot)
-        # a fresh tensor: in-flight steps may still hold the old chain
-        self._next_dev = self._next_dev.clone()
-        self._next_dev[slot] = int(req.output_tokens[-1])
+        elif tree is not None:
+            _put_slot(self.cache, tree, slot)
+        if self.local:
+            # a fresh tensor: in-flight steps may still hold the old chain
+            self._next_dev = self._next_dev.clone()
+            self._next_dev[slot] = int(req.output_tokens[-1])
         # resident context = prompt + tokens regenerated before a
         # preemption (fresh requests: tokens_out == 0)
         self.pos[slot] = req.prompt_len + req.tokens_out
@@ -595,6 +695,8 @@ class RealBackend(SimBackend):
         """Build the drafter's ring cache for a joining request: the draft
         model ingests the context the target holds (prompt plus any
         tokens regenerated after a preemption resume)."""
+        if not self.local:
+            return
         toks = self._context_tokens(req)
         _, dcache = self._draft_prefill_fn(
             self.draft_params,
@@ -643,6 +745,18 @@ class RealBackend(SimBackend):
             # grow tail pages where the next write crosses a boundary
             for r in reqs:
                 self._ensure_pages(r, int(self.pos[self.slot_of[r.rid]]) + 1)
+        ids = self._decode_compute() if self.local else None
+        pairs = []
+        for r in reqs:
+            s = self.slot_of[r.rid]
+            pairs.append((r, s))
+            self.pos[s] += 1
+        self._dispatched(("decode", pairs, ids))
+
+    def _decode_compute(self) -> torch.Tensor:
+        """One decode step over every slot on this slice; the step's ids
+        stay on the device as the next step's input."""
+        if self.paged:
             ids, self.kvcache = self._step(
                 self._decode_fn, self.params,
                 tokens=self._next_dev,
@@ -659,12 +773,7 @@ class RealBackend(SimBackend):
             )
         # chain on device; emission of `ids` waits for the next drain
         self._next_dev = ids
-        pairs = []
-        for r in reqs:
-            s = self.slot_of[r.rid]
-            pairs.append((r, s))
-            self.pos[s] += 1
-        self._dispatched(("decode", pairs, ids))
+        return ids
 
     def decode_iter(self, reqs: List[Request], n_req: int, n_kv: int,
                     f: float):
@@ -702,6 +811,23 @@ class RealBackend(SimBackend):
             self._drain_one()
         for r in reqs:
             self._grow_for_verify(r, k)
+        entries = [(r, self.slot_of[r.rid], a)
+                   for r, a in zip(reqs, accepts)]
+        packed = self._spec_compute(entries, k) if self.local else None
+        self._dispatched(("spec", entries, packed))
+        for r, s, a in entries:
+            self.pos[s] += a + 1
+            # page-exact rollback of the rejected suffix
+            table = self.table_of[r.rid]
+            table.shrink(int(self.pos[s]))
+            self.block_tables[s, len(table.pages):] = -1
+
+    def _spec_compute(self, entries, k: int) -> torch.Tensor:
+        """The draft and verify forwards of one speculative iteration on
+        this slice, and the device chain's update by the host-known
+        acceptances ``entries`` ((request, slot, accepted)).  Returns the
+        iteration's drafts, verify targets and matches, one (slots,
+        2k + 2) int64 block on the device."""
         # drafting, batched over every slot (free slots write masked
         # garbage into their own rows, never read)
         _, _, self.draft_cache = self._step(
@@ -740,12 +866,9 @@ class RealBackend(SimBackend):
         # token when a == 0), next <- the bonus/correction token
         a_by_slot = np.zeros(self.slots, np.int64)
         occupied = np.zeros(self.slots, bool)
-        entries = []
-        for r, a in zip(reqs, accepts):
-            s = self.slot_of[r.rid]
+        for _, s, a in entries:
             a_by_slot[s] = a
             occupied[s] = True
-            entries.append((r, s, a))
         rows = torch.arange(self.slots, device=self.device)
         a_dev = self._dev(a_by_slot)
         occ = self._dev(occupied)
@@ -755,13 +878,8 @@ class RealBackend(SimBackend):
         )
         self._prev_dev = torch.where(occ, new_prev, self._prev_dev)
         self._next_dev = torch.where(occ, tgt[rows, a_dev], self._next_dev)
-        self._dispatched(("spec", entries, drafts, tgt, match))
-        for r, s, a in entries:
-            self.pos[s] += a + 1
-            # page-exact rollback of the rejected suffix
-            table = self.table_of[r.rid]
-            table.shrink(int(self.pos[s]))
-            self.block_tables[s, len(table.pages):] = -1
+        return torch.cat([drafts.long(), tgt.long(), match.long()[:, None]],
+                         dim=1)
 
     def spec_decode_iter(self, reqs: List[Request], n_req: int, n_kv: int,
                          k: int, accepts: List[int], draft_frac: float,
@@ -848,7 +966,7 @@ def make_real_backend_factory(
     slicer = None
     if tp or devices is not None:
         slicer = MeshSlicer(devices, device_type=dev.type)
-        _not_ported(cfg, tp or 1, slicer.n_devices)
+        _not_ported(cfg, tp or 1)
     default_tp = tp
     shards: Dict[tuple, tuple] = {}  # slice -> (params, draft params)
 
@@ -859,15 +977,19 @@ def make_real_backend_factory(
         mesh, p, dp = None, params, draft_params
         if slicer is not None:
             degree = tp if tp else (default_tp or 1)
-            _not_ported(cfg, degree, slicer.n_devices)
+            _not_ported(cfg, degree)
             mesh = slicer.slice(degree)
-            # one cut per slice, shared by its instances
+            # one cut per slice, shared by its instances; a rank outside
+            # the slice cuts nothing (its instance is remote)
             key = jitcache.mesh_fingerprint(mesh)
             if key not in shards:
-                shards[key] = (
-                    SH.shard_params(params, cfg, mesh),
-                    draft_params if draft_params is None or not spec_k
-                    else SH.shard_params(draft_params, draft_cfg, mesh))
+                if dist.get_rank() not in key[2]:
+                    shards[key] = ({}, None if draft_params is None else {})
+                else:
+                    shards[key] = (
+                        SH.shard_params(params, cfg, mesh),
+                        draft_params if draft_params is None or not spec_k
+                        else SH.shard_params(draft_params, draft_cfg, mesh))
             p, dp = shards[key]
         return RealBackend(
             hw, cfg, p, slots=n_slots, max_len=max_len, seed=seed,

@@ -525,3 +525,123 @@ def slicer_rank(rank, world):
     got["fp_other"] = mesh_fingerprint(m1) != mesh_fingerprint(other)
     got["fp_wrap"] = mesh_fingerprint(a) == mesh_fingerprint(b)
     return got
+
+
+# ---------------------------------------------------------------------------
+# Disjoint slices: prefill and decode on different ranks
+# ---------------------------------------------------------------------------
+
+
+def _instances(cluster):
+    """Every instance's backend with its kind, in the cluster's order."""
+    return ([("prefill", e.backend) for e in cluster.prefill]
+            + [("decode", e.backend) for e in cluster.decode])
+
+
+def _held_nothing(be):
+    """A remote instance holds no weights, cache or drafter."""
+    caches = [be.kvcache if be.paged else be.cache]
+    held = [be.params]
+    if be.spec_k:
+        caches.append(be.draft_cache)
+        held.append(be.draft_params)
+    return all(t == {} for t in caches + held) and be._next_dev is None
+
+
+def _facts(cluster):
+    """What a run's instances did on this rank: each instance's ranks
+    and whether this rank computed it, whether each remote one held
+    nothing, the handoffs the decode instances counted, and the pools'
+    pages still in use."""
+    out = {"ranks": [], "local": [], "remote_empty": [], "crossed": 0,
+           "local_handoffs": 0, "pages_in_use": [], "handoff_log": []}
+    for kind, be in _instances(cluster):
+        out["ranks"].append((kind, be.ranks))
+        out["local"].append(be.local)
+        if not be.local:
+            out["remote_empty"].append(_held_nothing(be))
+        if kind == "decode":
+            out["crossed"] += be.handoffs["crossed"]
+            out["local_handoffs"] += be.handoffs["local"]
+            out["handoff_log"] += be.handoff_log
+        if be.paged:
+            out["pages_in_use"].append(be.pool.in_use)
+    return out
+
+
+def _case(name, dcfg=None, dparams=None):
+    """(model, factory keywords, cluster keywords) of a disjoint case."""
+    from repro_torch.configs.registry import REGISTRY
+
+    if name == "spec":
+        return (REGISTRY["llama-3.1-8b"],
+                dict(paged=True, page_size=16, spec_k=SPEC_K, draft_cfg=dcfg,
+                     draft_params=dparams),
+                dict(paged=True, kv_page_size=16, spec_decode=True,
+                     spec_k=SPEC_K))
+    arch = "mamba2-2.7b" if name == "mamba" else "llama-3.1-8b"
+    return REGISTRY[arch], {}, {}
+
+
+def disjoint_rank(rank, world, cases, preds):
+    """Clusters on tp=1 slices of a ``world``-rank world: the prefill
+    instance on rank 0, decode 0 on rank 1 and decode 1 back on rank 0
+    (``cluster_cfg``'s fleet), so one handoff path crosses ranks and one
+    stays local.  ``cases`` are (name, config, numpy params, drafter
+    config, drafter numpy params); every rank runs each, and rank 0 also
+    runs it meshless.  Returns {name: {"disjoint": (reqs, metrics, log),
+    "meshless": (reqs, metrics) on rank 0, "facts": :func:`_facts`}}."""
+    import repro_torch.serving as TS
+    from repro_torch.core.power import A100
+    from repro_torch.models.bridge import params_from_jax
+    from repro_torch.serving.realengine import make_real_backend_factory
+    from _port_parity import recording
+
+    out = {}
+    for name, rc, np_params, dcfg, np_draft in cases:
+        params = params_from_jax(np_params, device="cpu")
+        dparams = (params_from_jax(np_draft, device="cpu")
+                   if np_draft is not None else None)
+        model, fkw, ckw = _case(name, dcfg, dparams)
+        res = {}
+        for mode in ("disjoint", "meshless"):
+            if mode == "meshless" and rank != 0:
+                continue
+            kw = dict(tp=1) if mode == "disjoint" else {}
+            factory, log = recording(make_real_backend_factory(
+                rc, params, slots=8, max_len=MAX_LEN, device="cpu", **fkw,
+                **kw))
+            reqs = workload(TS, rc.vocab_size)
+            cl = TS.PDCluster(cluster_cfg(TS, model, A100, preds[name],
+                                          backend_factory=factory, **ckw))
+            m = cl.run(reqs)
+            res[mode] = (reqs, m, log)
+            if mode == "disjoint":
+                res["facts"] = _facts(cl)
+        out[name] = res
+    return out
+
+
+def unequal_rank(rank, world, rc, np_params, fleet, preds):
+    """A dense ring cluster whose prefill instance is a tp=1 slice on
+    rank 0 and whose decode instance a tp=2 slice on ranks 1-2
+    (``fleet``: the (prefill, decode) ``InstanceSpec.tp``; ``preds`` the
+    predictor bank by (chip, tp)).  Returns (reqs, metrics, facts)."""
+    import repro_torch.serving as TS
+    from repro_torch.configs.registry import REGISTRY
+    from repro_torch.core.power import A100
+    from repro_torch.models.bridge import params_from_jax
+    from repro_torch.serving.realengine import make_real_backend_factory
+
+    params = params_from_jax(np_params, device="cpu")
+    p_tp, d_tp = fleet
+    reqs = workload(TS, rc.vocab_size)
+    cl = TS.PDCluster(cluster_cfg(
+        TS, REGISTRY["llama-3.1-8b"], A100, None,
+        prefill_fleet=[TS.InstanceSpec(A100, p_tp)],
+        decode_fleet=[TS.InstanceSpec(A100, d_tp)],
+        predictor_bank=dict(preds),
+        backend_factory=make_real_backend_factory(
+            rc, params, slots=8, max_len=MAX_LEN, tp=1, device="cpu")))
+    m = cl.run(reqs)
+    return reqs, m, _facts(cl)

@@ -754,3 +754,106 @@ def test_plain_sub_chunk_states_are_the_recurrences():
         _, want = ssd_ref(x[:, :64 * c], dt[:, :64 * c], A, Bm[:, :64 * c],
                           Cm[:, :64 * c])
         torch.testing.assert_close(st[:, c], want, atol=1e-6, rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# Phase 20: prefill and decode on disjoint ranks
+# ---------------------------------------------------------------------------
+
+RING = 134_348_800  # llama-3.1-8b's B=1 ring, K/V and positions
+
+
+def _disjoint_world(n=3):
+    """Stand-in results of phase 20's two ranks (prefill on rank 0,
+    decode on rank 1) and phase 4's (streams, finish times, energy)."""
+    streams = [{"rid": i, "prompt_tokens": [1, 2, 3],
+                "output_tokens": [10 + i, 20 + i]} for i in range(n)]
+    t_finish = [0.25 * (i + 1) for i in range(n)]
+
+    def serve(rank, kernel, iters):
+        moves = [{"tokens": 100 + i, "bytes_sent": RING if rank == 0 else 0,
+                  "bytes_received": RING if rank == 1 else 0, "ms": 80.0,
+                  "clock_bytes": 131_072 * (100 + i)} for i in range(n)]
+        st = {"virtual_t_finish": list(t_finish), "virtual_energy_j": 200.0,
+              "handoffs": {"crossed": n, "local": 0, "moves": moves},
+              "launches": {"flash_prefill": 32 * n if rank == 0 else 0,
+                           kernel: 0 if rank == 0 else 64, "paged_by_T": {}},
+              "prefill_ms_median": 50.0 if rank == 0 else None,
+              iters: None if rank == 0 else 43.0,
+              "decode_tok_s": None if rank == 0 else 59.0,
+              "max_memory_allocated_gb": 17.0, "captures": 0,
+              "dispatch_s": 1.0, "device_wait_s": 1.0}
+        return ([dict(s, output_tokens=list(s["output_tokens"]))
+                 for s in streams], [], st)
+
+    ranks = [{"ok": True, "backend": "gloo", "weights_gb": 16.06,
+              "ring_bytes": RING,
+              "serves": {"dense": serve(r, "ring_decode", "decode_ms_median"),
+                         "paged": serve(r, "paged_decode", "iter_ms_median")}}
+             for r in range(2)]
+    return ranks, (streams, t_finish, 200.0)
+
+
+def _plant(ranks, fault):
+    dense1, paged1 = ranks[1]["serves"]["dense"], ranks[1]["serves"]["paged"]
+    if fault == "stream":  # rank 1's dense stream differs from phase 4's
+        dense1[0][2]["output_tokens"] = [99, 99]
+    elif fault == "clock":  # a finish time off by a hair
+        ranks[0]["serves"]["dense"][2]["virtual_t_finish"][1] += 1e-12
+    elif fault == "energy":
+        dense1[2]["virtual_energy_j"] = 200.5
+    elif fault == "bytes":  # a handoff that moved half the ring
+        dense1[2]["handoffs"]["moves"][0]["bytes_received"] //= 2
+    elif fault == "local":  # a handoff that stayed on its rank
+        dense1[2]["handoffs"]["local"] = 1
+    elif fault == "launch":  # rank 1 ran the prefill instance's kernel
+        paged1[2]["launches"]["flash_prefill"] = 32
+    elif fault == "paged":  # the ranks' paged streams differ
+        paged1[0][0]["output_tokens"] = [7]
+
+
+@pytest.mark.parametrize("fault", [None, "stream", "clock", "energy",
+                                   "bytes", "local", "launch", "paged"])
+def test_disjoint_phase_holds_phase_4_and_the_handoffs(monkeypatch, capsys,
+                                                       fault):
+    """Phase 20's checks on stand-in rank results: each rank's dense
+    streams and virtual clock equal phase 4's eager serve, every dense
+    handoff crosses ranks with the whole ring, each rank launches only
+    its own instance's kernels, and the ranks' paged streams agree; any
+    planted fault fails the phase."""
+    ranks, phase4 = _disjoint_world()
+    _plant(ranks, fault)
+    monkeypatch.setattr(cs, "spawn_world", lambda *a: ranks)
+    if fault is not None:
+        with pytest.raises(RuntimeError):
+            cs.disjoint_phase(torch, None, phase4)
+        return
+    rank0, launches = cs.disjoint_phase(torch, None, phase4)
+    assert rank0 is ranks[0]
+    assert launches["disjoint-dense"] == {"flash_prefill": 96,
+                                          "ring_decode": 64}
+    assert launches["disjoint-paged"] == {"flash_prefill": 96,
+                                          "paged_decode": 64}
+    out = capsys.readouterr().out
+    assert "disjoint-dense: handoff medians: bytes moved 134348800" in out
+
+
+def test_handoff_stats_price_each_move_beside_the_clock():
+    """``handoff_stats`` reads the decode instances' counters and logs
+    and prices each move's context as the virtual clock does; a
+    meshless cluster has none."""
+    from types import SimpleNamespace
+
+    hw = SimpleNamespace(kv_transfer_bytes=lambda n, page_size=0: (
+        n * 1000 if not page_size else -(-n // page_size) * page_size * 1000))
+    be = SimpleNamespace(mesh=object(), hw=hw,
+                         handoffs={"crossed": 2, "local": 1},
+                         handoff_log=[(33, 0, 500, 4.0), (17, 0, 0, 0.1)])
+    got = cs.handoff_stats(SimpleNamespace(decode=[SimpleNamespace(
+        backend=be)]), page_size=16)
+    assert (got["crossed"], got["local"]) == (2, 1)
+    assert [m["clock_bytes"] for m in got["moves"]] == [48_000, 32_000]
+    assert got["moves"][0]["bytes_received"] == 500
+    be.mesh = None
+    assert cs.handoff_stats(SimpleNamespace(decode=[SimpleNamespace(
+        backend=be)])) is None

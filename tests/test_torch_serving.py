@@ -479,7 +479,7 @@ def test_real_spec_at_slot_capacity(torch_side, spec):
 def test_real_spec_requires_paged_and_a_drafter(torch_side, spec):
     """tests/test_backend_parity.py:246, with ValueError for the JAX
     backend's asserts; a slice narrower than the world (disjoint
-    slices) still raises."""
+    slices) is served, so its factory builds without raising."""
     side, sp = torch_side, spec["torch"]
     hw = THardwareModel(side.model, side.chip)
     with pytest.raises(ValueError, match="paged"):
@@ -492,9 +492,8 @@ def test_real_spec_requires_paged_and_a_drafter(torch_side, spec):
     with pytest.raises(ValueError, match="multiple of page_size"):
         RealBackend(hw, side.rc, side.params, slots=2, max_len=60,
                     paged=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="disjoint ranks"):
-        t_make_factory(side.rc, side.params, tp=2, devices=[0, 1, 2, 3],
-                       device="cpu")
+    assert callable(t_make_factory(side.rc, side.params, tp=2,
+                                   devices=[0, 1, 2, 3], device="cpu"))
 
 
 def test_paged_preemption_resume(torch_side):
