@@ -134,7 +134,26 @@ Phases, in order; any failure exits non-zero:
    the paged pool (radix reuse) must give both ranks the same streams,
    drained pools, and a stream that replays on the full weights.  It
    prints each crossing handoff's bytes and wall ms beside the bytes the
-   virtual clock prices, and each rank's walls and peak.
+   virtual clock prices, and each rank's walls and peak;
+21. (run right after phase 20) a world of ``MIXER_TP`` = 2 ranks on the
+   card, one tp=2 slice for both instances, eager: in turn, each rank
+   draws its shards on the slice (``init_params(mesh=)``, seed 0),
+   serves, then frees (a) mamba2-2.7b at full width and depth (40 of its
+   80 SSD heads a rank) dense on phase 4's requests, (b)
+   qwen3-moe-30b-a3b at full width and depth (64 of 128 experts, 16/2 of
+   32/4 heads a rank) dense on phase 4's requests and paged on phase 6's
+   multi-turn workload (the JAX package's sharded-MoE acceptance
+   scenario), (c) jamba-v0.1-52b cut to one super-block (SSD heads,
+   attention heads and experts all split).  Both ranks must emit the
+   same streams of ``decode_len + 1`` tokens, hold the rules' local
+   parameter counts, launch ssd_scan and flash_prefill at their share of
+   the heads only (and the decode wrapper's sharded branch at their kv
+   heads), and drain their pools; every stream replays batch for batch
+   through the meshless plain path on the full weights from the same
+   seed, each MoE layer forced to the slice's own routings within
+   ``ROUTE_MARGIN``.  It prints each rank's walls, peaks and the
+   collectives of one prefill and one decode step (calls, bytes, the
+   MoE gather's ms a layer).
 
 The kernel phase holds flash_prefill at head dim 80 without the causal
 mask (hubert's) in both dtypes and times it at hubert's shape beside
@@ -150,7 +169,8 @@ and ssd_backward (dx, ddt, dA, dB, dC) against the plain backward at the
 SSD sweep's shapes and the training shape, with and without a final-state
 cotangent, in both dtypes, each call repeated bit for bit and the last
 batch rows alone equal to the batch; both timed in bf16 at the training
-shape.  Where SDPA has no softcap (gemma2's prefill, its backward
+shape; and ssd_scan at one rank's SSD heads of mamba2 at tp=2 (H = 40,
+phase 21).  Where SDPA has no softcap (gemma2's prefill, its backward
 row and its rings), the library yardstick is ``flex_attention``
 compiled with a tanh softcap ``score_mod`` and the case's block mask,
 timed by both methods.
@@ -1521,6 +1541,12 @@ def kernel_phase(torch, F):
                                  timed=False, **mamba))
         ssd_rows.append(ssd_case(torch, dtype=dtype, fused=True, law=True,
                                  timed=False, **mamba))
+        # one rank's SSD heads of mamba2 at tp=2 (phase 21): x the rank's
+        # channels, B and C whole
+        ssd_rows.append(dict(ssd_case(
+            torch, dtype=dtype, fused=True, timed=dtype == "bfloat16",
+            **dict(mamba, H=mamba["H"] // MIXER_TP)),
+            case="mamba2 tp=2 shard"))
     # the training forward at mamba2-2.7b's training shape, writing the
     # state entering each sub-chunk (phase 19 launches it twice a layer a
     # step under remat)
@@ -1706,11 +1732,7 @@ def serve_phase(torch, arch, label, per_iter, params=None, tp=0,
     prof = loopprof.install(cluster)
     free(torch)
     torch.cuda.reset_peak_memory_stats()
-    fops.launches = fops.q_offset_launches = fops.backward_launches = 0
-    dops.launches = 0
-    dops.paged_launches.clear()
-    dops.sharded_launches.clear()
-    sops.launches = sops.backward_launches = 0
+    zero_launch_counts()
     graphs0 = (jitcache.capture_count(), jitcache.replay_count())
     t0 = time.perf_counter()
     m = cluster.run(reqs)
@@ -1760,6 +1782,7 @@ def serve_phase(torch, arch, label, per_iter, params=None, tp=0,
         "max_memory_allocated_gb": peak / 1e9,
         "launches": launches,
         "sharded_launches": sharded_counts(dops),
+        "head_launches": head_counts(),
         **graphs, **loop_split(prof),
         "step_device_ms": (step_device_ms(torch, cluster)
                            if graphs["cuda_graphs"] else None),
@@ -2142,7 +2165,7 @@ class Routes:
 
 
 def batch_replay(torch, rec, target, draft=None, label="",
-                 margin=REPLAY_MARGIN):
+                 margin=REPLAY_MARGIN, served_routes=None):
     """Re-run the recorded calls of a served cluster (a :class:`Recorder`)
     batch for batch: every prefill from its own inputs, every insert into
     its slot (or pages), every decode, draft and verify step over all the
@@ -2162,9 +2185,13 @@ def batch_replay(torch, rec, target, draft=None, label="",
     decode ids of occupied rows against the target, accepted drafts
     against the drafter's proposal step, verify tokens against the
     target's verify row.  ``target`` and ``draft`` are (cfg, params).
-    Returns the worst gaps by pass, the forced routings and the dropped
-    MoE entries a target decode (or verify) step, counted from
-    ``aux["dropped"]`` of the plain pass's eager steps."""
+    ``served_routes``, the served run's MoE routings in call order (a mesh
+    slice's, recorded by :class:`Routes` on a rank), replaces the first
+    pass: the plain pass alone runs, forced to them.  The recorded
+    inputs may lie on the host.  Returns the worst gaps by pass, the
+    forced routings and the dropped MoE entries a target decode (or
+    verify) step, counted from ``aux["dropped"]`` of the plain pass's
+    eager steps."""
     import numpy as np
 
     from repro_torch.models import layers as L
@@ -2176,7 +2203,8 @@ def batch_replay(torch, rec, target, draft=None, label="",
 
     def dev_(kw):
         return {k: torch.from_numpy(v).to(dev) if isinstance(v, np.ndarray)
-                else v for k, v in kw.items()}
+                else v.to(dev) if isinstance(v, torch.Tensor) else v
+                for k, v in kw.items()}
 
     def run(plain):
         path = "plain" if plain else "kernel"
@@ -2297,8 +2325,11 @@ def batch_replay(torch, rec, target, draft=None, label="",
 
     routes = Routes(L, torch)
     with routes:
-        routes.mode = "record"
-        kernel_worst, _, _ = run(plain=False)
+        if served_routes is None:
+            routes.mode = "record"
+            kernel_worst, _, _ = run(plain=False)
+        else:
+            routes.log, kernel_worst = list(served_routes), None
         routes.mode = "force"
         worst, counted, drops = run(plain=True)
     check(routes.i == len(routes.log),
@@ -2420,10 +2451,7 @@ def paged_serve_phase(torch, cfg, params, pred, drafter=None, tp=0,
     prof = loopprof.install(cluster)
     free(torch)
     torch.cuda.reset_peak_memory_stats()
-    fops.launches = fops.q_offset_launches = fops.backward_launches = 0
-    dops.launches = 0
-    dops.paged_launches.clear()
-    dops.sharded_launches.clear()
+    zero_launch_counts()
     graphs0 = (jitcache.capture_count(), jitcache.replay_count())
     t0 = time.perf_counter()
     m = cluster.run(reqs)
@@ -2503,6 +2531,8 @@ def paged_serve_phase(torch, cfg, params, pred, drafter=None, tp=0,
         "max_memory_allocated_gb": peak / 1e9,
         "launches": launches,
         "sharded_launches": sharded_counts(dops),
+        "head_launches": head_counts(),
+        "pool_pages_in_use": [e.backend.pool.in_use for e in cluster.decode],
         **graphs, **loop_split(prof),
         "step_device_ms": (step_device_ms(torch, cluster)
                            if graphs["cuda_graphs"] else None),
@@ -2593,20 +2623,26 @@ def mesh_rank(rank: int, world: int, init: str, out: str, pred) -> None:
 
 def time_collectives(torch, mesh, iters: int = 50):
     """Synchronised wall ms per call of the model's two collectives on
-    this world's backend, at a decode step's shapes: the sum of one
-    row-parallel output (8 slots x 4096, bf16) and the gather of the
-    logits' vocabulary shards (8 x 128256 / tp, float32)."""
+    this world's backend: the sum of one row-parallel output at a decode
+    step's 8 slots and a k = 2 verify step's 8 x 3 rows (x 4096, float32
+    as the model sums its partial products unrounded, and bf16, the
+    model's dtype, beside it), and the gather of the logits' vocabulary
+    shards (8 x 128256 / tp, float32)."""
     from repro_torch.distributed.context import (
         gather_model, mesh_context, reduce_model,
     )
 
-    x = torch.zeros((SLOTS, 4096), dtype=torch.bfloat16, device="cuda")
+    calls = {}
+    for rows in (SLOTS, SLOTS * (SPEC_K + 1)):
+        for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            x = torch.zeros((rows, 4096), dtype=dtype, device="cuda")
+            calls[f"all_reduce {rows}x4096 {tag}"] = (
+                lambda x=x: reduce_model(x))
     logits = torch.zeros((SLOTS, 128256 // MESH_TP), device="cuda")
+    calls["gather 8x64128 f32"] = lambda: gather_model(logits)
     out = {}
     with mesh_context(mesh):
-        for name, fn in (("all_reduce 8x4096 bf16", lambda: reduce_model(x)),
-                         ("gather 8x64128 f32",
-                          lambda: gather_model(logits))):
+        for name, fn in calls.items():
             fn()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -2660,10 +2696,12 @@ def time_sharded_wrapper(torch, mesh, iters: int = 50):
     return out
 
 
-def spawn_world(target, world: int, label: str, *args):
+def spawn_world(target, world: int, label: str, *args,
+                timeout: float = MESH_TIMEOUT_S):
     """Run ``target(rank, world, init, out, *args)`` on ``world`` spawned
-    ranks of the card, wait at most ``MESH_TIMEOUT_S``, kill what is left
-    and check that every rank reported ok.  Returns each rank's results."""
+    ranks of the card, wait at most ``timeout`` seconds, kill what is
+    left and check that every rank reported ok.  Returns each rank's
+    results."""
     import multiprocessing as mp
     import pickle
     import tempfile
@@ -2677,7 +2715,7 @@ def spawn_world(target, world: int, label: str, *args):
             for r in range(world)]
         for p in procs:
             p.start()
-        deadline = time.monotonic() + MESH_TIMEOUT_S
+        deadline = time.monotonic() + timeout
         for p in procs:
             p.join(max(0.0, deadline - time.monotonic()))
         hung = [r for r, p in enumerate(procs) if p.is_alive()]
@@ -2692,7 +2730,7 @@ def spawn_world(target, world: int, label: str, *args):
         if not res["ok"]:
             print(f"{label} rank {r} failed:\n{res['error']}",
                   file=sys.stderr)
-    check(not hung, f"{label}: ranks {hung} outlasted {MESH_TIMEOUT_S} s")
+    check(not hung, f"{label}: ranks {hung} outlasted {timeout} s")
     check(all(res["ok"] for res in ranks), f"{label}: a rank failed")
     return ranks
 
@@ -2963,7 +3001,8 @@ def _scales_per_block(cfg) -> int:
     return n
 
 
-def reckon_gb(cfg, slots=SLOTS, max_len=MAX_LEN, pool_pages=None) -> dict:
+def reckon_gb(cfg, slots=SLOTS, max_len=MAX_LEN, pool_pages=None,
+              width: int = 1) -> dict:
     """What a serve of ``cfg`` holds on the card before the run, GB: its
     weights (bf16, or with ``weight_dtype="int8"`` the block matrices as
     int8 codes and float32 scales beside the bf16 embedding and head) and
@@ -2972,24 +3011,40 @@ def reckon_gb(cfg, slots=SLOTS, max_len=MAX_LEN, pool_pages=None) -> dict:
     codes and a float32 scale per position and head with
     ``kv_dtype="int8"``), the Mamba2 states of those slots where it has
     Mamba2 layers, and with ``pool_pages`` the paged pools of the
-    prefill and the decode instance."""
+    prefill and the decode instance.  With ``width`` > 1, what one rank
+    of a ``width``-wide slice holds: its bf16 shards by the sharding
+    rules (:func:`expected_local_params`), its share of the kv heads
+    where the attention heads split, and of the SSD heads (with B and C
+    whole in the conv tail) where they split."""
     from repro_torch.models.model import cache_capacity
 
+    kv_heads, ssd_shards = cfg.n_kv_heads, 1
+    if width > 1:
+        if cfg.n_heads % width == 0 and cfg.n_kv_heads % width == 0:
+            kv_heads //= width
+        if cfg.has_mamba and cfg.mamba.n_heads(cfg.d_model) % width == 0:
+            ssd_shards = width
     per_head = (cfg.head_dim + 4 if cfg.kv_dtype == "int8"
                 else cfg.head_dim * 2)
-    kv = 2 * cfg.n_kv_heads * per_head  # K and V a position
+    kv = 2 * kv_heads * per_head  # K and V a position
     ring = sum(cache_capacity(cfg, spec, max_len) for spec in
                cfg.block_pattern if spec.mixer == "attn") * cfg.n_blocks
     weights = cfg.param_count() * 2
-    if cfg.weight_dtype == "int8":
+    if width > 1:
+        import torch
+
+        weights = expected_local_params(torch, cfg, width) * 2
+    elif cfg.weight_dtype == "int8":
         blocks = sum(cfg._layer_params(spec)[0]
                      for spec in cfg.block_pattern) * cfg.n_blocks
         weights += (4 * _scales_per_block(cfg) * cfg.n_blocks) - blocks
     out = {"weights_gb": weights / 1e9, "ring_gb": slots * ring * kv / 1e9}
     if cfg.has_mamba:
         m = cfg.mamba
-        per_slot = ((m.d_conv - 1) * (m.d_inner(cfg.d_model) + 2 * m.d_state)
-                    * 2 + m.n_heads(cfg.d_model) * m.head_dim * m.d_state * 4)
+        di = m.d_inner(cfg.d_model) // ssd_shards
+        nh = m.n_heads(cfg.d_model) // ssd_shards
+        per_slot = ((m.d_conv - 1) * (di + 2 * m.d_state) * 2
+                    + nh * m.head_dim * m.d_state * 4)
         out["state_gb"] = (slots * per_slot * (cfg.n_layers - cfg.n_attn_layers)
                            / 1e9)
     if pool_pages is not None:
@@ -3018,19 +3073,26 @@ def spec_kinds(r, log):
     return kinds
 
 
+def config_of(arch, n_layers=None):
+    """The registered ``arch`` at full width, at full depth or cut to
+    ``n_layers``."""
+    import dataclasses
+
+    from repro_torch.configs.registry import REGISTRY
+
+    cfg = REGISTRY[arch]
+    return cfg if n_layers is None else dataclasses.replace(
+        cfg, n_layers=n_layers)
+
+
 def init_model(torch, arch, n_layers=None, **reckon):
     """``arch`` at full width in bf16, random weights from a seeded
     generator, at full depth or cut to ``n_layers``; prints its shape,
     size, the init's peak and what :func:`reckon_gb` reckons a serve
     holds (``reckon``: its slots, max_len, pool pages)."""
-    import dataclasses
-
-    from repro_torch.configs.registry import REGISTRY
     from repro_torch.models import model as M
 
-    cfg = REGISTRY[arch]
-    if n_layers is not None:
-        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    cfg = config_of(arch, n_layers)
     free(torch)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -3371,6 +3433,332 @@ def jamba_phase(torch):
 
 
 # ---------------------------------------------------------------------------
+# Phase 21: Mamba2 heads and MoE experts over "model", two ranks of the card
+# ---------------------------------------------------------------------------
+
+MIXER_TP = 2  # phase 21: ranks of the world, each instance's slice width
+MIXER_TIMEOUT_S = 900.0  # the parent's wait for the phase 21 world
+# (label, arch, the depth it is cut to or None, its serves); each
+# model is drawn on the slice, served, then freed
+MIXER_MODELS = (
+    ("mamba2", "mamba2-2.7b", None, ("dense",)),
+    ("qwen3moe", "qwen3-moe-30b-a3b", None, ("dense", "paged")),
+    ("jamba", "jamba-v0.1-52b", JAMBA_LAYERS, ("dense",)),
+)
+MIXER_PROBE_PROMPT = 512  # the prefill bucket the collective probe runs
+
+
+def expected_local_params(torch, cfg, width: int) -> int:
+    """What one rank of a ``width``-wide slice holds of ``cfg``'s
+    parameters by the sharding rules: each leaf of the full tree (on the
+    meta device) at its placement's local share."""
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.models import model as M
+
+    full = M.init_params(cfg, torch.Generator(), device="meta")
+    mesh = SimpleNamespace(mesh_dim_names=("data", "model"),
+                           shape=(1, width), get_local_rank=lambda a: 0)
+    total = 0
+    for name, leaf in named_leaves(full):
+        spec = SH.leaf_placement(cfg, tuple(name.split("/")[1:]), mesh)
+        n = leaf.numel()
+        if isinstance(spec, SH.Segments):
+            n = n // spec.size() * spec.size(width)
+        elif not spec.is_replicate():
+            n //= width
+        total += n
+    return total
+
+
+def collective_probe(torch, cfg, params, mesh,
+                     prompt: int = MIXER_PROBE_PROMPT):
+    """Every collective of one prefill of a ``prompt``-token bucket and
+    of one decode step at ``SLOTS`` slots on this rank's slice, each
+    timed alone (synchronised): by kind ("all_reduce", the logits'
+    "all_gather", the MoE layers' "moe_gather"), the calls, the bytes
+    this rank puts in and the bytes a gather gives back, and the MoE
+    gather's median wall ms a layer."""
+    from repro_torch.distributed import context as ctx
+    from repro_torch.models import model as M
+
+    inner_reduce, inner_gather = ctx.reduce_model, ctx.gather_model
+    log = []
+
+    def logged(kind, fn, x, out_bytes):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        log.append((kind, x.numel() * x.element_size(),
+                    out_bytes(out), (time.perf_counter() - t0) * 1e3))
+        return out
+
+    def reduce(x):
+        return logged("all_reduce", lambda: inner_reduce(x), x,
+                      lambda out: out.numel() * out.element_size())
+
+    def gather(x, dim=-1):
+        return logged("moe_gather" if dim == 0 else "all_gather",
+                      lambda: inner_gather(x, dim=dim), x,
+                      lambda out: out.numel() * out.element_size())
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    ctx.reduce_model, ctx.gather_model = reduce, gather
+    out = {}
+    try:
+        with ctx.mesh_context(mesh):
+            toks = torch.randint(0, cfg.vocab_size, (1, prompt), generator=g,
+                                 device="cuda", dtype=torch.int32)
+            lengths = torch.tensor([prompt], dtype=torch.int32,
+                                   device="cuda")
+            M.prefill(params, cfg, toks, lengths, max_len=MAX_LEN)
+            out["prefill"], log[:] = list(log), []
+            cache = M.init_cache(cfg, SLOTS, MAX_LEN, "cuda")
+            step = torch.randint(0, cfg.vocab_size, (SLOTS,), generator=g,
+                                 device="cuda", dtype=torch.int32)
+            M.decode_step(params, cfg, step, cache,
+                          torch.full((SLOTS,), 100, dtype=torch.int32,
+                                     device="cuda"))
+            out["decode"] = list(log)
+    finally:
+        ctx.reduce_model, ctx.gather_model = inner_reduce, inner_gather
+    res = {}
+    for when, calls in out.items():
+        kinds = {}
+        for kind, sent, got, ms in calls:
+            k = kinds.setdefault(kind, {"calls": 0, "bytes_in": 0,
+                                        "bytes_out": 0, "ms": []})
+            k["calls"] += 1
+            k["bytes_in"] += sent
+            k["bytes_out"] += got
+            k["ms"].append(ms)
+        for k in kinds.values():
+            k["ms_total"] = sum(k["ms"])
+            k["ms_median"] = _median(k.pop("ms"))
+        res[when] = kinds
+    return res
+
+
+def host_events(rec):
+    """A :class:`Recorder`'s events with every tensor on the host, to
+    leave the rank."""
+    import torch
+
+    def host(v):
+        if isinstance(v, torch.Tensor):
+            return v.cpu()
+        if isinstance(v, dict):
+            return {k: host(x) for k, x in v.items()}
+        return v
+
+    return SimpleNamespace(
+        backends=rec.backends,
+        events=[tuple(host(x) for x in ev) for ev in rec.events])
+
+
+def mixer_rank(rank: int, world: int, init: str, out: str, preds) -> None:
+    """Phase 21 on one rank: join a world of ``MIXER_TP`` ranks on the
+    card and, for each of ``MIXER_MODELS`` in turn, draw this rank's
+    shards on a tp-wide slice (``init_params(mesh=)``, seed 0), serve
+    through the tp=2 P/D cluster (both instances on the same ranks,
+    eager) with its calls and its MoE routings recorded, probe one
+    prefill's and one decode step's collectives, then free it.  Writes
+    its results (or its traceback) to ``out``."""
+    import pickle
+    import traceback
+
+    sys.stdout.reconfigure(line_buffering=True, write_through=False)
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+
+    res = {"ok": False}
+    try:
+        from repro_torch.distributed import init_world, make_slice_mesh
+        from repro_torch.models import layers as L
+        from repro_torch.models import model as M
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        res["backend"] = init_world(rank, world, init, "cuda",
+                                    timeout_s=300.0)
+        mesh = make_slice_mesh(range(world), "cuda")
+        res["models"] = {}
+        for label, arch, n_layers, serves in MIXER_MODELS:
+            cfg = config_of(arch, n_layers)
+            free(torch)
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            params = M.init_params(
+                cfg, torch.Generator(device="cuda").manual_seed(0),
+                device="cuda", mesh=mesh)
+            torch.cuda.synchronize()
+            got = {"init_s": time.perf_counter() - t0,
+                   "init_peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                   "local_params": sum(t.numel() for t in _leaves(params)),
+                   "serves": {}}
+            per_iter = {"ssd_scan": "prefill"} if cfg.has_mamba else {}
+            if cfg.has_attention:
+                per_iter.update(ATTN_KERNELS)
+            for serve in serves:
+                rec, routes = Recorder(), Routes(L, torch)
+                name = f"mixer-{label}-{serve} rank {rank}"
+                with routes:
+                    routes.mode = "record"
+                    if serve == "dense":
+                        _, _, reqs, _, stats = serve_phase(
+                            torch, arch, name, per_iter, params=params,
+                            cfg=cfg, tp=world, recorder=rec)
+                    else:
+                        reqs, _, _, stats = paged_serve_phase(
+                            torch, cfg, params, preds[label], tp=world,
+                            label=name, recorder=rec)
+                got["serves"][serve] = {
+                    "streams": _streams(reqs), "stats": stats,
+                    "decode_lens": [r.decode_len for r in reqs],
+                    "record": host_events(rec),
+                    "routes": [t.cpu() for t in routes.log]}
+                del rec, routes, reqs
+            got["collectives"] = collective_probe(torch, cfg, params, mesh)
+            res["models"][label] = got
+            del params
+            free(torch)
+        res["ok"] = True
+    except BaseException:  # the parent fails the phase with it
+        res["error"] = traceback.format_exc()
+    Path(out).write_bytes(pickle.dumps(res))
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def mixer_checks(ranks, cfgs, width: int = MIXER_TP) -> None:
+    """What phase 21's ranks must show, each model and serve (``cfgs``:
+    label -> (config, the local parameters the rules give a rank)): the
+    same streams on every rank, each ``decode_len + 1`` tokens long;
+    each rank's local parameter count as the rules say; ssd_scan and
+    flash_prefill launched at the rank's share of the SSD and query
+    heads only, the decode wrapper's sharded branch at its share of the
+    kv heads; every decode pool drained."""
+    for label, (cfg, local) in cfgs.items():
+        for r, res in enumerate(ranks):
+            got = res["models"][label]["local_params"]
+            check(got == local,
+                  f"mixer-{label}: rank {r} holds {got:,} parameters, the "
+                  f"rules give a rank {local:,}")
+        serves = ranks[0]["models"][label]["serves"]
+        for serve in serves:
+            tag = f"mixer-{label}-{serve}"
+            per = [res["models"][label]["serves"][serve] for res in ranks]
+            check(all(p["streams"] == per[0]["streams"] for p in per),
+                  f"{tag}: the ranks emitted different streams")
+            for s, n in zip(per[0]["streams"], per[0]["decode_lens"]):
+                check(len(s["output_tokens"]) == n + 1,
+                      f"{tag}: rid {s['rid']} has {len(s['output_tokens'])} "
+                      f"tokens, expected {n + 1}")
+            for r, p in enumerate(per):
+                st = p["stats"]
+                heads = st["head_launches"]
+                want = {}
+                if cfg.has_mamba:
+                    want["ssd_scan"] = str(
+                        cfg.mamba.n_heads(cfg.d_model) // width)
+                if cfg.has_attention:
+                    want["flash_prefill"] = str(cfg.n_heads // width)
+                for kernel, h in want.items():
+                    check(set(heads[kernel]) == {h},
+                          f"{tag}: rank {r} launched {kernel} at heads "
+                          f"{heads[kernel]}, not only at its {h}")
+                if cfg.has_attention:
+                    fn = ("paged_decode_attention" if serve == "paged"
+                          else "decode_attention")
+                    key = f"{fn}/hkv{cfg.n_kv_heads // width}"
+                    check(st["sharded_launches"].get(key, 0) > 0
+                          and set(st["sharded_launches"]) == {key},
+                          f"{tag}: rank {r} sharded launches "
+                          f"{st['sharded_launches']}, expected {key} only")
+                pools = st.get("pool_pages_in_use", [])
+                check(all(n == 0 for n in pools),
+                      f"{tag}: rank {r}'s decode pools hold {pools} pages")
+
+
+def mixer_phase(torch, preds):
+    """Reckon what each rank of the phase 21 world holds of every model
+    (:func:`reckon_gb` at ``MIXER_TP``: its shards, rings, states and
+    pools) and check that the ranks fit the card together, spawn the
+    world, check what its ranks report
+    (:func:`mixer_checks`), print each rank's walls, peaks and
+    collectives, then replay every served stream through the meshless
+    plain path on the full weights from the same seed, batch for batch,
+    each MoE layer forced to the experts the slice routed to
+    (:func:`batch_replay`).  Returns the launches of each serve by
+    phase label, summed over the ranks, and each rank's flash_prefill
+    and ssd_scan launches by head count, by phase label."""
+    for label, arch, n_layers, serves in MIXER_MODELS:
+        gb = reckon_gb(config_of(arch, n_layers),
+                       pool_pages=POOL_PAGES if "paged" in serves else None,
+                       width=MIXER_TP)
+        held = sum(gb.values())
+        print(f"mixer-{label}: reckoned a rank of {MIXER_TP} "
+              f"{json.dumps(gb)}, {held:.2f} GB; {MIXER_TP} ranks on the "
+              f"card {MIXER_TP * held:.2f} GB of {CARD_GB}")
+        check(MIXER_TP * held <= CARD_GB,
+              f"mixer-{label}: {MIXER_TP} ranks would hold "
+              f"{MIXER_TP * held:.2f} GB, past {CARD_GB}")
+    t0 = time.perf_counter()
+    ranks = spawn_world(mixer_rank, MIXER_TP, "mixer", preds,
+                        timeout=MIXER_TIMEOUT_S)
+    world_s = time.perf_counter() - t0
+    cfgs = {}
+    for label, arch, n_layers, _ in MIXER_MODELS:
+        cfg = config_of(arch, n_layers)
+        cfgs[label] = (cfg, expected_local_params(torch, cfg, MIXER_TP))
+    mixer_checks(ranks, cfgs)
+    launches, heads = {}, {}
+    for label, (cfg, local) in cfgs.items():
+        models = [res["models"][label] for res in ranks]
+        print(f"mixer-{label}: {MIXER_TP} ranks on one card, "
+              f"{ranks[0]['backend']} backend, {cfg.n_layers} layers, "
+              f"{local:,} params a rank of {cfg.param_count():,}, init "
+              f"{[round(m['init_s'], 1) for m in models]} s, init peaks "
+              f"{[round(m['init_peak_gb'], 2) for m in models]} GB")
+        print(f"mixer-{label} collectives per rank, one prefill of "
+              f"{MIXER_PROBE_PROMPT} tokens and one decode step at {SLOTS} "
+              "slots (calls, bytes in, bytes out, ms total, median ms a "
+              "call; moe_gather: one a MoE layer): " + json.dumps(
+                  [m["collectives"] for m in models]))
+        for serve in models[0]["serves"]:
+            per = [m["serves"][serve]["stats"] for m in models]
+            iters = "decode_ms_median" if serve == "dense" \
+                else "iter_ms_median"
+            print(f"serve[mixer-{label}-{serve}] per rank: " + json.dumps(
+                {c: [st[c] for st in per] for c in (
+                    "prefill_ms_median", iters, "decode_tok_s",
+                    "max_memory_allocated_gb", "launches",
+                    "sharded_launches", "head_launches", "captures",
+                    "dispatch_s", "device_wait_s")}))
+            total = {}
+            for st in per:
+                for k, n in st["launches"].items():
+                    if isinstance(n, int):
+                        total[k] = total.get(k, 0) + n
+            launches[f"mixer-{label}-{serve}"] = total
+            heads[f"mixer-{label}-{serve}"] = [st["head_launches"]
+                                                for st in per]
+    print(f"mixer: world {world_s:.1f} s wall")
+    # the meshless plain-path replays, on the full weights from seed 0
+    for label, arch, n_layers, _ in MIXER_MODELS:
+        cfg, params = init_model(torch, arch, n_layers=n_layers)
+        for serve, got in ranks[0]["models"][label]["serves"].items():
+            batch_replay(torch, got["record"], (cfg, params),
+                         label=f"mixer-{label}-{serve}",
+                         served_routes=got["routes"])
+        del params
+        free(torch)
+    print(f"mixer: {time.perf_counter() - t0:.1f} s wall with the replays")
+    return launches, heads
+
+
+# ---------------------------------------------------------------------------
 # Phases 16-17: hubert's encoder and int8 serving at full width
 # ---------------------------------------------------------------------------
 
@@ -3395,10 +3783,24 @@ def zero_launch_counts():
     from repro_torch.kernels.ssd import ops as sops
 
     fops.launches = fops.q_offset_launches = fops.backward_launches = 0
+    fops.head_launches.clear()
     dops.launches = 0
     dops.paged_launches.clear()
     dops.sharded_launches.clear()
     sops.launches = sops.backward_launches = 0
+    sops.head_launches.clear()
+
+
+def head_counts():
+    """flash_prefill's launches by query heads and ssd_scan's by SSD
+    heads, as JSON keys: on a mesh slice, the rank's share."""
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.ssd import ops as sops
+
+    return {"flash_prefill": {str(h): n for h, n in
+                              sorted(fops.head_launches.items())},
+            "ssd_scan": {str(h): n for h, n in
+                         sorted(sops.head_launches.items())}}
 
 
 def hubert_frames(torch, d_model):
@@ -4088,10 +4490,17 @@ def main(argv=None) -> int:
     r = SimpleNamespace(**streams[-1])
     r.rid = f"{r.rid} (disjoint-paged)"
     replay_phase(torch, {"target": (cfg, params)}, r)
-    # free llama and the drafter before phases 10-12
+    # free llama and the drafter before phases 21 and 10-12
     del params, dparams, models, r
     free(torch)
     seconds["20"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+
+    # phase 21: Mamba2 heads and MoE experts over a 2-wide slice
+    moe_pred = build_predictor(config_of("qwen3-moe-30b-a3b"), A100,
+                               A100.freq_levels_2, kv_cap=400_000)
+    mixer_launches, mixer_heads = mixer_phase(torch, {"qwen3moe": moe_pred})
+    seconds["21"] = time.perf_counter() - t0
     t0 = time.perf_counter()
 
     family = {}
@@ -4118,6 +4527,7 @@ def main(argv=None) -> int:
     by_phase.update({f"mesh-{name}": mesh["serves"][name][2]["launches"]
                      for name in ("dense", "paged", "spec")})
     by_phase.update(disjoint_launches)
+    by_phase.update(mixer_launches)
     by_phase.update({name: launches
                      for name, (launches, _) in family.items()})
     rows = []
@@ -4132,6 +4542,10 @@ def main(argv=None) -> int:
             "launches": n, "launches_phase": phase,
             "launches_by_phase": {p: by_phase[p].get(name, 0)
                                   for p in by_phase},
+            **({"launches_by_heads_per_rank": {
+                p: [h[name] for h in hs] for p, hs in mixer_heads.items()
+                if any(h[name] for h in hs)}}
+               if name in ("flash_prefill", "ssd_scan") else {}),
             "max_abs_err": max(errs[name].values()),
             "max_abs_err_by_dtype": errs[name], **timings(h),
             **{case: {"shape": r["shape"], **timings(r)}

@@ -3,11 +3,12 @@ full P/D disaggregated stack — continuous batching, KV migration, EcoFreq
 per-iteration frequency control, EcoRoute state-space routing, a decode
 instance failure with automatic re-prefill, and elastic scale-out.
 
-On the card (the default) it serves llama-3.1-8b at full width in bf16
-with random weights from a seeded generator; prefill and decode
-attention run in the port's hand-written Hopper kernels.  ``--device
-cpu`` serves the reduced float32 model through the kernels' plain
-versions.  On the card each decode instance replays its decode step
+On the card (the default) it serves llama-3.1-8b (or ``--arch``, any
+registered config with a decode phase) at full width in bf16 with random
+weights from a seeded generator; prefill and decode attention (and a
+Mamba2 mixer's scan) run in the port's hand-written Hopper kernels.
+``--device cpu`` serves the reduced float32 model through the kernels'
+plain versions.  On the card each decode instance replays its decode step
 from a CUDA graph after the first.  Latency and energy come from the
 control plane's virtual clock (an A100 hardware model), not from the
 machine running the tokens.
@@ -17,13 +18,17 @@ machine running the tokens.
     PYTHONPATH=src python examples/serve_pd_disaggregated_torch.py --profile
     PYTHONPATH=src python examples/serve_pd_disaggregated_torch.py --tp 2
     PYTHONPATH=src python examples/serve_pd_disaggregated_torch.py --world 2 --tp 1
+    PYTHONPATH=src python examples/serve_pd_disaggregated_torch.py --device cpu --tp 2 --arch qwen3-moe-30b-a3b
 
 ``--profile`` (card only) traces the run with ``torch.profiler`` and
 prints device time by kernel and the device's busy share of the run.
 ``--tp N`` spawns a world of N ranks (``repro_torch.distributed.
 init_world``: NCCL with a card per rank, gloo on the CPU or when ranks
 share a card), every instance a tensor-parallel slice over all of them;
-each rank builds only its shards of the weights, and rank 0 prints.
+each rank builds only its shards of the weights, and rank 0 prints.  A
+slice splits attention heads, a Mamba2 mixer's SSD heads and a MoE's
+experts over its ranks (mamba2-2.7b, qwen3-moe-30b-a3b, dbrx-132b and
+jamba-v0.1-52b slice as the dense configs do); int8 modes do not slice.
 ``--world W`` with ``--tp N`` below it spawns W ranks and carves N-wide
 slices from them in turn, so prefill and decode instances sit on
 disjoint ranks and the P→D handoff crosses ranks (``--world 2 --tp 1``:
@@ -66,6 +71,10 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--arch", default="llama-3.1-8b",
+                    choices=sorted(a for a, c in REGISTRY.items()
+                                   if c.embed_inputs),
+                    help="the served config (reduced on the CPU)")
     ap.add_argument("--tp", type=int, default=0,
                     help="tensor-parallel degree: spawn a world of this "
                          "many ranks (0: one process, no mesh)")
@@ -101,7 +110,7 @@ def _rank(rank: int, args, store: str):
 
 def serve(args, rank: int = 0):
     say = print if rank == 0 else (lambda *a, **k: None)
-    base = REGISTRY["llama-3.1-8b"]
+    base = REGISTRY[args.arch]
     if args.device == "cpu":
         cfg = dataclasses.replace(base.reduced(), dtype="float32")
         max_len, prompts, decodes = 256, LengthDist(24.0, 10.0, hi=100), \

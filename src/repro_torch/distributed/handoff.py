@@ -6,22 +6,27 @@ The JAX backend re-lays a handed-off cache onto the decode slice with
 takes.  The port runs one process per rank, so this module says which
 rank moves which bytes, and moves them:
 
-* :func:`head_plan` maps each destination rank's kv heads to pieces of
-  the source ranks' shards.  Both slices cut heads by the sharding
-  rules (contiguous blocks along ``"model"``, or whole on every rank when
-  the heads do not split), so the plan is a function of the head count,
-  the two slices' ranks and how many shards each cuts the heads into.
+* :func:`head_plan` maps each destination rank's heads to pieces of the
+  source ranks' shards.  Both slices cut heads by the sharding rules
+  (contiguous blocks along ``"model"``, or whole on every rank when the
+  heads do not split), so the plan is a function of the head count, the
+  two slices' ranks and how many shards each cuts the heads into.  A
+  leaf's heads are attention kv heads (K/V, int8 scales) or SSD heads (a
+  Mamba2 SSM state, and the x channels of its conv tail), each kind
+  with its own shard count on each slice
+  (:func:`~repro_torch.distributed.sharding.cache_cut`).
 * :class:`Header` is what every rank of the world knows of a payload:
-  the source slice, and each leaf's shape and dtype on one source rank.
-  A rank outside the source slice builds it from the config and the
-  request, never from tensors it does not hold.
+  the source slice, how many shards it cuts each kind of heads into,
+  and each leaf's shape, dtype and cut on one source rank.  A rank
+  outside the source slice builds it from the config and the request,
+  never from tensors it does not hold.
 * :func:`move` runs this rank's part of a handoff, leaf by leaf and
   piece by piece in one fixed order that every rank walks: a rank on
   both ends of a piece copies locally, the source sends, the destination
   receives into freshly allocated leaves, and any other rank does
-  nothing.  Only kv heads are cut: every other axis moves whole, and a
-  leaf without heads (ring positions, a Mamba2 conv tail and SSM state)
-  moves whole from one source rank.
+  nothing.  Only heads are cut: every other axis moves whole, a conv
+  tail's B and C channels move whole beside its cut x channels, and a
+  leaf without heads (ring positions) moves whole from one source rank.
 * :func:`share` broadcasts token ids from a slice's first rank to the
   whole world, so that ranks outside the slice emit the same streams.
 
@@ -42,12 +47,12 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch.distributed.sharding import kv_head_dim
+from repro_torch.distributed.sharding import Segments, cache_cut
 
 
 @dataclass(frozen=True)
 class Piece:
-    """Global kv heads ``[lo, hi)`` that rank ``dst`` takes from rank
+    """Global heads ``[lo, hi)`` that rank ``dst`` takes from rank
     ``src``; ``src_off`` and ``dst_off`` are the first head's index in
     the source's and the destination's shard."""
     src: int
@@ -68,7 +73,7 @@ def _holders(ranks: Sequence[int], shards: int, s: int) -> List[int]:
 def head_plan(hkv: int, src_ranks: Sequence[int], dst_ranks: Sequence[int],
               src_shards: Optional[int] = None,
               dst_shards: Optional[int] = None) -> Dict[int, List[Piece]]:
-    """{destination rank: the pieces that fill its kv heads, in head
+    """{destination rank: the pieces that fill its heads, in head
     order}.  A slice cuts its ``hkv`` heads into ``*_shards`` contiguous
     blocks over its ranks in order (default: one a rank; 1 when the
     heads stay whole on every rank).  A piece comes from the destination
@@ -81,7 +86,7 @@ def head_plan(hkv: int, src_ranks: Sequence[int], dst_ranks: Sequence[int],
                                 ("destination", dst_ranks, dst_shards)):
         if shards < 1 or hkv % shards or len(ranks) % shards:
             raise ValueError(
-                f"{name} slice of {len(ranks)} ranks cannot cut {hkv} kv "
+                f"{name} slice of {len(ranks)} ranks cannot cut {hkv} "
                 f"heads into {shards} shards"
             )
     ws, wd = hkv // src_shards, hkv // dst_shards
@@ -101,28 +106,29 @@ def head_plan(hkv: int, src_ranks: Sequence[int], dst_ranks: Sequence[int],
 @dataclass(frozen=True)
 class Leaf:
     """One leaf of a payload tree: its path, its shape and dtype on one
-    source rank, and its kv-head dim (None: the leaf has no heads)."""
+    source rank, and how it splits over heads (None: the leaf has no
+    heads)."""
     name: str
     key: str
     shape: Tuple[int, ...]
     dtype: torch.dtype
-    head_dim: Optional[int]
+    cut: Optional[Segments]
 
 
 @dataclass(frozen=True)
 class Header:
     """What every rank knows of a payload: the source slice's ranks, how
-    many shards it cuts the ``hkv`` kv heads into, and its leaves."""
+    many shards it cuts each kind of heads into (``(kind, shards)``
+    pairs), and its leaves."""
     src_ranks: Tuple[int, ...]
-    src_shards: int
-    hkv: int
+    src_shards: Tuple[Tuple[str, int], ...]
     leaves: Tuple[Leaf, ...]
 
 
-def leaves_of(tree, n_pages: Optional[int] = None) -> Tuple[Leaf, ...]:
-    """The leaves of a cache tree (real or on the meta device) in tree
-    order; ``n_pages`` replaces dim 1 (a paged pool's page count) by a
-    request's page stack."""
+def leaves_of(cfg, tree, n_pages: Optional[int] = None) -> Tuple[Leaf, ...]:
+    """The leaves of a cache tree of ``cfg`` (real or on the meta
+    device) in tree order; ``n_pages`` replaces dim 1 (a paged pool's
+    page count) by a request's page stack."""
     out = []
     for name, entry in tree.items():
         for key, leaf in entry.items():
@@ -130,7 +136,7 @@ def leaves_of(tree, n_pages: Optional[int] = None) -> Tuple[Leaf, ...]:
             if n_pages is not None:
                 shape = (shape[0], n_pages) + shape[2:]
             out.append(Leaf(name, key, shape, leaf.dtype,
-                            kv_head_dim(key, leaf.dim())))
+                            cache_cut(cfg, key, leaf.dim())))
     return tuple(out)
 
 
@@ -168,22 +174,38 @@ def _recv_into(view: torch.Tensor, src: int) -> int:
     return buf.numel() * buf.element_size()
 
 
-def _transfers(leaf: Leaf, plan: Dict[int, List[Piece]], src_ranks):
+def _narrow(dim: int, at: int, n: int):
+    return lambda t: t.narrow(dim, at, n)
+
+
+def _transfers(leaf: Leaf, plan, src_ranks, src_shards, dst_shards):
     """(source rank, destination rank, source view, destination view)
-    makers of one leaf in plan order: a head leaf piece by piece, a leaf
-    without heads whole, from the destination itself when it is a source
-    rank, else from its first piece's source."""
-    for d, pieces in plan.items():
-        if leaf.head_dim is None:
-            src = d if d in src_ranks else pieces[0].src
+    makers of one leaf in plan order (``plan``: the :func:`head_plan` of
+    its heads).  A leaf with heads goes part by part at each slice's
+    offsets (:class:`~repro_torch.distributed.sharding.Segments`): a
+    part of heads piece by piece, a part every rank holds whole (a conv
+    tail's B and C) from the destination itself when it is a source
+    rank, else from its first piece's source.  A leaf without heads goes
+    whole, from the destination itself when it is a source rank, else
+    from a source rank in turn."""
+    cut = leaf.cut
+    for j, (d, pieces) in enumerate(plan.items()):
+        if cut is None:
+            src = d if d in src_ranks else src_ranks[j % len(src_ranks)]
             yield src, d, (lambda t: t), (lambda t: t)
             continue
-        hd = leaf.head_dim
-        for p in pieces:
-            n = p.hi - p.lo
-            yield (p.src, d,
-                   (lambda t, o=p.src_off, n=n: t.narrow(hd, o, n)),
-                   (lambda t, o=p.dst_off, n=n: t.narrow(hd, o, n)))
+        for (size, heads), at_s, at_d in zip(
+                cut.parts, cut.starts(src_shards), cut.starts(dst_shards)):
+            if not heads:
+                src = d if d in src_ranks else pieces[0].src
+                yield (src, d, _narrow(cut.dim, at_s, size),
+                       _narrow(cut.dim, at_d, size))
+                continue
+            u = size // heads
+            for p in pieces:
+                n = (p.hi - p.lo) * u
+                yield (p.src, d, _narrow(cut.dim, at_s + p.src_off * u, n),
+                       _narrow(cut.dim, at_d + p.dst_off * u, n))
 
 
 @dataclass
@@ -198,37 +220,53 @@ class Moved:
 
 
 def move(header: Header, tree: Optional[dict], dst_ranks: Sequence[int],
-         dst_shards: int, device) -> Moved:
+         dst_shards: Dict[str, int], device) -> Moved:
     """This rank's part of handing ``tree`` (the source shards it holds,
-    or None) to the slice ``dst_ranks``, whose ranks cut the kv heads
-    into ``dst_shards``.  Every rank of the world calls it with the same
-    header and destination, in the same order as every other handoff.
-    When this rank's pieces all come from itself and cover its shard
-    whole, the destination tree is the source tree, uncopied."""
+    or None) to the slice ``dst_ranks``, whose ranks cut each kind of
+    heads into ``dst_shards[kind]``.  Every rank of the world calls it
+    with the same header and destination, in the same order as every
+    other handoff.  When this rank's pieces all come from itself and
+    cover its shards whole, the destination tree is the source tree,
+    uncopied."""
     rank = dist.get_rank()
     dst_ranks = list(dst_ranks)
     src_ranks = list(header.src_ranks)
-    plan = head_plan(header.hkv, src_ranks, dst_ranks, header.src_shards,
-                     dst_shards)
-    crossed = any(p.src != p.dst for ps in plan.values() for p in ps)
-    mine = plan.get(rank)
-    whole = mine is not None and tree is not None and \
-        header.src_shards == dst_shards and all(p.src == rank for p in mine)
-    if whole:
+    src_shards = dict(header.src_shards)
+    plans = {}
+
+    def leaf_plan(leaf):
+        kind, units = (None, 1) if leaf.cut is None else \
+            (leaf.cut.kind, leaf.cut.heads)
+        if (kind, units) not in plans:
+            s, d = (1, 1) if kind is None else (src_shards[kind],
+                                                dst_shards[kind])
+            plans[kind, units] = head_plan(units, src_ranks, dst_ranks, s, d)
+        return plans[kind, units]
+
+    def transfers(leaf):
+        kind = None if leaf.cut is None else leaf.cut.kind
+        return _transfers(leaf, leaf_plan(leaf), src_ranks,
+                          src_shards.get(kind, 1), dst_shards.get(kind, 1))
+
+    walk = [(leaf, list(transfers(leaf))) for leaf in header.leaves]
+    crossed = any(src != d for _, ts in walk for src, d, _, _ in ts)
+    mine = [src for _, ts in walk for src, d, _, _ in ts if d == rank]
+    same = all(src_shards[k] == dst_shards[k] for k in src_shards)
+    if mine and tree is not None and same and all(s == rank for s in mine):
         return Moved(tree, crossed)
     out = None
-    if mine is not None:
+    if mine:
         out = {}
         for leaf in header.leaves:
             shape = list(leaf.shape)
-            if leaf.head_dim is not None:
-                shape[leaf.head_dim] = header.hkv // dst_shards
+            if leaf.cut is not None:
+                shape[leaf.cut.dim] = leaf.cut.size(dst_shards[leaf.cut.kind])
             out.setdefault(leaf.name, {})[leaf.key] = torch.empty(
                 shape, dtype=leaf.dtype, device=device)
     moved = Moved(out, crossed)
-    for leaf in header.leaves:
+    for leaf, ts in walk:
         src_leaf = None if tree is None else tree[leaf.name][leaf.key]
-        for src, d, take, put in _transfers(leaf, plan, src_ranks):
+        for src, d, take, put in ts:
             if src == d == rank:
                 put(out[leaf.name][leaf.key]).copy_(take(src_leaf))
             elif src == rank:

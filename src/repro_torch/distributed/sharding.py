@@ -4,22 +4,32 @@
 Counterpart of the serving subset of ``repro/distributed/sharding.py``
 (the rule table, ``param_pspecs``, ``serving_cache_pspecs``,
 ``place_serving_state``).  A rule gives a leaf one placement on the
-slice's ``"model"`` mesh dim, ``Shard(d)`` or ``Replicate()``: Megatron
-tensor parallelism, with wq, wk, wv, w_gate and w_in column-parallel
-(their output dim split), wo and w_out row-parallel (their input dim
-split; the model sums their outputs over ``"model"``), embed and lm_head
-split over the vocabulary.  A dim whose global size does not divide
-the axis stays replicated (the JAX rule's ``_fits``).  The rule table
-is the JAX one; its Mamba2 and MoE entries split nothing here, since
-Mamba2 on a mesh raises and MoE is not served by the port yet.
+slice's ``"model"`` mesh dim, ``Shard(d)``, :class:`Segments` or
+``Replicate()``: Megatron tensor parallelism, with wq, wk, wv, w_gate
+and w_in column-parallel (their output dim split), wo and w_out
+row-parallel (their input dim split; the model sums their outputs over
+``"model"``), embed and lm_head split over the vocabulary; a MoE's
+expert weights ``(E, d, ffe)`` / ``(E, ffe, d)`` split on E (the JAX
+rule's ``is_moe`` branch) with the router whole; a Mamba2 mixer's SSD
+heads split (``ssd_head_pspec``).  A dim whose global size does not
+divide the axis stays replicated (the JAX rule's ``_fits``): a layer
+whose SSD heads or experts do not divide keeps them whole on every rank.
 
-One rule differs from the JAX package's in layout, not in mathematics.
+Two rules differ from the JAX package's in layout, not in mathematics.
 GSPMD splits wq's columns whenever ``q_dim`` divides the axis and
 inserts whatever collectives follow; the port computes attention on
 local heads, so a layer's attention weights shard only when its heads do
 (:func:`~repro_torch.distributed.context.heads_shardable`, the rule of
 the decode-attention wrappers) and otherwise stay replicated, with its
-KV cache: the wrappers' own fallback.
+KV cache: the wrappers' own fallback.  And GSPMD cuts ``in_proj``'s
+concatenated output ``[z | x | B | C | dt]`` uniformly and reshards;
+the port runs each rank's SSD heads on local shards, so ``in_proj`` and
+``conv_w`` are cut by segment (:class:`Segments`): a rank holds its
+heads' z, x and dt columns (its x conv channels) and the B and C
+columns whole (the configs have one B/C group).  ``dt_bias``, ``A_log``,
+``D`` and ``gnorm`` follow the heads, ``out_proj`` is row-parallel like
+``wo``, and the cache's SSM state and conv tail split the same way
+(:func:`cache_cut`).
 
 A slice's ``"data"`` axis has width 1, so the JAX rule's second,
 FSDP-style dim over the data-parallel axes never fits and is left out,
@@ -29,7 +39,7 @@ as are the dry-run's ``fsdp_sp`` mode, ``batch_pspec`` and
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Sequence
+from typing import Any, Callable, Sequence, Tuple
 
 import torch
 from torch.distributed.tensor import Replicate, Shard
@@ -61,7 +71,9 @@ def default_policy(mesh) -> ShardingPolicy:
 # ---------------------------------------------------------------------------
 
 # name -> the dim (offset by +1 for stacked block leaves) placed on the
-# model axis; None replicates
+# model axis; None replicates.  The JAX rule table's dense entries: MoE
+# expert leaves (under "moe") and the Mamba2 leaves (under "mamba") take
+# their own placements (:func:`leaf_placement`).
 _PARAM_RULES = {
     "embed": 0,  # vocab
     "lm_head": 1,  # vocab
@@ -73,26 +85,101 @@ _PARAM_RULES = {
     "w_in": 1,
     "w_out": 0,
     "router": None,
-    "in_proj": 1,  # mamba
-    "conv_w": 0,
-    "out_proj": 0,
-    "gnorm": None,
     "norm": None,
     "q_norm": None,
     "k_norm": None,
     "final_norm": None,
-    "A_log": None,
-    "dt_bias": None,
-    "D": None,
 }
 _ATTN_WEIGHTS = frozenset({"wq", "wk", "wv", "wo"})
+_EXPERT_WEIGHTS = frozenset({"w_gate", "w_in", "w_out"})
+# Mamba2 leaves that follow the SSD heads on their first (unstacked) dim
+_SSD_HEAD_LEAVES = frozenset({"A_log", "dt_bias", "D", "gnorm", "out_proj"})
 
 
-def _global_size(cfg, name: str):
-    """The global size of a leaf's rule dim, which ``_fits`` is decided
-    on, so that a full tree and this rank's shards get the same
-    placements.  None for a leaf the port does not split (Mamba2 on a
-    mesh raises before its weights are placed)."""
+@dataclass(frozen=True)
+class Segments:
+    """The placement of a leaf that is a concatenation along ``dim``,
+    for parameters and serving-cache leaves alike.  Each of ``parts`` is
+    ``(global size, heads)``: a part with heads is cut into contiguous
+    blocks of whole heads over the model axis (``size // heads``
+    elements a head), a part without (0) is held whole by every rank,
+    and a shard keeps the parts in order.  ``kind`` names the heads:
+    ``"kv"`` (attention kv heads) or ``"ssm"`` (SSD heads).  A K/V leaf
+    is one part of kv heads; a Mamba2 ``in_proj`` is ``[z | x | B | C |
+    dt]`` with B and C whole, its ``conv_w`` and conv tail ``[x | B |
+    C]``."""
+    dim: int
+    parts: Tuple[Tuple[int, int], ...]
+    kind: str
+
+    @property
+    def heads(self) -> int:
+        """The head count of the parts that are cut (one for all)."""
+        return max(heads for _, heads in self.parts)
+
+    def widths(self, n: int = 1) -> Tuple[int, ...]:
+        """Each part's size on one of ``n`` shards (1: the global
+        sizes)."""
+        return tuple(size // n if heads else size
+                     for size, heads in self.parts)
+
+    def starts(self, n: int = 1) -> Tuple[int, ...]:
+        """Where each part begins along ``dim`` on one of ``n`` shards."""
+        at, out = 0, []
+        for w in self.widths(n):
+            out.append(at)
+            at += w
+        return tuple(out)
+
+    def size(self, n: int = 1) -> int:
+        """The dim's size on one of ``n`` shards (1: the global size)."""
+        return sum(self.widths(n))
+
+
+def _splits(n: int, count: int) -> bool:
+    """Whether ``count`` units split over a model axis ``n`` wide."""
+    return n > 1 and count % n == 0
+
+
+def _ssd_dims(cfg):
+    """(d_inner, SSD heads, state dim) of a config's Mamba2 mixer."""
+    m = cfg.mamba
+    return m.d_inner(cfg.d_model), m.n_heads(cfg.d_model), m.d_state
+
+
+def _conv_segments(cfg, dim: int) -> Segments:
+    """A Mamba2 conv's channels ``[x | B | C]`` along ``dim``: the x
+    channels by SSD head, B and C whole."""
+    di, nh, N = _ssd_dims(cfg)
+    return Segments(dim, ((di, nh), (2 * N, 0)), "ssm")
+
+
+def _mamba_placement(cfg, name: str, n: int, off: int):
+    """A Mamba2 leaf's placement: its SSD heads over the model axis when
+    they divide it (``ssd_head_pspec``), every leaf whole otherwise."""
+    di, nh, N = _ssd_dims(cfg)
+    if not _splits(n, nh):
+        return Replicate()
+    if name == "in_proj":  # (d, z | x | B | C | dt)
+        return Segments(1 + off, ((di, nh), (di, nh), (2 * N, 0), (nh, nh)),
+                        "ssm")
+    if name == "conv_w":  # (x | B | C, K)
+        return _conv_segments(cfg, off)
+    if name in _SSD_HEAD_LEAVES:
+        return Shard(off)
+    return Replicate()
+
+
+def _global_size(cfg, path):
+    """The global size of a leaf's ``Shard`` dim, which ``_fits`` is
+    decided on, so that a full tree and this rank's shards get the same
+    placements."""
+    name = path[-1]
+    if "moe" in path and name in _EXPERT_WEIGHTS:
+        return cfg.moe.num_experts
+    if "mamba" in path:
+        di, nh, _ = _ssd_dims(cfg)
+        return di if name in ("gnorm", "out_proj") else nh
     return {
         "embed": cfg.vocab_size, "lm_head": cfg.vocab_size,
         "wq": cfg.q_dim, "wo": cfg.q_dim, "wk": cfg.kv_dim,
@@ -101,28 +188,41 @@ def _global_size(cfg, name: str):
     }.get(name)
 
 
+def _param_path(path):
+    """``path`` read as the rules read it: a quantized weight's ``q8``
+    takes its parent leaf's rule."""
+    path = tuple(path)
+    return path[:-1] if path[-1] == "q8" else path
+
+
 def leaf_placement(cfg, path, mesh):
     """The placement on the model axis of the parameter at ``path``
-    (its keys in the param tree): ``Shard(d)`` of the leaf, counting the
-    leading ``n_blocks`` axis of a stacked block leaf, or
-    ``Replicate()``.  It depends on the config and the path, not on the
-    leaf's shape, so a draw is cut before the next one is made."""
-    path = tuple(path)
-    name = path[-1]
-    if name == "sc":  # int8 weight scales: tiny, replicated
+    (its keys in the param tree): ``Shard(d)`` of the leaf (counting the
+    leading ``n_blocks`` axis of a stacked block leaf), a Mamba2
+    projection's :class:`Segments`, or ``Replicate()``.  It depends on
+    the config and the path, not on the leaf's shape, so a draw is cut
+    before the next one is made."""
+    if tuple(path)[-1] == "sc":  # int8 weight scales: tiny, replicated
         return Replicate()
-    if name == "q8":  # quantized weight: rules of the parent leaf
-        name = path[-2]
-        path = path[:-1]
-    rule = _PARAM_RULES.get(name)
-    size = _global_size(cfg, name)
+    path = _param_path(path)
+    name = path[-1]
     n = model_width(mesh)
-    if rule is None or size is None or n < 2 or size % n:
+    off = 1 if "blocks" in path else 0
+    if n < 2:
+        return Replicate()
+    if "mamba" in path:
+        return _mamba_placement(cfg, name, n, off)
+    if "moe" in path and name in _EXPERT_WEIGHTS:  # (E, d, ffe) on E
+        return Shard(off) if _splits(n, cfg.moe.num_experts) \
+            else Replicate()
+    rule = _PARAM_RULES.get(name)
+    size = _global_size(cfg, path)
+    if rule is None or size is None or size % n:
         return Replicate()
     if "attn" in path and name in _ATTN_WEIGHTS and not heads_shardable(
             mesh, cfg.n_heads, cfg.n_kv_heads):
         return Replicate()
-    return Shard(rule + (1 if "blocks" in path else 0))
+    return Shard(rule + off)
 
 
 def _map(fn: Callable, tree: PyTree, *rest: PyTree, path=()) -> PyTree:
@@ -144,43 +244,49 @@ def param_pspecs(cfg, param_tree: PyTree, mesh) -> PyTree:
 # ---------------------------------------------------------------------------
 
 
-def kv_head_dim(name: str, ndim: int):
-    """The kv-head dim of a serving cache leaf named ``name``: ``ndim -
-    2`` for K/V (the dense ring ``(n, B, C, Hkv, Dh)`` and the paged pool
-    ``(n, P+1, page, Hkv, Dh)``), ``ndim - 1`` for int8 ring scales
-    ``(n, B, C, H)``, None for a leaf without heads (``pos``, a Mamba2
-    conv tail or SSM state)."""
-    if name in ("k", "v"):
-        return ndim - 2
-    if name in ("k_sc", "v_sc"):
-        return ndim - 1
+def cache_cut(cfg, name: str, ndim: int):
+    """The :class:`Segments` of a serving cache leaf named ``name``: K/V
+    (the dense ring ``(n, B, C, Hkv, Dh)``, the paged pool ``(n, P+1,
+    page, Hkv, Dh)``) on dim ``ndim - 2``, int8 ring scales ``(n, B, C,
+    H)`` on the last, a Mamba2 SSM state ``(n, B, H, P, N)`` on its head
+    dim and its conv tail ``(n, B, K-1, x | B | C)`` on its channels;
+    None for a leaf without heads (``pos``)."""
+    if name in ("k", "v", "k_sc", "v_sc"):
+        dim = ndim - 2 if name in ("k", "v") else ndim - 1
+        return Segments(dim, ((cfg.n_kv_heads, cfg.n_kv_heads),), "kv")
+    if name == "ssm":
+        nh = _ssd_dims(cfg)[1]
+        return Segments(ndim - 3, ((nh, nh),), "ssm")
+    if name == "conv":
+        return _conv_segments(cfg, ndim - 1)
     return None
 
 
-def head_shards(cfg, mesh) -> int:
-    """How many contiguous blocks ``mesh`` cuts the kv heads into: its
-    model-axis width when the layer's heads split
-    (:func:`heads_shardable`), else 1 (the heads stay whole on every
-    rank)."""
-    if heads_shardable(mesh, cfg.n_heads, cfg.n_kv_heads):
-        return model_width(mesh)
-    return 1
+def head_shards(cfg, mesh, kind: str = "kv") -> int:
+    """How many contiguous blocks ``mesh`` cuts a layer's heads of
+    ``kind`` into: its model-axis width when they split (attention:
+    :func:`heads_shardable`; SSD heads: the width divides them), else 1
+    (the heads stay whole on every rank)."""
+    n = model_width(mesh)
+    if kind == "ssm":
+        return n if cfg.mamba and _splits(n, _ssd_dims(cfg)[1]) else 1
+    return n if heads_shardable(mesh, cfg.n_heads, cfg.n_kv_heads) else 1
 
 
 def serving_cache_pspecs(cfg, cache_tree: PyTree, mesh) -> PyTree:
-    """Serving-KV placements: **kv heads over the model axis** when the
-    layer's heads split (:func:`heads_shardable`, the rule its weights
-    follow), for the dense ring ``(n, B, C, Hkv, Dh)`` and the paged
-    pool ``(n, P+1, page, Hkv, Dh)`` alike (head dim ``ndim - 2``), int8
-    ring scales ``(n, B, C, H)`` (head dim last); ``pos`` and recurrent
-    state replicated.  Each shard scatters and attends its own heads.
-    The model allocates a cache at these local widths inside the
-    slice's mesh context."""
-    split = heads_shardable(mesh, cfg.n_heads, cfg.n_kv_heads)
-
+    """Serving-cache placements (:func:`cache_cut`): **kv heads over the
+    model axis** when the layer's heads split (:func:`heads_shardable`,
+    the rule its weights follow), for the dense ring, the paged pool and
+    int8 ring scales; **SSD heads** when they split, for the SSM state
+    and the conv tail (its x channels cut, B and C whole); ``pos``
+    replicated.  Each shard scatters and attends (or scans) its own
+    heads.  The model allocates a cache at these local widths inside
+    the slice's mesh context."""
     def visit(path, leaf):
-        d = kv_head_dim(path[-1], leaf.dim())
-        return Shard(d) if split and d is not None else Replicate()
+        cut = cache_cut(cfg, path[-1], leaf.dim())
+        if cut is None or head_shards(cfg, mesh, cut.kind) == 1:
+            return Replicate()
+        return cut
 
     return _map(visit, cache_tree)
 
@@ -190,17 +296,38 @@ def serving_cache_pspecs(cfg, cache_tree: PyTree, mesh) -> PyTree:
 # ---------------------------------------------------------------------------
 
 
+def _cut(x: torch.Tensor, placement, i: int, n: int, offset: int = 0):
+    """Shard ``i`` of ``n`` of ``x`` under ``placement`` (a view, or a
+    concatenation for :class:`Segments`)."""
+    d = placement.dim + offset
+    if isinstance(placement, Shard):
+        w = x.shape[d] // n
+        return x.narrow(d, i * w, w)
+    pieces = [x.narrow(d, at + (i * w if heads else 0), w)
+              for (_, heads), at, w in zip(placement.parts,
+                                           placement.starts(),
+                                           placement.widths(n))]
+    return torch.cat(pieces, d)
+
+
 def local_shard(x: torch.Tensor, placement, mesh, offset: int = 0):
     """This rank's shard of the full tensor ``x`` under ``placement`` on
     the model axis (``offset`` shifts the dim, for one block of a
     stacked leaf).  A shard is a copy, so the full tensor can go; a
     replicated leaf is ``x`` itself."""
-    if not isinstance(placement, Shard):
+    if not isinstance(placement, (Shard, Segments)):
         return x
-    d = placement.dim + offset
-    w = x.shape[d] // model_width(mesh)
-    i = mesh.get_local_rank(MODEL_AXIS)
-    return x.narrow(d, i * w, w).clone(memory_format=torch.contiguous_format)
+    part = _cut(x, placement, mesh.get_local_rank(MODEL_AXIS),
+                model_width(mesh), offset)
+    return part.clone(memory_format=torch.contiguous_format)
+
+
+def _sizes(cfg, path, spec, n: int):
+    """(global, local) size of the split dim of the leaf at ``path``."""
+    if isinstance(spec, Segments):
+        return spec.size(), spec.size(n)
+    size = _global_size(cfg, path)
+    return size, size // n
 
 
 def shard_params(params: PyTree, cfg, mesh) -> PyTree:
@@ -212,16 +339,16 @@ def shard_params(params: PyTree, cfg, mesh) -> PyTree:
 
     def visit(path, leaf):
         spec = leaf_placement(cfg, path, mesh)
-        if not isinstance(spec, Shard):
+        if not isinstance(spec, (Shard, Segments)):
             return leaf
-        name = path[-2] if path[-1] == "q8" else path[-1]
-        size, got = _global_size(cfg, name), leaf.shape[spec.dim]
+        size, local = _sizes(cfg, _param_path(path), spec, n)
+        got = leaf.shape[spec.dim]
         if got == size:
             return local_shard(leaf, spec, mesh)
-        if got != size // n:
+        if got != local:
             raise ValueError(
                 f"param {'/'.join(path)}: dim {spec.dim} has {got}, "
-                f"neither the full {size} nor the local {size // n}"
+                f"neither the full {size} nor the local {local}"
             )
         return leaf
 
@@ -235,20 +362,22 @@ def place_serving_state(cfg, params: PyTree, cache_trees: Sequence[PyTree],
     caches (:func:`serving_cache_pspecs`), which say how a P→D handoff
     of the same structure is laid out.  The caches must have been
     allocated at their local widths, inside the slice's mesh context;
-    one at full width raises.  Returns ``(params, [cache placement
-    trees...])``."""
-    n = model_width(mesh)
+    one at full width raises (kv heads, SSD heads and conv channels
+    alike).  Returns ``(params, [cache placement trees...])``."""
     specs = []
     for tree in cache_trees:
         ps = serving_cache_pspecs(cfg, tree, mesh)
 
         def check(path, leaf, spec):
-            if isinstance(spec, Shard) and leaf.shape[spec.dim] * n != \
-                    cfg.n_kv_heads:
+            if isinstance(spec, Replicate):
+                return
+            want = spec.size(model_width(mesh))
+            if leaf.shape[spec.dim] != want:
                 raise ValueError(
-                    f"cache {'/'.join(path)}: {leaf.shape[spec.dim]} kv "
-                    f"heads, not this rank's {cfg.n_kv_heads // n}; "
-                    "allocate caches inside mesh_context(mesh)"
+                    f"cache {'/'.join(path)}: dim {spec.dim} has "
+                    f"{leaf.shape[spec.dim]}, not this rank's {want} "
+                    f"({spec.kind} heads); allocate caches inside "
+                    "mesh_context(mesh)"
                 )
 
         _map(check, tree, ps)

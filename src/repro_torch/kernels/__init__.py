@@ -24,12 +24,14 @@ def _modules():
 
 
 # every wrapper's plain integer count, and every count it keeps per key
-# (paged calls by T, sharded calls by wrapper and Hkv)
+# (paged calls by T, sharded calls by wrapper and Hkv, flash and SSD
+# calls by their head count)
 _INTS = (("decode_attention", "launches"), ("flash_attention", "launches"),
          ("flash_attention", "q_offset_launches"),
          ("flash_attention", "backward_launches"), ("ssd", "launches"))
 _DICTS = (("decode_attention", "paged_launches"),
-          ("decode_attention", "sharded_launches"))
+          ("decode_attention", "sharded_launches"),
+          ("flash_attention", "head_launches"), ("ssd", "head_launches"))
 
 
 def launch_counts() -> Counts:

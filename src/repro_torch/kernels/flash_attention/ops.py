@@ -6,7 +6,9 @@ the plain version in ``ref.py``, which autograd differentiates.  On the
 card, a call that needs a gradient goes through :class:`_FlashAttention`:
 its forward launches ``flash_prefill`` with the row log-sum-exp saved,
 its backward launches ``flash_backward``.  ``launches`` counts forward
-launches, ``q_offset_launches`` those among them that took ``q_start``,
+launches (``head_launches`` the same by query heads Hq, which on a mesh
+slice are the rank's share), ``q_offset_launches`` those among them that
+took ``q_start``,
 ``backward_launches`` the backward calls (one C call on one stream: a
 pre-pass, then one wgmma kernel or two mma.sync / CUDA-core kernels, as
 :func:`backward_body` says).
@@ -26,6 +28,7 @@ from repro_torch.kernels.flash_attention.ref import (
 )
 
 launches = 0
+head_launches: Dict[int, int] = {}
 q_offset_launches = 0
 backward_launches = 0
 _fn = None
@@ -214,6 +217,7 @@ def _launch(q, k, v, causal, window, softcap, kv_len, q_start,
             f"flash_prefill launch failed: {err_str(err).decode()} ({err})"
         )
     launches += 1
+    head_launches[Hq] = head_launches.get(Hq, 0) + 1
     q_offset_launches += q_start is not None
     return out
 

@@ -6,7 +6,9 @@ the plain version in ``ref.py``, which autograd differentiates.  On the
 card, a call that needs a gradient goes through :class:`_SSDScan`: its
 forward launches ``ssd_scan`` writing the state entering each 64-row
 sub-chunk, its backward launches ``ssd_backward``.  ``launches`` counts
-forward calls that launched, ``backward_launches`` backward calls.  In
+forward calls that launched (``head_launches`` the same by the call's
+head count H, which on a mesh slice is the rank's share), and
+``backward_launches`` backward calls.  In
 bfloat16 a forward call is two launches, the C.B^T pre-pass and the scan;
 a backward call is three (the state gradient's walk, the sub-chunks, the
 sums over head groups); each call counts once.
@@ -15,7 +17,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -23,6 +25,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ssd.ref import ssd_backward_ref, ssd_ref
 
 launches = 0
+head_launches: Dict[int, int] = {}
 backward_launches = 0
 _fn = None
 _bwd = None
@@ -178,6 +181,7 @@ def _launch(x, dt, A, Bm, Cm, states: Optional[torch.Tensor] = None):
             f"ssd_scan launch failed: {err_str(err).decode()} ({err})"
         )
     launches += 1
+    head_launches[H] = head_launches.get(H, 0) + 1
     return y, state
 
 

@@ -18,7 +18,8 @@ queue 1, item 10).
 from __future__ import annotations
 
 import math
-from typing import Optional
+from dataclasses import dataclass
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -255,11 +256,15 @@ def _act(x: torch.Tensor, kind: str) -> torch.Tensor:
     raise ValueError(kind)
 
 
+def glu_hidden(x, w_gate, w_in, act: str):
+    """The GLU's hidden layer, act(x@w_gate) * (x@w_in)."""
+    g = _act(x @ w_gate, act)
+    return g * (x @ w_in)
+
+
 def glu_mlp(x, w_gate, w_in, w_out, act: str):
     """SwiGLU/GeGLU: out = (act(x@w_gate) * (x@w_in)) @ w_out."""
-    g = _act(x @ w_gate, act)
-    h = g * (x @ w_in)
-    return h @ w_out
+    return glu_hidden(x, w_gate, w_in, act) @ w_out
 
 
 # ---------------------------------------------------------------------------
@@ -352,6 +357,32 @@ def _aux(probs, flat_e, keep, E: int):
     return {"load": load, "dropped": (~keep).sum(), "me": probs.mean(dim=0)}
 
 
+@dataclass(frozen=True)
+class ExpertShard:
+    """A rank's experts on a mesh slice whose ``"model"`` axis splits
+    them: the expert weights passed to :func:`moe_ffn_sorted` are the
+    consecutive experts from ``first``, and ``gather`` concatenates every
+    rank's ``(E/n · C, d)`` expert outputs over the axis in shard order
+    (``gather_model(ye, dim=0)``)."""
+    first: int
+    gather: Callable[[torch.Tensor], torch.Tensor]
+
+
+def _local_experts(x, rows, slot_sorted, C: int, w_gate, w_in, w_out,
+                   act: str, shard: ExpertShard):
+    """Every expert's ``(E·C, d)`` outputs on a slice that splits the
+    experts: this rank fills its own experts' slab of the dispatch
+    buffer (entries of other experts go to its dump row), runs them, and
+    gathers the slabs of all ranks in shard order."""
+    n, d = w_gate.shape[0], x.shape[1]
+    local = slot_sorted - shard.first * C  # the dump row: n * C
+    local = torch.where((local >= 0) & (local < n * C), local, n * C)
+    buf = torch.zeros((n * C + 1, d), dtype=x.dtype, device=x.device)
+    buf[local] = rows
+    ye = _experts(buf[: n * C].view(n, C, d), w_gate, w_in, w_out, act)
+    return shard.gather(ye.reshape(n * C, d))
+
+
 def moe_ffn_sorted(
     x: torch.Tensor,  # (T, d) flattened tokens
     router: torch.Tensor,  # (d, E)
@@ -363,6 +394,7 @@ def moe_ffn_sorted(
     capacity_factor: float = 1.25,
     act: str = "silu",
     dispatch_dtype: Optional[str] = None,
+    expert_shard: Optional[ExpertShard] = None,
 ):
     """Sort-based capacity dispatch.  Returns (out (T, d), aux) with the
     per-expert ``load`` (before capacity), the ``dropped`` entry count
@@ -376,16 +408,30 @@ def moe_ffn_sorted(
     dispatch and combine buffers per row (:func:`quantize`, float32 scales)
     and the experts compute on the dequantized rows, as the JAX layer
     does; its scatter-add of int8 rows into distinct slots is the same
-    copy.  The JAX layer's ``expert_sharding`` (the expert-parallel
-    all-to-all) has no counterpart off a mesh (ROADMAP queue 1,
-    item 8)."""
+    copy.
+
+    ``expert_shard`` is the counterpart of the JAX layer's
+    ``expert_sharding`` (experts over ``"model"``) on a slice, where the
+    tokens are replicated: every rank routes all of them with the whole
+    router, so C comes from the global E and the drops are the full
+    routing's; it fills and runs only its own experts' ``(E/n, C, d)``
+    slab with the same index-copy dispatch, then gathers every expert's
+    output before the meshless combine, which keeps its fixed order.
+    ``aux`` is the full routing's, the same on every rank.  (An
+    all-reduce of per-rank partial combines would move fewer bytes but
+    split the sum over k.)  With ``expert_shard`` the dispatch is in the
+    model dtype: the model refuses int8 dispatch on a slice
+    (``model._check_mesh``, ROADMAP queue 1, item 8c)."""
     T, d = x.shape
     E = router.shape[-1]
     probs, topw, tope, C = _route(x, router, top_k, capacity_factor)
     flat_e = tope.reshape(-1)  # (T*k,) token-major
     order, slot_sorted = _sorted_slots(flat_e, E, C)
     rows = x[order // top_k]
-    if dispatch_dtype == "int8":
+    if expert_shard is not None:
+        ye = _local_experts(x, rows, slot_sorted, C, w_gate, w_in, w_out,
+                            act, expert_shard)
+    elif dispatch_dtype == "int8":
         # an empty slot keeps code 0 and scale 0, and dequantizes to 0
         codes, sc = quantize(rows, -1)
         buf = torch.zeros((E * C + 1, d), dtype=torch.int8, device=x.device)
@@ -394,15 +440,14 @@ def moe_ffn_sorted(
         buf[slot_sorted] = codes
         sbuf[slot_sorted] = sc
         xe = dequantize(buf[: E * C], sbuf[: E * C, None], x.dtype)
+        ye = _experts(xe.view(E, C, d), w_gate, w_in, w_out, act)
+        codes, sc = quantize(ye.reshape(E * C, d), -1)
+        ye = dequantize(codes, sc[:, None], x.dtype)
     else:
         buf = torch.zeros((E * C + 1, d), dtype=x.dtype, device=x.device)
         buf[slot_sorted] = rows
-        xe = buf[: E * C]
-    ye = _experts(xe.view(E, C, d), w_gate, w_in, w_out, act)
-    ye = ye.reshape(E * C, d)
-    if dispatch_dtype == "int8":
-        codes, sc = quantize(ye, -1)
-        ye = dequantize(codes, sc[:, None], x.dtype)
+        ye = _experts(buf[: E * C].view(E, C, d), w_gate, w_in, w_out, act)
+        ye = ye.reshape(E * C, d)
     # back to token-major order for the combine
     slot = torch.empty_like(slot_sorted)
     slot[order] = slot_sorted

@@ -53,8 +53,17 @@ attention weights and KV cache whole, and at width 1 nothing is split
 and no collective runs: the meshless path, op for op.  Attention runs
 on local heads; the decode-attention wrappers run their sharded branch
 on them (``on_local_heads``, no DTensor) and count its launches (``flash_attention`` needs no wrapper: it has no ``mesh=``
-in the JAX package either).  Mamba2, MoE and every int8 mode on a mesh
-wider than 1 raise.
+in the JAX package either).  A Mamba2 mixer runs its SSD heads' share:
+``in_proj`` and ``conv_w`` hold its heads' z, x and dt columns with B
+and C whole, the scan (``ssd_scan`` on the card) and the decode step
+run on the local heads, the gated norm sums its squares over
+``"model"`` (in float32, before the ``rsqrt``: the norm is over the
+whole d_inner) and ``out_proj`` is row-parallel.  A MoE layer routes
+every token on every rank with the replicated router (so capacity and
+drops are the full routing's), fills and runs only its own experts'
+slab of the dispatch buffer, and gathers every expert's output over
+``"model"`` before the meshless combine.  Every int8 mode on a mesh
+wider than 1 raises (ROADMAP queue 1, item 8c).
 """
 from __future__ import annotations
 
@@ -88,8 +97,8 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Reject what the port does not serve yet: Mamba2, MoE and int8 on
-    a mesh wider than 1 (ROADMAP queue 1, item 8)."""
+    """Reject what the port does not serve yet: int8 on a mesh wider
+    than 1 (ROADMAP queue 1, item 8c)."""
     _check_mesh(cfg, ctx.axis_size("model"))
 
 
@@ -122,17 +131,11 @@ def _int8_modes(cfg: ModelConfig):
 def _check_mesh(cfg: ModelConfig, width: int) -> None:
     if width <= 1:
         return
-    if cfg.has_mamba or cfg.moe is not None:
-        raise NotImplementedError(
-            f"model '{cfg.name}': Mamba2 (SSD heads over 'model') and MoE "
-            "(experts over 'model') on a mesh wider than 1 are ROADMAP "
-            "queue 1, item 8"
-        )
     modes = _int8_modes(cfg)
     if modes:
         raise NotImplementedError(
             f"model '{cfg.name}': int8 {', '.join(modes)} on a mesh wider "
-            "than 1 is ROADMAP queue 1, item 8 (a column-parallel leaf's "
+            "than 1 is ROADMAP queue 1, item 8c (a column-parallel leaf's "
             "scales must be cut with its output dim)"
         )
 
@@ -222,7 +225,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         in_dim = 2 * di + 2 * m.d_state + nh  # z, x, B, C, dt
         # dt bias: inverse softplus of dt ~ log-uniform on [1e-3, 0.1]
         dt0 = torch.exp(uniform(math.log(1e-3), math.log(0.1), n, nh))
-        return {
+        p = {
             "norm": zeros(n, d),
             "in_proj": stacked((d, in_dim), std, path + ("in_proj",)),
             "conv_w": stacked((conv_dim, m.d_conv), std, path + ("conv_w",)),
@@ -232,6 +235,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
             "gnorm": zeros(n, di),
             "out_proj": stacked((di, d), out_std, path + ("out_proj",)),
         }
+        for name in ("A_log", "dt_bias", "D", "gnorm"):  # the SSD heads'
+            p[name] = cut(path + (name,), p[name], False)
+        return p
 
     def init_mlp(path):
         return {
@@ -359,11 +365,23 @@ def _attn_qkv(p, cfg: ModelConfig, h: torch.Tensor):
     return q, k, v
 
 
-def _row_parallel(y: torch.Tensor, w: torch.Tensor, full_in: int):
-    """``y = h @ w``.  Where ``w`` holds a shard of its input dim (``wo``,
-    ``w_out`` on a slice), ``y`` is this rank's partial sum: add the
-    other ranks' over ``"model"``."""
-    return ctx.reduce_model(y) if w.shape[-2] < full_in else y
+def _row_parallel(h: torch.Tensor, w: torch.Tensor, full_in: int):
+    """``h @ w``.  Where ``w`` holds a shard of its input dim (``wo``,
+    ``w_out``, ``out_proj`` on a slice), this rank's product is a partial
+    sum: it is kept in float32, summed with the other ranks' over
+    ``"model"`` and rounded once to ``h``'s dtype, as the unsharded
+    product rounds its float32 accumulation once.  (Partial sums rounded
+    to bf16 before the sum drift from the meshless path through the
+    layers: far enough, in jamba's super-block, to flip MoE routings
+    past ``chip_smoke.py``'s ``ROUTE_MARGIN``.)"""
+    if w.shape[-2] == full_in:
+        return h @ w
+    if h.is_cuda and h.dtype == w.dtype == torch.bfloat16:
+        y = torch.mm(h.reshape(-1, h.shape[-1]), w, out_dtype=torch.float32)
+        y = y.reshape(*h.shape[:-1], w.shape[-1])
+    else:
+        y = h.float() @ w.float()
+    return ctx.reduce_model(y).to(h.dtype)
 
 
 def _attend(fn, cfg: ModelConfig, q, k, v, *rest, **kw):
@@ -403,7 +421,7 @@ def _attn_full(p, cfg: ModelConfig, spec: LayerSpec, x, positions, lengths,
             q, k, v, causal=cfg.causal, window=spec.window,
             softcap=cfg.attn_softcap, kv_len=lengths,
         )
-    out = _row_parallel(o.reshape(B, S, -1) @ p["wo"], p["wo"], cfg.q_dim)
+    out = _row_parallel(o.reshape(B, S, -1), p["wo"], cfg.q_dim)
     return out, (k, v)
 
 
@@ -446,20 +464,37 @@ def _attn_decode(p, cfg: ModelConfig, spec: LayerSpec, x, entry, blk: int,
     else:
         o = _attend(decode_attention, cfg, q[:, 0], k_cache, v_cache, pos,
                     q_pos, **kw)
-    return _row_parallel(o.reshape(B, -1) @ p["wo"], p["wo"], cfg.q_dim)
+    return _row_parallel(o.reshape(B, -1), p["wo"], cfg.q_dim)
 
 
 def _mamba_inner_split(p, cfg: ModelConfig, h):
+    """``h @ in_proj`` split into z, the pre-conv x|B|C and dt, at this
+    rank's SSD heads (read off ``A_log``: all of them off a mesh)."""
     m = cfg.mamba
-    d = cfg.d_model
-    di = m.d_inner(d)
-    nh = m.n_heads(d)
+    nh = p["A_log"].shape[-1]
+    di = nh * m.head_dim
     N = m.d_state
     proj = h @ p["in_proj"]
     z = proj[..., :di]
     xbc = proj[..., di: di + di + 2 * N]
     dt_raw = proj[..., di + di + 2 * N:]
     return z, xbc, dt_raw, di, nh, N
+
+
+def _gated_norm(y, z, w, cfg: ModelConfig):
+    """``rms_norm(y * silu(z), w)`` over the whole d_inner.  On this
+    rank's share of the channels (``w`` a shard of ``gnorm``) the mean
+    square is the float32 sum of squares over ``"model"`` divided by
+    d_inner; a per-rank mean would scale each rank's channels by its own
+    norm."""
+    g = y * F.silu(z.float()).to(y.dtype)
+    di = cfg.mamba.d_inner(cfg.d_model)
+    if w.shape[-1] == di:
+        return L.rms_norm(g, w, cfg.norm_eps)
+    gf = g.float()
+    ss = ctx.reduce_model((gf * gf).sum(dim=-1, keepdim=True))
+    out = gf * torch.rsqrt(ss / di + cfg.norm_eps)
+    return (out * (1.0 + w.float())).to(g.dtype)
 
 
 def _mamba_full(p, cfg: ModelConfig, x, valid, plain: bool):
@@ -498,10 +533,9 @@ def _mamba_full(p, cfg: ModelConfig, x, valid, plain: bool):
     scan = L.ssd_chunked if plain else ssd_scan
     y, state = scan(xs, dt, A, Bm, Cm, chunk=m.chunk)
     y = y + xs * p["D"][None, None, :, None].to(y.dtype)
-    y = y.reshape(B, S, di)
-    y = L.rms_norm(y * F.silu(z.float()).to(y.dtype), p["gnorm"],
-                   cfg.norm_eps)
-    return y @ p["out_proj"], (state, conv_tail)
+    y = _gated_norm(y.reshape(B, S, di), z, p["gnorm"], cfg)
+    out = _row_parallel(y, p["out_proj"], m.d_inner(cfg.d_model))
+    return out, (state, conv_tail)
 
 
 def _mamba_decode(p, cfg: ModelConfig, x, entry, blk: int):
@@ -523,10 +557,8 @@ def _mamba_decode(p, cfg: ModelConfig, x, entry, blk: int):
     y, ssm_state = L.ssd_decode_step(xs, dt, A, Bm, Cm, entry["ssm"][blk])
     entry["ssm"][blk] = ssm_state
     y = y + xs * p["D"][None, :, None].to(y.dtype)
-    y = y.reshape(B, di)
-    y = L.rms_norm(y * F.silu(z.float()).to(y.dtype), p["gnorm"],
-                   cfg.norm_eps)
-    return y @ p["out_proj"]
+    y = _gated_norm(y.reshape(B, di), z, p["gnorm"], cfg)
+    return _row_parallel(y, p["out_proj"], m.d_inner(cfg.d_model))
 
 
 def _ffn(lp, cfg: ModelConfig, x):
@@ -537,8 +569,8 @@ def _ffn(lp, cfg: ModelConfig, x):
         p = lp["mlp"]
         h = L.rms_norm(x, p["norm"], cfg.norm_eps)
         return _row_parallel(
-            L.glu_mlp(h, p["w_gate"], p["w_in"], p["w_out"], cfg.act),
-            p["w_out"], cfg.d_ff), None
+            L.glu_hidden(h, p["w_gate"], p["w_in"], cfg.act), p["w_out"],
+            cfg.d_ff), None
     p = lp["moe"]
     h = L.rms_norm(x, p["norm"], cfg.norm_eps)
     out, aux = L.moe_ffn_sorted(
@@ -546,8 +578,20 @@ def _ffn(lp, cfg: ModelConfig, x):
         p["w_out"], top_k=cfg.moe.top_k, act=cfg.act,
         capacity_factor=cfg.moe.capacity_factor,
         dispatch_dtype=cfg.moe.dispatch_dtype,
+        expert_shard=_expert_shard(p, cfg),
     )
     return out.reshape(h.shape), aux
+
+
+def _expert_shard(p, cfg: ModelConfig):
+    """None where the layer holds every expert; on a slice whose
+    ``"model"`` axis splits them, this rank's first expert and the
+    gather of every rank's expert outputs in shard order."""
+    n = p["w_gate"].shape[0]
+    if n == cfg.moe.num_experts:
+        return None
+    return L.ExpertShard(first=ctx.model_rank() * n,
+                         gather=lambda ye: ctx.gather_model(ye, dim=0))
 
 
 def _moe_loss(cfg: ModelConfig, aux) -> torch.Tensor:
@@ -766,6 +810,13 @@ def _kv_heads(cfg: ModelConfig) -> int:
     return cfg.n_kv_heads
 
 
+def _ssd_heads(cfg: ModelConfig) -> int:
+    """SSD heads a rank holds: its share when they divide the active
+    mesh's ``"model"`` axis, all of them otherwise."""
+    return cfg.mamba.n_heads(cfg.d_model) // SH.head_shards(
+        cfg, ctx.current_mesh(), "ssm")
+
+
 def _kv_store_dtype(cfg: ModelConfig) -> torch.dtype:
     return torch.int8 if cfg.kv_dtype == "int8" else _dtype(cfg)
 
@@ -787,7 +838,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     attention layer holds a K/V ring (at this rank's kv heads under a
     mesh context; int8 codes plus float32 ``k_sc``/``v_sc`` per
     position and head with ``kv_dtype="int8"``), a Mamba layer its conv
-    tail (model dtype) and SSM state (float32)."""
+    tail (model dtype; this rank's x channels and B, C whole) and SSM
+    state (float32; this rank's SSD heads)."""
     check_supported(cfg)
     dev = resolve_device(device)
     dt = _dtype(cfg)
@@ -812,12 +864,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                                               dtype=torch.float32,
                                               device=dev)
         else:
-            conv_dim = m.d_inner(cfg.d_model) + 2 * m.d_state
+            nh = _ssd_heads(cfg)
+            conv_dim = nh * m.head_dim + 2 * m.d_state
             entry = {
                 "conv": torch.zeros((n, batch, m.d_conv - 1, conv_dim),
                                     dtype=dt, device=dev),
-                "ssm": torch.zeros((n, batch, m.n_heads(cfg.d_model),
-                                    m.head_dim, m.d_state),
+                "ssm": torch.zeros((n, batch, nh, m.head_dim, m.d_state),
                                    dtype=torch.float32, device=dev),
             }
         cache[f"layer_{i}"] = entry
@@ -1053,7 +1105,7 @@ def prefill_paged(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                     q_start=ctx_lens,
                 )
             wo = lp["attn"]["wo"]
-            x = x + _row_parallel(o.reshape(B, S, -1) @ wo, wo, cfg.q_dim)
+            x = x + _row_parallel(o.reshape(B, S, -1), wo, cfg.q_dim)
             if spec.ffn != "none":
                 x = x + _ffn(lp, cfg, x)[0]
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -1127,7 +1179,7 @@ def verify_step_paged(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                             total, window=spec.window,
                             softcap=cfg.attn_softcap)
             wo = lp["attn"]["wo"]
-            x = x + _row_parallel(o.reshape(B, T, -1) @ wo, wo, cfg.q_dim)
+            x = x + _row_parallel(o.reshape(B, T, -1), wo, cfg.q_dim)
             if spec.ffn != "none":
                 x = x + _ffn(lp, cfg, x)[0]
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)

@@ -69,8 +69,11 @@ event order (:func:`~repro_torch.distributed.handoff.share`).  The P→D
 handoff carries a header every rank can build, and ``insert`` runs
 :func:`~repro_torch.distributed.handoff.move`: a local copy where the
 slices share a rank, a send or receive of kv-head pieces where they do
-not.  Mamba2, MoE and int8 on a mesh wider than 1 raise (ROADMAP queue
-1, item 8); at tp=1 their handoff trees cross ranks like any other.
+not; between slices of different widths it re-cuts the kv heads, a
+Mamba2 SSM state's heads and its conv tail's x channels (B and C move
+whole).  Mamba2 and MoE slices run their SSD heads and experts split
+over ``"model"``; every int8 mode on a mesh wider than 1 raises (ROADMAP
+queue 1, item 8c).
 
 **int8.**  Weights quantized by
 :func:`~repro_torch.models.model.quantize_params` are served as they
@@ -118,8 +121,8 @@ def _bucket(n: int, lo: int = 16, hi: Optional[int] = None) -> int:
 
 
 def _not_ported(cfg: ModelConfig, tp: int) -> None:
-    """Reject the mesh slices the port does not serve yet: Mamba2, MoE
-    and int8 on a slice wider than 1 (ROADMAP queue 1, item 8)."""
+    """Reject the mesh slices the port does not serve yet: every int8
+    mode on a slice wider than 1 (ROADMAP queue 1, item 8c)."""
     M._check_mesh(cfg, tp)
 
 
@@ -363,6 +366,12 @@ class RealBackend(SimBackend):
                             shape, self.ranks[0], self.device)
         return t.cpu().numpy()
 
+    def _head_shards(self) -> Dict[str, int]:
+        """How many shards this slice cuts each kind of heads into
+        (attention kv heads, SSD heads)."""
+        return {kind: SH.head_shards(self.cfg, self.mesh, kind)
+                for kind in ("kv", "ssm")}
+
     def _payload(self, tree, L: Optional[int] = None) -> HO.Payload:
         """The migration payload of a prefill: this rank's shards (None
         off the slice) and, on a slice, the header every rank builds
@@ -372,10 +381,10 @@ class RealBackend(SimBackend):
             return HO.Payload(tree, L)
         n_pages = None if L is None else self.pool.pages_for(L)
         header = HO.Header(
-            self.ranks, SH.head_shards(self.cfg, self.mesh),
-            self.cfg.n_kv_heads, HO.leaves_of(self._template, n_pages))
+            self.ranks, tuple(self._head_shards().items()),
+            HO.leaves_of(self.cfg, self._template, n_pages))
         if tree is not None:
-            got = HO.leaves_of(tree)
+            got = HO.leaves_of(self.cfg, tree)
             if got != header.leaves:
                 raise RuntimeError(
                     f"handoff header {header.leaves} does not describe the "
@@ -391,7 +400,7 @@ class RealBackend(SimBackend):
             return payload.tree
         t0 = time.perf_counter()
         moved = HO.move(payload.header, payload.tree, self.ranks,
-                        SH.head_shards(self.cfg, self.mesh), self.device)
+                        self._head_shards(), self.device)
         if moved.tree is not None and self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.handoffs["crossed" if moved.crossed else "local"] += 1

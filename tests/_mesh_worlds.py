@@ -302,8 +302,10 @@ def forward_rank(rank, world, variants):
 
 def run_forward_script(TM, cfg, params, s, torch):
     """The forward script ``s`` (numpy inputs) through the port's model
-    ``TM``: dense prefill and decode steps, then paged prefill, decode
-    steps and one verify window.  Returns every step's logits."""
+    ``TM``: dense prefill and decode steps, then (where ``s`` has them:
+    not for a Mamba2 config, which the paged pool does not serve) paged
+    prefill, decode steps and one verify window.  Returns every step's
+    logits."""
     t = torch.from_numpy
     out = []
     logits, cache = TM.prefill(params, cfg, t(s["toks"]), t(s["lens"]),
@@ -314,6 +316,8 @@ def run_forward_script(TM, cfg, params, s, torch):
         logits, cache = TM.decode_step(params, cfg, t(nxt), cache, t(pos))
         out.append(logits.numpy())
         pos += 1
+    if "ptoks" not in s:
+        return out
     cache = TM.init_paged_cache(cfg, s["pool_pages"], s["ps"], device="cpu")
     bt = t(s["bt"])
     logits, cache = TM.prefill_paged(
@@ -622,9 +626,10 @@ def disjoint_rank(rank, world, cases, preds):
     return out
 
 
-def unequal_rank(rank, world, rc, np_params, fleet, preds):
-    """A dense ring cluster whose prefill instance is a tp=1 slice on
-    rank 0 and whose decode instance a tp=2 slice on ranks 1-2
+def unequal_rank(rank, world, rc, np_params, fleet, preds,
+                 arch="llama-3.1-8b"):
+    """A dense ring cluster of ``arch`` whose prefill instance is a tp=1
+    slice on rank 0 and whose decode instance a tp=2 slice on ranks 1-2
     (``fleet``: the (prefill, decode) ``InstanceSpec.tp``; ``preds`` the
     predictor bank by (chip, tp)).  Returns (reqs, metrics, facts)."""
     import repro_torch.serving as TS
@@ -637,7 +642,7 @@ def unequal_rank(rank, world, rc, np_params, fleet, preds):
     p_tp, d_tp = fleet
     reqs = workload(TS, rc.vocab_size)
     cl = TS.PDCluster(cluster_cfg(
-        TS, REGISTRY["llama-3.1-8b"], A100, None,
+        TS, REGISTRY[arch], A100, None,
         prefill_fleet=[TS.InstanceSpec(A100, p_tp)],
         decode_fleet=[TS.InstanceSpec(A100, d_tp)],
         predictor_bank=dict(preds),
@@ -645,3 +650,151 @@ def unequal_rank(rank, world, rc, np_params, fleet, preds):
             rc, params, slots=8, max_len=MAX_LEN, tp=1, device="cpu")))
     m = cl.run(reqs)
     return reqs, m, _facts(cl)
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 heads and MoE experts over "model"
+# ---------------------------------------------------------------------------
+
+
+class FakeMesh:
+    """Rank ``i`` of an ``n``-wide ``"model"`` axis, for the cuts
+    (no process group)."""
+    mesh_dim_names = ("data", "model")
+
+    def __init__(self, n, i):
+        self.shape, self.i = (1, n), i
+
+    def get_local_rank(self, axis):
+        return self.i
+
+
+def tree_leaves(tree, path=()):
+    """(path, leaf) of a nested dict, in order."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from tree_leaves(v, path + (k,))
+    else:
+        yield path, tree
+
+
+def join_shards(shards, spec, n):
+    """The full leaf back from its ``n`` shards under ``spec`` (a
+    ``Shard`` or a ``sharding.Segments``)."""
+    import torch
+
+    from repro_torch.distributed.sharding import Segments
+
+    if not isinstance(spec, Segments):
+        return torch.cat(shards, spec.dim)
+    parts = []
+    for (_, heads), at, w in zip(spec.parts, spec.starts(n), spec.widths(n)):
+        parts += [s.narrow(spec.dim, at, w)
+                  for s in (shards if heads else shards[:1])]
+    return torch.cat(parts, spec.dim)
+
+
+def assert_cuts_join(cfg, full, cuts):
+    """Each leaf of ``full`` equals its shards in ``cuts`` (one tree a
+    rank, in rank order) joined by its rule, and a leaf the rules keep
+    whole is the same on every rank.  Returns the paths of the split
+    leaves."""
+    import torch
+    from torch.distributed.tensor import Replicate
+
+    from repro_torch.distributed.sharding import leaf_placement
+
+    n = len(cuts)
+    split = []
+    for path, leaf in tree_leaves(full):
+        spec = leaf_placement(cfg, path, FakeMesh(n, 0))
+        shards = [dict(tree_leaves(c))[path] for c in cuts]
+        if isinstance(spec, Replicate):
+            assert all(torch.equal(s, leaf) for s in shards), path
+            continue
+        assert torch.equal(join_shards(shards, spec, n), leaf), path
+        split.append(path)
+    return split
+
+
+def per_rank_gated_norm(y, z, w, cfg):
+    """A planted fault: the Mamba2 gated norm over this rank's channels
+    only, as if each rank's share of d_inner were the whole."""
+    import torch.nn.functional as F
+
+    from repro_torch.models import layers as L
+
+    return L.rms_norm(y * F.silu(z.float()).to(y.dtype), w, cfg.norm_eps)
+
+
+def planted_forward_rank(rank, world, variants):
+    """:func:`forward_rank` with the gated norm taken per rank."""
+    from repro_torch.models import model as TM
+
+    TM._gated_norm = per_rank_gated_norm
+    return forward_rank(rank, world, variants)
+
+
+def acceptance_cfg(pkg, model, chip, pred, **kw):
+    """The JAX package's sharded-MoE acceptance scenario's cluster
+    (tests/test_mesh_parity.py:400-436): one prefill and one decode
+    instance over a paged pool at tp=2 (either package)."""
+    base = dict(
+        model=model, chip=chip, n_prefill=1, n_decode=1, policy="voltana",
+        predictor=pred, kv_capacity_tokens=400_000, online_adapt=False,
+        decode_max_running=8, seed=4, noise_sigma=0.0,
+        prefill_chunk_tokens=32, paged=True, kv_page_size=16, tp=2,
+    )
+    base.update(kw)
+    return pkg.ClusterConfig(**base)
+
+
+def acceptance_workload(pkg, vocab: int):
+    """That scenario's workload: the tiny Poisson mix over 5 s."""
+    tiny = pkg.DatasetDist(
+        "tiny",
+        prefill=pkg.LengthDist(24.0, 10.0, hi=60),
+        decode=pkg.LengthDist(6.0, 3.0, hi=12),
+    )
+    return pkg.attach_tokens(pkg.poisson_workload(tiny, 2.5, 5.0, seed=21),
+                             vocab, seed=22)
+
+
+def mixer_cluster_rank(rank, world, cases, preds):
+    """tp=``world`` clusters of the Mamba2 and MoE configs, each rank
+    running the same cluster.  ``cases`` are (name, arch, config, numpy
+    params, scenario): "acceptance" is :func:`acceptance_cfg` over the
+    paged pool, "dense" ``cluster_cfg``'s fleet over the dense ring.
+    Returns {name: (reqs, metrics, the decode instances' model-axis
+    widths)}; a paged decode pool that does not drain fails the rank."""
+    import repro_torch.serving as TS
+    from repro_torch.configs.registry import REGISTRY
+    from repro_torch.core.power import A100
+    from repro_torch.models.bridge import params_from_jax
+    from repro_torch.serving.realengine import make_real_backend_factory
+
+    out = {}
+    for name, arch, rc, np_params, scenario in cases:
+        params = params_from_jax(np_params, device="cpu")
+        paged = scenario == "acceptance"
+        factory = make_real_backend_factory(
+            rc, params, slots=8, max_len=MAX_LEN, tp=world, device="cpu",
+            **(dict(paged=True, page_size=16) if paged else {}))
+        if paged:
+            reqs = acceptance_workload(TS, rc.vocab_size)
+            ccfg = acceptance_cfg(TS, REGISTRY[arch], A100, preds[name],
+                                  tp=world, backend_factory=factory)
+        else:
+            reqs = workload(TS, rc.vocab_size)
+            ccfg = cluster_cfg(TS, REGISTRY[arch], A100, preds[name],
+                               tp=world, backend_factory=factory)
+        cl = TS.PDCluster(ccfg)
+        m = cl.run(reqs)
+        widths = []
+        for e in cl.decode:
+            mesh = e.backend.mesh
+            widths.append(dict(zip(mesh.mesh_dim_names, mesh.shape))["model"])
+            if paged:
+                e.backend.pool.assert_empty()
+        out[name] = (reqs, m, widths)
+    return out

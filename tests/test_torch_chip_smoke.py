@@ -357,6 +357,7 @@ def moe_serve():
 
     from repro_torch.configs.registry import REGISTRY
     from repro_torch.core.power import A100
+    from repro_torch.models import layers as L
     from repro_torch.models import model as TM
     from repro_torch.serving import ClusterConfig, PDCluster, Request
     from repro_torch.serving.cluster import build_predictor
@@ -385,13 +386,20 @@ def moe_serve():
                             prompt_tokens=torch.randint(
                                 0, cfg.vocab_size, (n,),
                                 generator=g).tolist()))
-    m = PDCluster(ClusterConfig(
-        model=full, chip=A100, n_prefill=1, n_decode=1, policy="voltana",
-        predictor=build_predictor(full, A100, A100.freq_levels_2,
-                                  kv_cap=400_000),
-        kv_capacity_tokens=400_000, online_adapt=False, decode_max_running=8,
-        seed=0, backend_factory=factory)).run(reqs)
+    # the served routings, as a mesh rank of phase 21 records its own
+    routes = cs.Routes(L, torch)
+    with routes:
+        routes.mode = "record"
+        m = PDCluster(ClusterConfig(
+            model=full, chip=A100, n_prefill=1, n_decode=1,
+            policy="voltana",
+            predictor=build_predictor(full, A100, A100.freq_levels_2,
+                                      kv_cap=400_000),
+            kv_capacity_tokens=400_000, online_adapt=False,
+            decode_max_running=8, seed=0,
+            backend_factory=factory)).run(reqs)
     assert m.finished_frac() == 1.0
+    rec.served_routes = routes.log
     return cfg, params, rec, reqs
 
 
@@ -408,6 +416,35 @@ def test_batch_replay_holds_a_moe_serve(moe_serve):
     assert res["tokens_held"]["decode"] == sum(r.decode_len for r in reqs)
     assert res["dropped_per_step_max"] > 0
     assert _busiest(rec)[1] >= 4, "no decode step ran 4 requests or more"
+
+
+@pytest.mark.parametrize("planted", [False, True])
+def test_batch_replay_forces_the_served_routes(moe_serve, planted):
+    """Phase 21's replay: the recorded calls moved to the host and the
+    served run's own routings given, the plain pass alone runs, forced to
+    them, and holds every token; a served routing to an expert far off
+    the router's top-k (a planted fault) fails it."""
+    cfg, params, rec, reqs = moe_serve
+    served = [t.clone() for t in rec.served_routes]
+    if planted:  # row 0 of the first routing: its k-th expert swapped
+        first = served[0][0].tolist()
+        served[0][0, -1] = next(e for e in range(cfg.moe.num_experts)
+                                if e not in first)
+    host = cs.host_events(rec)
+    assert all(not t.is_cuda for ev in host.events for t in ev
+               if isinstance(t, torch.Tensor))
+    if planted:
+        with pytest.raises(RuntimeError, match="router logit"):
+            with pytest.MonkeyPatch.context() as mp:
+                mp.setattr(cs, "ROUTE_MARGIN", 1e-6)
+                cs.batch_replay(torch, host, (cfg, params), label="forced",
+                                margin=MARGIN, served_routes=served)
+        return
+    res = cs.batch_replay(torch, host, (cfg, params), label="forced",
+                          margin=MARGIN, served_routes=served)
+    assert res["kernel_path_worst_gap"] is None
+    assert res["near_ties_forced"] == 0 and res["routings"] > 0
+    assert res["tokens_held"]["decode"] == sum(r.decode_len for r in reqs)
 
 
 def _busiest(rec):
@@ -857,3 +894,158 @@ def test_handoff_stats_price_each_move_beside_the_clock():
     be.mesh = None
     assert cs.handoff_stats(SimpleNamespace(decode=[SimpleNamespace(
         backend=be)])) is None
+
+
+# ---------------------------------------------------------------------------
+# Phase 21: Mamba2 heads and MoE experts over "model"
+# ---------------------------------------------------------------------------
+
+
+def test_mixer_phase_names_registered_configs():
+    """Phase 21 serves mamba2-2.7b and qwen3-moe-30b-a3b at full depth and
+    jamba cut to its super-block, each at full width; qwen3-moe also
+    over the paged pool (the JAX package's acceptance scenario)."""
+    from repro_torch.configs.registry import REGISTRY
+
+    got = {label: (arch, n, serves)
+           for label, arch, n, serves in cs.MIXER_MODELS}
+    assert got == {
+        "mamba2": ("mamba2-2.7b", None, ("dense",)),
+        "qwen3moe": ("qwen3-moe-30b-a3b", None, ("dense", "paged")),
+        "jamba": ("jamba-v0.1-52b", cs.JAMBA_LAYERS, ("dense",))}
+    for label, (arch, n, _) in got.items():
+        cfg = cs.config_of(arch, n)
+        full = REGISTRY[arch]
+        assert cfg.d_model == full.d_model
+        assert cfg.n_layers == (n or full.n_layers)
+    jamba = cs.config_of("jamba-v0.1-52b", cs.JAMBA_LAYERS)
+    assert jamba.has_mamba and jamba.has_attention and jamba.moe is not None
+
+
+def _norms(tree, path=()):
+    """Elements of the leaves the rules keep whole on every rank."""
+    return sum(leaf.numel() for name, leaf in cs.named_leaves(tree)
+               if name.split("/")[-1] in ("norm", "q_norm", "k_norm",
+                                          "final_norm", "router"))
+
+
+def test_expected_local_params_follow_the_rules():
+    """A rank of a 2-wide slice holds half of every split leaf: for
+    qwen3-moe everything but the norms and routers (its vocabulary, heads
+    and 128 experts all divide 2); for mamba2 the same, except that
+    in_proj's B and C columns and conv_w's B and C channels stay whole."""
+    from repro_torch.models import model as M
+
+    moe = cs.config_of("qwen3-moe-30b-a3b", None)
+    full = M.init_params(moe, torch.Generator(), device="meta")
+    total = sum(t.numel() for _, t in cs.named_leaves(full))
+    whole = _norms(full)
+    assert cs.expected_local_params(torch, moe, 2) == \
+        (total - whole) // 2 + whole
+    mamba = cs.config_of("mamba2-2.7b", None)
+    full = M.init_params(mamba, torch.Generator(), device="meta")
+    total = sum(t.numel() for _, t in cs.named_leaves(full))
+    whole = _norms(full)
+    m, d, n = mamba.mamba, mamba.d_model, mamba.n_layers
+    bc = 2 * m.d_state
+    kept = n * (d * bc + bc * m.d_conv)  # B and C of in_proj and conv_w
+    assert cs.expected_local_params(torch, mamba, 2) == \
+        (total - whole - kept) // 2 + whole + kept
+
+
+def test_reckon_gb_counts_one_rank_of_a_slice():
+    """At width 2 a rank holds its bf16 shards by the rules, half the kv
+    heads of a ring or pool, and half the SSD heads of a Mamba2 state
+    with the conv tail's B and C channels whole; phase 21's two ranks
+    fit the card together."""
+    for label, arch, n_layers, serves in cs.MIXER_MODELS:
+        cfg = cs.config_of(arch, n_layers)
+        pages = cs.POOL_PAGES if "paged" in serves else None
+        full = cs.reckon_gb(cfg, pool_pages=pages)
+        got = cs.reckon_gb(cfg, pool_pages=pages, width=2)
+        assert got.keys() == full.keys()
+        assert got["weights_gb"] == pytest.approx(
+            cs.expected_local_params(torch, cfg, 2) * 2 / 1e9, rel=1e-12)
+        for leaf in ("ring_gb", "pools_gb"):
+            if leaf in full:
+                assert got[leaf] == pytest.approx(full[leaf] / 2, rel=1e-12)
+        if cfg.has_mamba:
+            m, S = cfg.mamba, cs.SLOTS * (cfg.n_layers - cfg.n_attn_layers)
+            di, nh = m.d_inner(cfg.d_model) // 2, m.n_heads(cfg.d_model) // 2
+            assert got["state_gb"] == pytest.approx(S * (
+                (m.d_conv - 1) * (di + 2 * m.d_state) * 2
+                + nh * m.head_dim * m.d_state * 4) / 1e9, rel=1e-12)
+        assert 2 * sum(got.values()) <= cs.CARD_GB
+    qwen = cs.config_of("qwen3-moe-30b-a3b", None)
+    assert cs.reckon_gb(qwen, width=2)["weights_gb"] == pytest.approx(
+        30.545, abs=1e-3)
+
+
+def _mixer_world():
+    """Stand-in results of phase 21's two ranks, at the rules' local
+    parameter counts, with their configs."""
+    cfgs, ranks = {}, [{"ok": True, "backend": "gloo", "models": {}}
+                       for _ in range(2)]
+    for label, arch, n_layers, serves in cs.MIXER_MODELS:
+        cfg = cs.config_of(arch, n_layers)
+        local = cs.expected_local_params(torch, cfg, 2)
+        cfgs[label] = (cfg, local)
+        for res in ranks:
+            got = {"local_params": local, "serves": {}}
+            for serve in serves:
+                heads = {"flash_prefill": {}, "ssd_scan": {}}
+                sharded = {}
+                if cfg.has_mamba:
+                    heads["ssd_scan"] = {
+                        str(cfg.mamba.n_heads(cfg.d_model) // 2): 64}
+                if cfg.has_attention:
+                    heads["flash_prefill"] = {str(cfg.n_heads // 2): 96}
+                    fn = ("paged_decode_attention" if serve == "paged"
+                          else "decode_attention")
+                    sharded[f"{fn}/hkv{cfg.n_kv_heads // 2}"] = 480
+                got["serves"][serve] = {
+                    "streams": [{"rid": i, "prompt_tokens": [1, 2],
+                                 "output_tokens": [5] * (i + 2)}
+                                for i in range(3)],
+                    "decode_lens": [1, 2, 3],
+                    "stats": {"head_launches": heads,
+                              "sharded_launches": sharded,
+                              "pool_pages_in_use": [0] if serve == "paged"
+                              else []}}
+            res["models"][label] = got
+    return ranks, cfgs
+
+
+@pytest.mark.parametrize("fault", [None, "streams", "length", "full-leaf",
+                                   "shard-launch", "ssd-heads",
+                                   "undrained"])
+def test_mixer_checks_hold_phase_21(fault):
+    """Phase 21's checks on stand-in rank results: the same streams on
+    both ranks, ``decode_len + 1`` tokens each, the rules' local
+    parameter counts, kernels launched at the rank's share of the heads
+    only, drained pools; each planted fault fails them."""
+    ranks, cfgs = _mixer_world()
+    moe = ranks[1]["models"]["qwen3moe"]
+    if fault == "streams":  # rank 1 emitted another token
+        moe["serves"]["dense"]["streams"][0]["output_tokens"][1] = 6
+    elif fault == "length":  # a stream one token short, on both ranks
+        for res in ranks:
+            res["models"]["jamba"]["serves"]["dense"]["streams"][2][
+                "output_tokens"].pop()
+    elif fault == "full-leaf":  # rank 1 kept a full-width in_proj
+        m = cfgs["mamba2"][0].mamba
+        d = cfgs["mamba2"][0].d_model
+        ranks[1]["models"]["mamba2"]["local_params"] += \
+            64 * d * (m.d_inner(d) + m.n_heads(d) // 2)
+    elif fault == "shard-launch":  # the paged decode ran on full heads
+        moe["serves"]["paged"]["stats"]["sharded_launches"] = {}
+    elif fault == "ssd-heads":  # a scan over all 80 heads on rank 0
+        ranks[0]["models"]["mamba2"]["serves"]["dense"]["stats"][
+            "head_launches"]["ssd_scan"]["80"] = 1
+    elif fault == "undrained":
+        moe["serves"]["paged"]["stats"]["pool_pages_in_use"] = [3]
+    if fault is None:
+        cs.mixer_checks(ranks, cfgs)
+        return
+    with pytest.raises(RuntimeError):
+        cs.mixer_checks(ranks, cfgs)

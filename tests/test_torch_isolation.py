@@ -119,35 +119,52 @@ def test_wrappers_never_fall_back_off_the_cpu():
     # disjoint slices, a 2-wide slice of a 4-rank world: served now
     pytest.param("llama-3.1-8b", dict(tp=2, devices=[0, 1, 2, 3]), None,
                  id="kw2-item 8"),
-    pytest.param("mamba2-2.7b", dict(tp=2, devices=[0, 1]), "item 8",
+    # Mamba2 SSD heads over "model" (item 8a): served now
+    pytest.param("mamba2-2.7b", dict(tp=2, devices=[0, 1]), None,
                  id="mamba2-tp2-item 8"),
+    # SSD heads, attention heads and experts on one slice (items 8a, 8b)
+    pytest.param("jamba-v0.1-52b", dict(tp=2, devices=[0, 1]), None,
+                 id="jamba-tp2-items 8a-8b"),
 ])
 def test_unported_serving_paths_raise(arch, kw, item):
-    """Mesh slices that the port does not serve raise before any process
-    group is touched (the ranks are given, no world is joined).  Disjoint
-    slices are served: the factory of 2-wide slices of a 4-rank world
-    builds without raising, over the slices (0, 1) and (2, 3)."""
+    """Mesh slices that the port serves build before any process group
+    is touched (the ranks are given, no world is joined): the factory of
+    2-wide slices of a 4-rank world, over the slices (0, 1) and (2, 3),
+    and of a 2-wide Mamba2 or jamba slice.  (What still raises is in
+    :func:`test_hubert_int8_and_wide_moe_raise`.)"""
     rc = REGISTRY[arch].reduced()
     if item is None:
         assert callable(make_real_backend_factory(rc, {}, device="cpu",
                                                   **kw))
         slicer = MeshSlicer(kw["devices"], device_type="cpu")
-        assert [slicer.take(2), slicer.take(2)] == [[0, 1], [2, 3]]
+        n = len(kw["devices"]) // kw["tp"]
+        assert [slicer.take(2) for _ in range(n)] == [
+            [2 * i, 2 * i + 1] for i in range(n)]
         return
     with pytest.raises(NotImplementedError, match=item):
         make_real_backend_factory(rc, {}, device="cpu", **kw)
 
 
 def test_mamba2_model_on_a_mesh_raises():
-    """The model itself refuses Mamba2 on a mesh wider than 1 (a stand-in
-    mesh: only its axis names and sizes are read before the raise)."""
+    """The model cuts Mamba2 on a mesh wider than 1 (a stand-in mesh:
+    only its axis names, sizes and this rank's coordinate are read):
+    ``init_cache`` in its context holds this rank's 4 of the reduced
+    config's 8 SSD heads and its x conv channels beside B and C, and
+    ``init_params(mesh=)`` the same heads' leaves."""
     rc = REGISTRY["mamba2-2.7b"].reduced()
-    wide = SimpleNamespace(mesh_dim_names=("data", "model"), shape=(1, 2))
+    wide = SimpleNamespace(mesh_dim_names=("data", "model"), shape=(1, 2),
+                           get_local_rank=lambda axis: 1)
+    m = rc.mamba
     with mesh_context(wide):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            TM.init_cache(rc, 1, 32, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        TM.init_params(rc, torch.Generator(), device="cpu", mesh=wide)
+        entry = TM.init_cache(rc, 1, 32, device="cpu")["layer_0"]
+    assert entry["ssm"].shape == (1, 1, 4, m.head_dim, m.d_state)
+    assert entry["conv"].shape == (1, 1, m.d_conv - 1,
+                                   4 * m.head_dim + 2 * m.d_state)
+    p = TM.init_params(rc, torch.Generator(), device="cpu",
+                       mesh=wide)["blocks"]["layer_0"]["mamba"]
+    di = m.d_inner(rc.d_model)
+    assert p["in_proj"].shape[-1] == di + 2 * m.d_state + 4
+    assert p["A_log"].shape[-1] == 4 and p["out_proj"].shape[-2] == di // 2
 
 
 def test_sharded_weights_need_a_mesh_context():
@@ -221,11 +238,12 @@ def test_unported_model_paths_raise():
 def test_hubert_int8_and_wide_moe_raise():
     """What the port still refuses, each naming its reason or ROADMAP
     item: hubert through the serving backend (an encoder fed embeddings
-    has no decode phase), every int8 mode (weights, KV, MoE dispatch) on
-    a mesh wider than 1 (item 8), and a MoE model on a mesh wider than
-    1, in the model and in the serving factory before any process group
-    is touched (item 8).  Off the mesh, hubert and the int8 modes pass
-    the model's check."""
+    has no decode phase) and every int8 mode (weights, KV, MoE dispatch)
+    on a mesh wider than 1 (item 8c), in the model and in the serving
+    factory before any process group is touched.  Off the mesh, hubert
+    and the int8 modes pass the model's check.  A MoE model on a mesh
+    wider than 1 builds (item 8b): its cache in the mesh context and its
+    factory."""
     hubert = REGISTRY["hubert-xlarge"].reduced()
     TM.check_supported(hubert)
     with pytest.raises(ValueError, match="no decode phase"):
@@ -240,17 +258,16 @@ def test_hubert_int8_and_wide_moe_raise():
                     moe.moe, dispatch_dtype="int8"))):
         TM.check_supported(bad)
         with mesh_context(wide):
-            with pytest.raises(NotImplementedError, match="item 8"):
+            with pytest.raises(NotImplementedError, match="item 8c"):
                 TM.check_supported(bad)
-        with pytest.raises(NotImplementedError, match="item 8"):
+        with pytest.raises(NotImplementedError, match="item 8c"):
             make_real_backend_factory(bad, {}, device="cpu", tp=2,
                                       devices=[0, 1])
     with mesh_context(wide):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            TM.init_cache(moe, 1, 32, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        make_real_backend_factory(moe, {}, device="cpu", tp=2,
-                                  devices=[0, 1])
+        cache = TM.init_cache(moe, 1, 32, device="cpu")
+    assert cache["layer_0"]["k"].shape[-2] == moe.n_kv_heads // 2
+    assert callable(make_real_backend_factory(moe, {}, device="cpu", tp=2,
+                                              devices=[0, 1]))
 
 
 # Modules of the port ported by hand (they import JAX in the reference, or

@@ -32,7 +32,6 @@ import sys
 from types import SimpleNamespace
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 
@@ -50,6 +49,8 @@ from repro_torch.serving.realengine import make_draft_config as t_make_draft
 import _mesh_worlds as W
 from _port_parity import (
     assert_same_run,
+    forward_script,
+    jax_forward,
     recording,
     replay_by_kind,
     replay_near_argmax,
@@ -102,64 +103,6 @@ def wrapper_cases(tp):
             cases.append((f"{kind}-tp{tp}-h{hq}-{hkv}", kind,
                           (qp, kp, vp, bt, lengths)))
     return cases
-
-
-def forward_script(rc):
-    """Inputs of the forward parity (tests/test_mesh_parity.py:229,272):
-    dense prefill then 3 decode steps, paged prefill at a page-exact and
-    a page+1 length, 2 decode steps (the second crosses a boundary) and
-    a 3-token verify window.  Next tokens are fixed, not argmaxes, so
-    both sides attend the same K/V whatever a near-tie does."""
-    rng = np.random.default_rng(7)
-    toks = np.zeros((2, 32), np.int32)
-    toks[0, :24] = rng.integers(1, rc.vocab_size, 24)
-    toks[1, :32] = rng.integers(1, rc.vocab_size, 32)
-    ptoks = np.zeros((2, 32), np.int32)
-    ptoks[0, :16] = rng.integers(1, rc.vocab_size, 16)
-    ptoks[1, :17] = rng.integers(1, rc.vocab_size, 17)
-    bt = np.full((2, 4), -1, np.int32)
-    bt[0, :3] = [0, 2, 4]
-    bt[1, :3] = [1, 3, 5]
-
-    def nxt():
-        return rng.integers(1, rc.vocab_size, 2).astype(np.int32)
-
-    return dict(
-        toks=toks, lens=np.array([24, 32], np.int32), max_len=64,
-        dense_next=[nxt() for _ in range(3)], ptoks=ptoks,
-        plens=np.array([16, 17], np.int32), ps=16, pool_pages=12, bt=bt,
-        paged_next=[nxt() for _ in range(2)],
-        vtoks=rng.integers(1, rc.vocab_size, (2, 3)).astype(np.int32),
-    )
-
-
-def jax_forward(rc, params, s):
-    """:func:`_mesh_worlds.run_forward_script` through the JAX model."""
-    j = jnp.asarray
-    out = []
-    logits, cache = M.prefill(params, rc, j(s["toks"]), j(s["lens"]),
-                              max_len=s["max_len"])
-    out.append(np.asarray(logits))
-    pos = s["lens"].copy()
-    for nxt in s["dense_next"]:
-        logits, cache = M.decode_step(params, rc, j(nxt), cache, j(pos))
-        out.append(np.asarray(logits))
-        pos += 1
-    cache = M.init_paged_cache(rc, s["pool_pages"], s["ps"])
-    logits, cache = M.prefill_paged(
-        params, rc, j(s["ptoks"]), j(s["plens"]), jnp.zeros(2, jnp.int32),
-        j(s["bt"]), cache)
-    out.append(np.asarray(logits))
-    pos = s["plens"].copy()
-    for nxt in s["paged_next"]:
-        logits, cache = M.decode_step_paged(params, rc, j(nxt), cache,
-                                            j(pos), j(s["bt"]))
-        out.append(np.asarray(logits))
-        pos += 1
-    logits, _ = M.verify_step_paged(params, rc, j(s["vtoks"]), cache, j(pos),
-                                    j(s["bt"]))
-    out.append(np.asarray(logits))
-    return out
 
 
 JAX_WRAPPERS = r"""
@@ -318,7 +261,7 @@ def test_forward_parity(ref, tp, vocab):
     d_ff and (v256) the vocabulary split."""
     rc, params = ((ref.rc, ref.params) if vocab == "v257"
                   else (ref.rc256, ref.params256))
-    want = jax_forward(rc, params, ref.scripts[vocab])
+    want = jax_forward(M, rc, params, ref.scripts[vocab])
     ranks = ref.worlds[tp].result()
     assert len(ranks) == tp
     for rank, res in enumerate(ranks):

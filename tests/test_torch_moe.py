@@ -128,8 +128,7 @@ def test_moe_layers_match_jax(T, E, k, cf, batch):
 def test_int8_dispatch_raises():
     """int8 dispatch is served off a mesh (the layer runs it; its parity
     with the JAX layer is in tests/test_torch_int8.py) and still raises
-    on a mesh wider than 1, where expert parallelism is ROADMAP queue 1,
-    item 8."""
+    on a mesh wider than 1 (ROADMAP queue 1, item 8c)."""
     import dataclasses
 
     from repro_torch.distributed.context import mesh_context
@@ -143,7 +142,7 @@ def test_int8_dispatch_raises():
         moe.moe, dispatch_dtype="int8"))
     wide = SimpleNamespace(mesh_dim_names=("data", "model"), shape=(1, 2))
     with mesh_context(wide):
-        with pytest.raises(NotImplementedError, match="item 8"):
+        with pytest.raises(NotImplementedError, match="item 8c"):
             TM.check_supported(int8)
 
 
