@@ -139,12 +139,13 @@ Phases, in order; any failure exits non-zero:
    card, one tp=2 slice for both instances, eager: in turn, each rank
    draws its shards on the slice (``init_params(mesh=)``, seed 0),
    serves, then frees (a) mamba2-2.7b at full width and depth (40 of its
-   80 SSD heads a rank) dense on phase 4's requests, (b)
-   qwen3-moe-30b-a3b at full width and depth (64 of 128 experts, 16/2 of
-   32/4 heads a rank) dense on phase 4's requests and paged on phase 6's
-   multi-turn workload (the JAX package's sharded-MoE acceptance
-   scenario), (c) jamba-v0.1-52b cut to one super-block (SSD heads,
-   attention heads and experts all split).  Both ranks must emit the
+   80 SSD heads a rank) dense on the first ``MIXER_REQUESTS`` of phase 4's
+   requests, (b) qwen3-moe-30b-a3b at full width and depth (64 of 128
+   experts, 16/2 of 32/4 heads a rank) dense on those requests and paged
+   on the first ``MIXER_TURNS`` turns of phase 6's multi-turn workload
+   (the JAX package's sharded-MoE acceptance scenario), (c)
+   jamba-v0.1-52b cut to one super-block (SSD heads, attention heads and
+   experts all split) dense on those requests.  Both ranks must emit the
    same streams of ``decode_len + 1`` tokens, hold the rules' local
    parameter counts, launch ssd_scan and flash_prefill at their share of
    the heads only (and the decode wrapper's sharded branch at their kv
@@ -154,6 +155,23 @@ Phases, in order; any failure exits non-zero:
    ``ROUTE_MARGIN``.  It prints each rank's walls, peaks and the
    collectives of one prefill and one decode step (calls, bytes, the
    MoE gather's ms a layer).
+
+22. (run right after phase 3, on an empty card) the dry-run against the
+   card: ``launch/dryrun.py``'s tracer runs a step on meta tensors (no
+   kernel built or called), then the same step runs on the card under
+   the same counters: llama-3.1-8b's decode step at ``SLOTS`` slots of
+   ``MAX_LEN`` and its ``DRYRUN_PROMPT``-token prefill (the weights then
+   serve phase 4), and minicpm-2b's train step (B=4 x 1,024, remat).
+   Launch counts and FLOPs must be equal, resident bytes before the step
+   within ``RESIDENT_TOL``, the step's transient peak
+   (``max_memory_allocated`` after ``reset_peak_memory_stats``) within
+   ``PEAK_TOL`` or ``PEAK_SLACK``; the predicted time bound prints beside
+   the step's device busy ms (profiler) and wall ms, unchecked;
+23. (after phase 22) ``examples/train_small_torch.py``'s demo-8m
+   (float32, head dim 32) for ``DEMO_STEPS`` steps through the Dh 32
+   float32 flash kernels: step 1's loss and gradients against the plain
+   path, exact launches, a falling loss, and a resume from the
+   checkpoint that gives the state in memory's next loss.
 
 The kernel phase holds flash_prefill at head dim 80 without the causal
 mask (hubert's) in both dtypes and times it at hubert's shape beside
@@ -169,8 +187,10 @@ and ssd_backward (dx, ddt, dA, dB, dC) against the plain backward at the
 SSD sweep's shapes and the training shape, with and without a final-state
 cotangent, in both dtypes, each call repeated bit for bit and the last
 batch rows alone equal to the batch; both timed in bf16 at the training
-shape; and ssd_scan at one rank's SSD heads of mamba2 at tp=2 (H = 40,
-phase 21).  Where SDPA has no softcap (gemma2's prefill, its backward
+shape; ssd_scan at one rank's SSD heads of mamba2 at tp=2 (H = 40,
+phase 21); and flash_prefill (its training forward) and flash_backward
+in float32 at head dim 32, demo-8m's shape (phase 23), timed beside
+SDPA.  Where SDPA has no softcap (gemma2's prefill, its backward
 row and its rings), the library yardstick is ``flex_attention``
 compiled with a tanh softcap ``score_mod`` and the case's block mask,
 timed by both methods.
@@ -640,19 +660,12 @@ def flash_case(torch, F, B, S, Hq, Hkv, Dh, dtype, kv_frac, window, softcap,
            **({"writes_lse": True} if train_lse else {})}
     if not timed:
         return row
-    # work this data needs: (q, key) pairs that are unmasked
-    qpos = qs + torch.arange(S)
-    pairs = 0
-    for L in lens:
-        hi = torch.full_like(qpos, L - 1)
-        if causal:
-            hi = torch.minimum(qpos, hi)
-        lo = torch.zeros_like(qpos) if window is None else torch.clamp(
-            qpos - window + 1, min=0)
-        pairs += int(torch.clamp(hi - lo + 1, min=0).sum()) * Hq
+    # work this data needs (the wrapper's cost function): (q, key) pairs
+    # that are unmasked, each row's valid keys
     esz = q.element_size()
-    nbytes = (2 * q.numel() + 2 * sum(lens) * Hkv * Dh) * esz
-    flops = 4.0 * pairs * Dh
+    flops, nbytes = fops.flash_cost(B, S, Skv, Hq, Hkv, Dh, esz,
+                                    causal=causal, window=window,
+                                    q_start=qs, lens=lens)
     sets = copies(torch, (q, k, v), (q.numel() + 2 * k.numel()) * esz)
     ms = cuda_ms(torch, kernel, sets)
     # the plain version materialises (Hq, S, Skv) float32 scores
@@ -757,17 +770,12 @@ def flash_backward_case(torch, F, B, S, Hq, Hkv, Dh, dtype, causal, window,
            "ptxas": body_ptxas(body, Dh) if body else None}
     if not timed:
         return row
-    # the work of the function: per valid (query, key) pair and q head,
-    # S = q.k, dP = dO.v, dV += P dO, dK += dS q, dQ += dS k (10 Dh)
-    qpos = torch.arange(S)
-    hi = qpos if causal else torch.full_like(qpos, S - 1)
-    lo = torch.zeros_like(qpos) if window is None else torch.clamp(
-        qpos - window + 1, min=0)
-    pairs = int(torch.clamp(hi - lo + 1, min=0).sum()) * Hq * B
+    # the work of the function (the wrapper's cost function): per valid
+    # (query, key) pair and q head 10 Dh; q, k, v, out, dout and lse read
+    # once, dq, dk, dv written once
     esz = q.element_size()
-    # q, k, v, out, dout and lse read once; dq, dk, dv written once
-    nbytes = (4 * q.numel() + 4 * k.numel()) * esz + lse.numel() * 4
-    flops = 10.0 * pairs * Dh
+    flops, nbytes = fops.flash_backward_cost(B, S, S, Hq, Hkv, Dh, esz,
+                                             causal=causal, window=window)
     sets = copies(torch, (q, k, v, out, dout, lse), nbytes)
 
     def kernel(a, b, c, o, d, ls):
@@ -885,9 +893,8 @@ def decode_case(torch, F, B, C, Hq, Hkv, Dh, dtype, window, softcap,
     valid = int(live.sum())
     empty = int((live.sum(dim=1) == 0).sum())
     esz = q.element_size()
-    nbytes = (2 * q.numel() + (2 * valid + empty * C) * Hkv * Dh) * esz \
-        + slot_pos.numel() * 4 + q_pos.numel() * 4
-    flops = 4.0 * valid * Hq * Dh
+    flops, nbytes = dops.ring_decode_cost(B, C, Hq, Hkv, Dh, esz,
+                                          valid=valid, empty=empty)
     sets = copies(torch, (q, kc, vc), (q.numel() + 2 * kc.numel()) * esz)
     ms = cuda_ms(torch, lambda a, b, c: dops.decode_attention(
         a, b, c, slot_pos, q_pos, **kw), sets)
@@ -1012,15 +1019,8 @@ def paged_case(torch, F, B, T, Hq, Hkv, Dh, lengths, dtype, window, softcap,
     # lengths; operations: 4 * Dh per unmasked (q row, key) pair
     esz = q.element_size()
     n_tok = sum(lengths)
-    nbytes = (2 * q.numel() + 2 * n_tok * Hkv * Dh) * esz \
-        + bt.numel() * 4 + ln.numel() * 4
-    pairs = 0
-    for n in lengths:
-        for t in range(T):
-            qpos = n - T + t
-            lo = 0 if window is None else max(0, qpos - window + 1)
-            pairs += max(0, min(qpos, n - 1) - lo + 1)
-    flops = 4.0 * pairs * Hq * Dh
+    flops, nbytes = dops.paged_cost(B, T, Hq, Hkv, Dh, esz, bt.numel(),
+                                    lengths, window)
     sets = copies(torch, (q, kp, vp), (q.numel() + 2 * n_tok * Hkv * Dh)
                   * esz)
     ms = cuda_ms(torch, lambda a, b, c: dops.paged_verify_attention(
@@ -1179,12 +1179,8 @@ def ssd_case(torch, B, S, H, P, N, chunk, dtype, timed: bool, length=None,
     # the heads), and per head the intra-chunk, inter-chunk and state
     # products
     esz = x.element_size()
-    L = min(chunk, S)
-    nbytes = (2 * B * S * H * P + 2 * B * S * N) * esz \
-        + (B * S * H + H + B * H * P * N) * 4 \
-        + (states.numel() * 4 if train_states else 0)
-    flops = float(B * (S // L)) * (L * (L + 1) * N
-                                    + H * (L * (L + 1) * P + 4 * L * N * P))
+    flops, nbytes = sops.ssd_scan_cost(B, S, H, P, N, chunk, esz,
+                                       train_states)
     sets = copies(torch, (xbc, dt), xbc.numel() * esz + dt.numel() * 4)
 
     def on_views(fn):
@@ -1306,13 +1302,7 @@ def ssd_backward_case(torch, B, S, H, P, N, dtype, dstate: bool,
     # dx, dB, dC and the state gradient's walk (4 L N P); C.B^T (T N) once
     # per (b, sub-chunk), shared by the heads
     esz = x.element_size()
-    L = sops.SUB_CHUNK
-    n_sub = -(-S // L)
-    T = L * (L + 1) // 2
-    nbytes = (3 * B * S * H * P + 4 * B * S * N) * esz \
-        + (2 * B * S * H + 2 * H) * 4 + (ds.numel() * 4 if dstate else 0)
-    macs = B * n_sub * (T * N + H * (2 * T * P + 2 * T * N + 4 * L * N * P))
-    flops = 2.0 * macs
+    flops, nbytes = sops.ssd_backward_cost(B, S, H, P, N, esz, dstate)
     sets = copies(torch, (xbc if fused else x, dt, dy, states), nbytes)
 
     def on_views(fn):
@@ -1599,6 +1589,19 @@ def kernel_phase(torch, F):
                                           None))):
             bwd_rows.append(dict(flash_backward_case(
                 torch, F, *shape[:5], dtype, *shape[5:], timed), case=case))
+    # demo-8m (examples/train_small_torch.py, phase 23): float32 at head
+    # dim 32, causal, its training forward (writing the lse) and its
+    # backward, timed beside SDPA
+    demo = dict(B=8, S=128, Hq=8, Hkv=4, Dh=32)
+    flash_rows.append(dict(flash_case(
+        torch, F, *demo.values(), dtype="float32", kv_frac=None,
+        window=None, softcap=None, timed=True, train_lse=True),
+        case="demo-8m float32",
+        ptxas=PTXAS.get("flash_prefill", {}).get(
+            "flash_prefill_kernel<float,32>")))
+    bwd_rows.append(dict(flash_backward_case(
+        torch, F, *demo.values(), "float32", True, None, None, True),
+        case="demo-8m float32"))
     rows = {"flash_prefill": flash_rows, "flash_backward": bwd_rows,
             "ring_decode": decode_rows,
             "paged_decode": paged_rows[1],
@@ -2394,8 +2397,9 @@ def _radix_pages(cache):
 
 
 def paged_serve_phase(torch, cfg, params, pred, drafter=None, tp=0,
-                      label=None, recorder=None):
-    """Serve the multi-turn workload over the paged pool with a radix
+                      label=None, recorder=None, n_turns=3):
+    """Serve the multi-turn workload (``n_turns`` turns of its two
+    conversations) over the paged pool with a radix
     prefix cache; with ``drafter`` (cfg, params) the decode instance
     speculates ``SPEC_K`` tokens per iteration; with ``tp`` the instances
     are tp-wide slices (``params`` this rank's shards); ``recorder`` (a
@@ -2411,7 +2415,7 @@ def paged_serve_phase(torch, cfg, params, pred, drafter=None, tp=0,
 
     phase = label or ("spec" if drafter else "paged")
     spec_k = SPEC_K if drafter else 0
-    reqs = multiturn_workload(Request, cfg.vocab_size)
+    reqs = multiturn_workload(Request, cfg.vocab_size, n_turns=n_turns)
     walls = {"prefill": [], "decode": [], "spec": []}
     log = []
     base = make_real_backend_factory(
@@ -3438,6 +3442,12 @@ def jamba_phase(torch):
 
 MIXER_TP = 2  # phase 21: ranks of the world, each instance's slice width
 MIXER_TIMEOUT_S = 900.0  # the parent's wait for the phase 21 world
+# every layer's gloo collectives cost each step 1.9-15 ms, so the phase
+# took 290.9-383.7 s on phase 4's 8 requests and phase 6's 3 turns; it
+# serves fewer requests at full depth instead, which keeps every model's
+# shards, collectives and per-rank memory whole
+MIXER_REQUESTS = 4  # the first of phase 4's requests, each dense serve
+MIXER_TURNS = 2  # of phase 6's multi-turn workload, the paged serve
 # (label, arch, the depth it is cut to or None, its serves); each
 # model is drawn on the slice, served, then freed
 MIXER_MODELS = (
@@ -3608,11 +3618,12 @@ def mixer_rank(rank: int, world: int, init: str, out: str, preds) -> None:
                     if serve == "dense":
                         _, _, reqs, _, stats = serve_phase(
                             torch, arch, name, per_iter, params=params,
-                            cfg=cfg, tp=world, recorder=rec)
+                            cfg=cfg, tp=world, recorder=rec,
+                            reqs=phase4_requests(cfg)[:MIXER_REQUESTS])
                     else:
                         reqs, _, _, stats = paged_serve_phase(
                             torch, cfg, params, preds[label], tp=world,
-                            label=name, recorder=rec)
+                            label=name, recorder=rec, n_turns=MIXER_TURNS)
                 got["serves"][serve] = {
                     "streams": _streams(reqs), "stats": stats,
                     "decode_lens": [r.decode_len for r in reqs],
@@ -4270,6 +4281,207 @@ def mamba_train_phase(torch):
                        round_trip=False)
 
 
+# ---------------------------------------------------------------------------
+# Phase 22: the dry-run's prediction against the card
+# ---------------------------------------------------------------------------
+
+DRYRUN_ARCH = "llama-3.1-8b"
+DRYRUN_PROMPT = 512  # the prefill case's tokens (one row)
+RESIDENT_TOL = 0.01  # resident bytes before the step, relative
+PEAK_TOL = 0.25  # the step's transient peak over resident, relative ...
+PEAK_SLACK = 64 * 2 ** 20  # ... or absolute, whichever is larger
+
+
+def dryrun_case(torch, D, cfg, shape, label, base, params=None):
+    """One step traced by ``launch/dryrun.py``'s tracer on meta tensors,
+    then run on the card under the same counters (eagerly): equal launch
+    counts and FLOPs, resident bytes before the step within
+    ``RESIDENT_TOL``, the step's transient peak within ``PEAK_TOL`` or
+    ``PEAK_SLACK``.  ``base`` is ``memory_allocated`` before the step's
+    state (``params`` included, when given) was made.  Prints two
+    predicted times beside the measured device ms, unchecked: the floor,
+    the larger of the traced FLOPs at the card's peak and the traced
+    resident bytes (weights, cache or optimizer state, inputs) read
+    once; and the pre-fusion figure, which puts the traced bytes (each
+    op's inputs and outputs, an upper estimate of the traffic) in place
+    of the resident ones, so it is no lower bound."""
+    from repro_torch.device import analysis_mode
+
+    t0 = time.perf_counter()
+    with analysis_mode():
+        fn, args = D.build_cell(cfg, shape)
+        pred = D.trace(fn, args)
+    del fn, args
+    trace_s = time.perf_counter() - t0
+    g = torch.Generator(device="cuda").manual_seed(22)
+    fn, args = D.build_cell(cfg, shape, device="cuda", params=params,
+                            generator=g)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated() - base
+    torch.cuda.reset_peak_memory_stats()
+    got = D.trace(fn, args, track_memory=False)
+    torch.cuda.synchronize()
+    transient = torch.cuda.max_memory_allocated() - base - resident
+    busy_ms = sum(device_ms_by_kernel(torch, lambda: fn(*args),
+                                      iters=1).values())
+    walls = []
+    timed(torch, fn, walls)(*args)
+    flops_ms = pred.flops / PEAK_FLOP_S[cfg.dtype] * 1e3
+    resident_ms = pred.resident_bytes / PEAK_BYTES_S * 1e3
+    floor_ms = max(flops_ms, resident_ms)
+    row = {"case": label, "shape": f"{shape.kind} B={shape.global_batch} "
+           f"S={shape.seq_len}",
+           "launches": {"predicted": pred.launches, "card": got.launches},
+           "flops": {"predicted": pred.flops, "card": got.flops,
+                     "aten": got.aten_flops, "kernels": got.kernel_flops},
+           "bytes_prefusion": {"predicted": pred.bytes, "card": got.bytes},
+           "resident_bytes": {"predicted": pred.resident_bytes,
+                              "card": resident},
+           "transient_peak_bytes": {"predicted": pred.transient_peak_bytes,
+                                    "card": transient},
+           "floor_ms": floor_ms,
+           "floor_by": "operations" if flops_ms >= resident_ms else "bytes",
+           "prefusion_bound_ms": max(
+               flops_ms, pred.bytes / PEAK_BYTES_S * 1e3),
+           "device_busy_ms": busy_ms, "busy_over_floor": busy_ms / floor_ms,
+           "wall_ms": walls[0], "trace_s": trace_s}
+    print(f"dryrun[{label}]: " + json.dumps(row))
+    check(got.launches == pred.launches and got.launches,
+          f"dryrun[{label}]: launches {got.launches} on the card, "
+          f"{pred.launches} traced")
+    check(got.flops == pred.flops, f"dryrun[{label}]: {got.flops} FLOPs on "
+                                   f"the card, {pred.flops} traced")
+    check(abs(resident - pred.resident_bytes) <= RESIDENT_TOL * resident,
+          f"dryrun[{label}]: resident {resident} B on the card, "
+          f"{pred.resident_bytes} traced")
+    check(abs(transient - pred.transient_peak_bytes) <= max(
+        PEAK_TOL * transient, PEAK_SLACK),
+        f"dryrun[{label}]: transient peak {transient} B on the card, "
+        f"{pred.transient_peak_bytes} traced")
+    del fn, args, got
+    return row
+
+
+def dryrun_phase(torch):
+    """Phase 22: the dry-run's tracer against the card on phase 4's
+    llama-3.1-8b (a decode step at ``SLOTS`` slots of ``MAX_LEN``, then a
+    ``DRYRUN_PROMPT``-token prefill; its weights, drawn once, are handed
+    on to phase 4) and phase 18's minicpm-2b train step (B=4 x 1,024,
+    remat; weights, optimizer state and batch its own, freed after).
+    Returns (llama's config and params, the rows)."""
+    from repro_torch.configs.shapes import ShapeSuite
+    from repro_torch.launch import dryrun as D
+
+    free(torch)
+    base = torch.cuda.memory_allocated()
+    cfg, params = init_model(torch, DRYRUN_ARCH)
+    rows = [dryrun_case(torch, D, cfg, ShapeSuite("decode", "decode",
+                                                  MAX_LEN, SLOTS),
+                        "llama decode", base, params)]
+    free(torch)
+    rows.append(dryrun_case(torch, D, cfg, ShapeSuite(
+        "prefill", "prefill", DRYRUN_PROMPT, 1), "llama prefill", base,
+        params))
+    free(torch)
+    tcfg = config_of(TRAIN_ARCH)
+    rows.append(dryrun_case(
+        torch, D, tcfg, ShapeSuite("train", "train", TRAIN_SEQ, TRAIN_BATCH),
+        "minicpm train", torch.cuda.memory_allocated()))
+    free(torch)
+    return cfg, params, rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 23: examples/train_small_torch.py on the card
+# ---------------------------------------------------------------------------
+
+DEMO_STEPS = 20
+DEMO_LOSS_TOL = 1e-5  # float32: step 1's loss, kernel path against plain
+
+
+def train_small_phase(torch):
+    """Phase 23: ``examples/train_small_torch.py``'s demo-8m (float32,
+    head dim 32) for ``DEMO_STEPS`` steps on the card through the Dh 32
+    float32 flash kernels: step 1's loss and every gradient leaf against
+    the plain path on the same weights and batch, exact launches a step,
+    a loss that falls, and a resume from the checkpoint that gives the
+    loss the state in memory gives on the resumed run's batch."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+
+    sys.path.insert(0, str(ROOT / "examples"))
+    import train_small_torch as T
+
+    from repro_torch.models import model as M
+    from repro_torch.training._tree import leaves, unflatten
+    from repro_torch.training.trainstep import TrainStepConfig, make_grad_fn
+
+    cfg = T.model_config(False)
+    batch, seq = 8, 128
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           device="cuda")
+    first = T.zipf_batch(np.random.default_rng(1), batch, seq,
+                         cfg.vocab_size, "cuda")
+    tcfg = TrainStepConfig(microbatches=2, ce_chunk=min(128, seq))
+    zero_launch_counts()
+    (loss_p, _), grads_p = make_grad_fn(
+        cfg, dataclasses.replace(tcfg, plain_attention=True))(params, first)
+    check(train_counts()["flash_prefill"] == 0,
+          "demo: the plain path launched a kernel")
+    (loss_k, _), grads_k = make_grad_fn(cfg, tcfg)(params, first)
+    torch.cuda.synchronize()
+    rel = abs(float(loss_k) / float(loss_p) - 1)
+    errs = [float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+            for a, b in zip(leaves(grads_k), leaves(grads_p))]
+    check(rel <= DEMO_LOSS_TOL and max(errs) <= BWD_TOL["float32"],
+          f"demo: step 1 through the Dh 32 kernels against the plain path: "
+          f"loss {rel:.3g} relative, worst leaf {max(errs):.3g}")
+    per_grad = train_launches(cfg)
+    check(train_counts() == per_grad,
+          f"demo: one gradient launched {train_counts()}, expected "
+          f"{per_grad}")
+    del grads_p, grads_k
+    with tempfile.TemporaryDirectory() as ck:
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        params, opt, losses = T.train(cfg, params, steps=DEMO_STEPS,
+                                      batch=batch, seq=seq, ckpt_dir=ck,
+                                      device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        want = {k: v * 2 * DEMO_STEPS for k, v in per_grad.items()}
+        check(train_counts() == want, f"demo: {DEMO_STEPS} steps launched "
+                                      f"{train_counts()}, expected {want}")
+        check(all(math.isfinite(x) for x in losses)
+              and losses[-1] < losses[0],
+              f"demo: the loss did not fall: {losses}")
+        kept = [t.clone() for t in leaves(params) + leaves(opt)]
+        logged = []
+        _, _, resumed = T.train(cfg, params, steps=DEMO_STEPS + 1,
+                                batch=batch, seq=seq, ckpt_dir=ck,
+                                device="cuda", log=logged.append)
+    n = len(leaves(params))
+    step = T.make_step(cfg, DEMO_STEPS + 1, seq)
+    _, _, m = step(unflatten(params, kept[:n]), unflatten(opt, kept[n:]),
+                   T.zipf_batch(np.random.default_rng(1), batch, seq,
+                                cfg.vocab_size, "cuda"))
+    check(f"resumed from checkpoint at step {DEMO_STEPS}" in logged
+          and resumed == [float(m["loss"])],
+          f"demo: the resumed step's loss {resumed} is not the state in "
+          f"memory's {float(m['loss'])}")
+    stats = {"config": cfg.name, "head_dim": cfg.head_dim,
+             "dtype": cfg.dtype, "steps": DEMO_STEPS, "losses": losses,
+             "wall_s": wall, "step1_loss_rel": rel,
+             "step1_grad_rel_max": max(errs), "resumed_loss": resumed[0],
+             "launches_per_step": {k: 2 * v for k, v in per_grad.items()}}
+    print("demo[train_small_torch]: " + json.dumps(stats))
+    del params, opt, kept
+    free(torch)
+    return stats
+
+
 # name -> (source, the Pallas kernel it replaces, the serve phase whose
 # launch count the kernels line reports)
 KERNELS = {
@@ -4402,9 +4614,17 @@ def main(argv=None) -> int:
     lm_head_case(torch)
     seconds["kernels"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    # phases 22-23 first, on an empty card: the dry-run's accounting of
+    # resident bytes reads the allocator
+    cfg, params, dryrun_rows = dryrun_phase(torch)
+    seconds["22"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    demo = train_small_phase(torch)
+    seconds["23"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     dense_kernels = {"flash_prefill": "prefill", "ring_decode": "decode"}
     cfg, params, reqs, dense_launches, _ = serve_phase(
-        torch, "llama-3.1-8b", "dense", dense_kernels)
+        torch, "llama-3.1-8b", "dense", dense_kernels, params=params)
     replay_phase(torch, {"target": (cfg, params)}, reqs[0])
     eager, eager_stats = same_streams_eagerly(
         torch, reqs, "llama-3.1-8b", "dense", dense_kernels, params)
@@ -4576,6 +4796,19 @@ def main(argv=None) -> int:
             "wrapper_ms_is": "the sharded branch as the model calls it, "
                              "rank 0, synchronised wall ms a call",
         })
+    print("dryrun[summary]: " + json.dumps([
+        {"case": r["case"], "floor_ms": r["floor_ms"],
+         "floor_by": r["floor_by"],
+         "prefusion_bound_ms": r["prefusion_bound_ms"],
+         "device_busy_ms": r["device_busy_ms"],
+         "busy_over_floor": r["busy_over_floor"], "wall_ms": r["wall_ms"],
+         "flops": r["flops"]["card"],
+         "bytes_prefusion": r["bytes_prefusion"]["card"],
+         "resident_bytes": r["resident_bytes"],
+         "transient_peak_bytes": r["transient_peak_bytes"]}
+        for r in dryrun_rows]))
+    print("demo[summary]: " + json.dumps(
+        {k: demo[k] for k in ("losses", "resumed_loss", "wall_s")}))
     print("seconds by phase: " + json.dumps(
         {k: round(v, 1) for k, v in seconds.items()}))
     print(f"total {time.perf_counter() - t_start:.1f} s")

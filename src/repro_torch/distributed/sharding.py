@@ -32,14 +32,28 @@ columns whole (the configs have one B/C group).  ``dt_bias``, ``A_log``,
 (:func:`cache_cut`).
 
 A slice's ``"data"`` axis has width 1, so the JAX rule's second,
-FSDP-style dim over the data-parallel axes never fits and is left out,
-as are the dry-run's ``fsdp_sp`` mode, ``batch_pspec`` and
-``cache_pspecs``.
+FSDP-style dim over the data-parallel axes never fits there: the serving
+path has one layout and ignores :class:`ShardingPolicy`'s fields.
+
+**The reference layout** (the second half of this module) is the JAX
+package's rule engine for the production meshes, ported line for line
+for the dry-run (:mod:`repro_torch.launch.dryrun`), under the JAX names
+where they do not clash: :func:`_leaf_spec` (with the FSDP second dim
+and the ``fsdp_sp`` mode), :func:`ref_param_pspecs` (the JAX
+``param_pspecs``), :func:`batch_pspec` and :func:`cache_pspecs`.  They
+describe how GSPMD would lay a cell out over ``(16, 16)`` ``("data",
+"model")`` or ``(2, 16, 16)`` ``("pod", "data", "model")``, and return
+plain tuples, one entry per dim: ``None``, an axis name, or a tuple of
+axes.  They take any mesh that names its axes and sizes (a
+``DeviceMesh``, or an object with ``axis_names`` and ``devices``, as the
+JAX tests' ``FakeMesh``).  The port computes on none of these layouts:
+the dry-run records its own rank program beside them.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
-from typing import Any, Callable, Sequence, Tuple
+from typing import Any, Callable, Optional, Sequence, Tuple
 
 import torch
 from torch.distributed.tensor import Replicate, Shard
@@ -55,15 +69,40 @@ PyTree = Any
 
 @dataclass(frozen=True)
 class ShardingPolicy:
-    """The rule engine's policy.  The JAX policy's fields choose the
-    data-parallel axes and the dry-run's modes; a serving slice has one
-    layout (Megatron tensor parallelism over :data:`MODEL_AXIS`), so
-    this policy has none."""
+    """Tunable knobs of the reference layout's rule engine (the JAX
+    policy's fields).  A serving slice has one layout (Megatron tensor
+    parallelism over :data:`MODEL_AXIS`) and ignores them.
+
+    ``mode``: ``"tp"``, Megatron tensor parallelism on the model axis;
+    ``"fsdp_sp"``, sequence parallelism on the model axis with weights
+    flat over (dp × model), gathered per layer (MoE experts stay on
+    "model").  Leaves whose bytes per model shard exceed
+    ``fsdp_threshold`` also shard a second dim over ``dp_axes``;
+    ``cache_seq_over_model`` shards the decode cache length over
+    "model"."""
+
+    dp_axes: Tuple[str, ...] = ("data",)  # ("pod", "data") multi-pod
+    model_axis: str = MODEL_AXIS
+    mode: str = "tp"
+    fsdp_threshold: int = 64 * 1024 * 1024
+    cache_seq_over_model: bool = True
+
+
+def mesh_shape_of(mesh) -> dict:
+    """``{axis name: size}`` of a ``DeviceMesh``, of an object with the
+    JAX mesh's ``axis_names`` and ``devices``, or of such a dict."""
+    if isinstance(mesh, dict):
+        return dict(mesh)
+    if hasattr(mesh, "mesh_dim_names"):
+        return dict(zip(mesh.mesh_dim_names, mesh.shape))
+    return dict(zip(mesh.axis_names, mesh.devices.shape))
 
 
 def default_policy(mesh) -> ShardingPolicy:
-    """The serving policy of ``mesh``: the same for every slice."""
-    return ShardingPolicy()
+    """The reference's default policy of ``mesh``: its "pod" and "data"
+    axes data-parallel ("data" alone for a serving slice)."""
+    dp = tuple(a for a in mesh_shape_of(mesh) if a in ("pod", "data"))
+    return ShardingPolicy(dp_axes=dp or ("data",))
 
 
 # ---------------------------------------------------------------------------
@@ -383,3 +422,199 @@ def place_serving_state(cfg, params: PyTree, cache_trees: Sequence[PyTree],
         _map(check, tree, ps)
         specs.append(ps)
     return shard_params(params, cfg, mesh), specs
+
+
+# ---------------------------------------------------------------------------
+# The reference layout (the dry-run's; ``repro/distributed/sharding.py``)
+# ---------------------------------------------------------------------------
+
+Spec = Tuple[Any, ...]  # per dim: None, an axis name, or a tuple of axes
+
+
+def _spec(*entries) -> Spec:
+    """A spec as ``PartitionSpec`` stores it: a one-axis tuple entry is
+    that axis's name."""
+    return tuple(e[0] if isinstance(e, tuple) and len(e) == 1 else e
+                 for e in entries)
+
+
+def _axsize(mesh_shape: dict, axes) -> int:
+    if axes is None:
+        return 1
+    if isinstance(axes, str):
+        return mesh_shape.get(axes, 1)
+    n = 1
+    for a in axes:
+        n *= mesh_shape.get(a, 1)
+    return n
+
+
+def _fits(dim: int, mesh_shape: dict, axes) -> bool:
+    n = _axsize(mesh_shape, axes)
+    return n > 1 and dim % n == 0
+
+
+# (model_dim, fsdp_dim): preferred dims (offset by +1 for stacked block
+# leaves) to place on the model axis / the DP axes when FSDP kicks in
+_REF_PARAM_RULES = {
+    # embed: vocab over model only (2D-sharding the table turns every
+    # token gather into a full rematerialization)
+    "embed": (0, None),
+    "lm_head": (1, 0),
+    "wq": (1, 0),
+    "wk": (1, 0),
+    "wv": (1, 0),
+    "wo": (0, 1),
+    "w_gate": (1, 0),  # also a MoE's (E, d, ffe): special-cased below
+    "w_in": (1, 0),
+    "w_out": (0, 1),
+    "router": (None, None),
+    "in_proj": (1, 0),
+    "conv_w": (0, None),
+    "out_proj": (0, 1),
+    "gnorm": (None, None),
+    "norm": (None, None),
+    "q_norm": (None, None),
+    "k_norm": (None, None),
+    "final_norm": (None, None),
+    "A_log": (None, None),
+    "dt_bias": (None, None),
+    "D": (None, None),
+}
+
+
+def _leaf_spec(path: Tuple[str, ...], shape: Tuple[int, ...], dtype,
+               mesh_shape: dict, pol: ShardingPolicy) -> Spec:
+    """The reference spec of one parameter leaf (``dtype`` a torch
+    dtype)."""
+    name = path[-1]
+    if name == "sc":  # int8 weight scales: tiny, replicated
+        return _spec(*[None] * len(shape))
+    if name == "q8":  # quantized weight: rules of the parent leaf
+        name = path[-2]
+        path = path[:-1]
+    stacked = "blocks" in path  # leading n_blocks axis of the stack
+    off = 1 if stacked else 0
+    ndim = len(shape)
+    spec: list = [None] * ndim
+
+    is_moe = name in ("w_gate", "w_in", "w_out") and ndim - off == 3
+    if is_moe:
+        # (E, d, ffe) / (E, ffe, d): experts on model; inner dim on dp if big
+        mdim, fdim = off + 0, off + 2
+    else:
+        rule = _REF_PARAM_RULES.get(name)
+        if rule is None or rule[0] is None:
+            mdim = fdim = None
+        else:
+            mdim = off + rule[0] if rule[0] is not None else None
+            fdim = off + rule[1] if rule[1] is not None else None
+
+    if pol.mode == "fsdp_sp" and not (is_moe and name != "router"):
+        # flat weight sharding: the preferred dim takes (dp × model),
+        # falling back to smaller axis sets
+        if mdim is not None and mdim < ndim:
+            for axes in ((*pol.dp_axes, pol.model_axis), (pol.model_axis,),
+                         pol.dp_axes):
+                if _fits(shape[mdim], mesh_shape, axes):
+                    spec[mdim] = axes if len(axes) > 1 else axes[0]
+                    break
+        return _spec(*spec)
+
+    model_sharded = False
+    if mdim is not None and mdim < ndim and _fits(
+            shape[mdim], mesh_shape, pol.model_axis):
+        spec[mdim] = pol.model_axis
+        model_sharded = True
+    # capacity-aware second-dim sharding; a stacked leaf is scanned one
+    # block at a time, so its live working set is one slice
+    n_elems = float(math.prod(shape)) / (shape[0] if stacked else 1)
+    per_model_shard = n_elems * dtype.itemsize / (
+        _axsize(mesh_shape, pol.model_axis) if model_sharded else 1)
+    if (fdim is not None and fdim < ndim and fdim != mdim
+            and spec[fdim] is None
+            and per_model_shard > pol.fsdp_threshold
+            and _fits(shape[fdim], mesh_shape, pol.dp_axes)):
+        spec[fdim] = pol.dp_axes
+    return _spec(*spec)
+
+
+def ref_param_pspecs(cfg, param_tree: PyTree, mesh,
+                     pol: Optional[ShardingPolicy] = None) -> PyTree:
+    """The JAX ``param_pspecs``: the reference spec tree mirroring
+    ``param_tree`` (any tree of tensors with ``shape`` and ``dtype``, on
+    the meta device for a full-size config)."""
+    pol = pol or default_policy(mesh)
+    mesh_shape = mesh_shape_of(mesh)
+    return _map(lambda path, leaf: _leaf_spec(
+        path, tuple(leaf.shape), leaf.dtype, mesh_shape, pol), param_tree)
+
+
+def batch_pspec(batch: int, mesh, ndim: int = 2,
+                pol: Optional[ShardingPolicy] = None,
+                seq_len: int = 0) -> Spec:
+    """Tokens/labels (B, S, ...): B over the DP axes when divisible (else
+    the longest prefix of them that divides, else replicated); in
+    ``fsdp_sp`` mode the sequence dim also shards over "model"."""
+    pol = pol or default_policy(mesh)
+    mesh_shape = mesh_shape_of(mesh)
+    rest = [None] * (ndim - 1)
+    if (pol.mode == "fsdp_sp" and ndim >= 2 and seq_len
+            and _fits(seq_len, mesh_shape, pol.model_axis)):
+        rest[0] = pol.model_axis
+    if _fits(batch, mesh_shape, pol.dp_axes):
+        return _spec(pol.dp_axes, *rest)
+    for k in range(len(pol.dp_axes) - 1, 0, -1):
+        if _fits(batch, mesh_shape, pol.dp_axes[:k]):
+            return _spec(pol.dp_axes[:k], *rest)
+    return _spec(None, *rest)
+
+
+def _seq_spec(B: int, C: int, mesh_shape: dict, pol: ShardingPolicy,
+              trailing: int) -> Spec:
+    """A cache leaf ``(n, B, C, ...)``: B over the DP axes and C over
+    "model"; where B cannot shard (long_500k's batch of 1), C over every
+    axis it divides."""
+    rest = (None,) * trailing
+    b_ax = pol.dp_axes if _fits(B, mesh_shape, pol.dp_axes) else None
+    if b_ax is None:
+        seq = tuple(a for a in (*pol.dp_axes, pol.model_axis)
+                    if _fits(C, mesh_shape, (a,)))
+        if seq and _fits(C, mesh_shape, seq):
+            return _spec(None, None, seq, *rest)
+        return _spec(None, None, None, *rest)
+    c_ax = (pol.model_axis if pol.cache_seq_over_model
+            and _fits(C, mesh_shape, pol.model_axis) else None)
+    return _spec(None, b_ax, c_ax, *rest)
+
+
+def cache_pspecs(cfg, cache_tree: PyTree, mesh,
+                 pol: Optional[ShardingPolicy] = None) -> PyTree:
+    """The reference decode-cache specs: DP on the batch; the cache
+    length (sequence-parallel decode) or the SSM heads on "model"."""
+    pol = pol or default_policy(mesh)
+    mesh_shape = mesh_shape_of(mesh)
+
+    def visit(path, leaf):
+        name, shape = path[-1], tuple(leaf.shape)
+        if name in ("k", "v"):  # (n, B, C, Hkv, Dh)
+            return _seq_spec(shape[1], shape[2], mesh_shape, pol, 2)
+        if name in ("k_sc", "v_sc"):  # (n, B, C, H)
+            return _seq_spec(shape[1], shape[2], mesh_shape, pol, 1)
+        if name == "pos":  # (n, B, C)
+            return _seq_spec(shape[1], shape[2], mesh_shape, pol, 0)
+        if name == "ssm":  # (n, B, H, P, N)
+            _, B, H, _, _ = shape
+            b_ax = pol.dp_axes if _fits(B, mesh_shape, pol.dp_axes) else None
+            h_ax = (pol.model_axis if _fits(H, mesh_shape, pol.model_axis)
+                    else None)
+            return _spec(None, b_ax, h_ax, None, None)
+        if name == "conv":  # (n, B, K-1, conv_dim)
+            _, B, _, D = shape
+            b_ax = pol.dp_axes if _fits(B, mesh_shape, pol.dp_axes) else None
+            d_ax = (pol.model_axis if _fits(D, mesh_shape, pol.model_axis)
+                    else None)
+            return _spec(None, b_ax, None, d_ax)
+        return _spec(*[None] * len(shape))
+
+    return _map(visit, cache_tree)

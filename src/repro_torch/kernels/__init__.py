@@ -6,12 +6,51 @@ CUDA graph breaks that count twice: its capture runs the wrappers (they
 tick) but launches nothing, and its replay launches everything without
 running them.  :func:`launch_counts` and :func:`add_launches` let the
 graph machinery (:mod:`repro_torch.serving.jitcache`) take a capture's
-ticks back out and add them again on every replay."""
+ticks back out and add them again on every replay.
+
+Each wrapper also has a cost function per launch, ``(flops, bytes)``:
+the operations the launch's work needs and the bytes it must move (each
+input read once, each output written once).  They are the roofline
+bounds of ``chip_smoke.py``'s kernel phase, and inside
+:func:`kernel_costs` every launch, real or traced
+(:func:`repro_torch.device.analysis_mode`), reports its figures there
+from its shapes alone: a key count it would have to read off the card
+(``kv_len``, a ring's live slots) counts as full."""
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import contextlib
+from typing import Callable, Dict, List, Optional, Tuple
 
 Counts = Dict[Tuple, int]
+Cost = Tuple[str, float, float]  # (kernel, flops, bytes)
+
+# the innermost kernel_costs() sink: a plain global, not a ContextVar,
+# because a backward pass on the card launches from autograd's device
+# thread, which does not see the caller's context
+_COSTS: Optional[List[Cost]] = None
+
+
+@contextlib.contextmanager
+def kernel_costs():
+    """Collect ``(kernel, flops, bytes)`` of every launch made inside,
+    from any thread (a backward pass's too)."""
+    global _COSTS
+    outer, got = _COSTS, []
+    _COSTS = got
+    try:
+        yield got
+    finally:
+        _COSTS = outer
+
+
+def record_cost(kernel: str, cost: Callable[..., Tuple[float, float]],
+                *args, **kw) -> None:
+    """Report one launch of ``kernel`` to the innermost
+    :func:`kernel_costs`, if any (``cost(*args, **kw)`` is only called
+    then): the one global read a launch makes for it."""
+    sink = _COSTS
+    if sink is not None:
+        sink.append((kernel, *cost(*args, **kw)))
 
 
 def _modules():
@@ -28,7 +67,8 @@ def _modules():
 # calls by their head count)
 _INTS = (("decode_attention", "launches"), ("flash_attention", "launches"),
          ("flash_attention", "q_offset_launches"),
-         ("flash_attention", "backward_launches"), ("ssd", "launches"))
+         ("flash_attention", "backward_launches"), ("ssd", "launches"),
+         ("ssd", "backward_launches"))
 _DICTS = (("decode_attention", "paged_launches"),
           ("decode_attention", "sharded_launches"),
           ("flash_attention", "head_launches"), ("ssd", "head_launches"))

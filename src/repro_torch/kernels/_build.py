@@ -95,10 +95,12 @@ def load(name: str) -> ctypes.CDLL:
 
 DTYPE_CODES = {"torch.float32": 0, "torch.bfloat16": 1}
 HEAD_DIMS = (16, 64, 128)  # reduced configs, minicpm, llama and most others
-# the prefill kernel and its backward also take hubert-xlarge's 80; the
+# the prefill kernel and its backward also take hubert-xlarge's 80, and
+# in float32 the demo configs' 32 (examples/train_small_torch.py); the
 # decode kernels (ring_decode.cu, paged_attention.cu) instantiate
 # HEAD_DIMS only
-FLASH_HEAD_DIMS = (16, 64, 80, 128)
+FLASH_HEAD_DIMS = (16, 32, 64, 80, 128)
+FLASH_BF16_HEAD_DIMS = (16, 64, 80, 128)
 
 
 def dtype_code(t) -> int:

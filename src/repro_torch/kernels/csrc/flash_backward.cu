@@ -1640,9 +1640,11 @@ cudaError_t launch_wgmma(WParams p, cudaStream_t stream) {
 }
 
 // Which body serves (Dh, dtype): 0 float32 on the CUDA cores, 1 bf16 on
-// mma.sync (two passes), 2 bf16 on wgmma (one pass); -1 none.
+// mma.sync (two passes), 2 bf16 on wgmma (one pass); -1 none.  Dh 32
+// (the float32 demo configs) has the float32 body only.
 int body_of(int Dh, int dtype) {
-  const bool dh_ok = Dh == 16 || Dh == 64 || Dh == 80 || Dh == 128;
+  const bool dh_ok = Dh == 16 || Dh == 64 || Dh == 80 || Dh == 128 ||
+                     (Dh == 32 && dtype == 0);
   if (!dh_ok || dtype < 0 || dtype > 1) return -1;
   if (dtype == 0) return 0;
   return Dh == 64 || Dh == 128 ? 2 : 1;
@@ -1675,6 +1677,8 @@ cudaError_t launch(const WParams& p, int dtype, cudaStream_t stream) {
   if (dtype != 1) return cudaErrorInvalidValue;
   if constexpr (DH == 64 || DH == 128)
     return launch_wgmma<DH>(p, stream);
+  else if constexpr (DH == 32)  // float32 only
+    return cudaErrorInvalidValue;
   else
     return launch_mma_sync<DH>(p, stream);
 }
@@ -1711,6 +1715,7 @@ extern "C" int repro_flash_backward(
   cudaError_t err;
   switch (Dh) {
     case 16: err = launch<16>(p, dtype, s); break;
+    case 32: err = launch<32>(p, dtype, s); break;
     case 64: err = launch<64>(p, dtype, s); break;
     case 80: err = launch<80>(p, dtype, s); break;
     case 128: err = launch<128>(p, dtype, s); break;

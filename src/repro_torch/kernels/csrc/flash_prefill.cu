@@ -22,7 +22,9 @@
 //   for flash_backward.cu; serving passes null.
 //
 // Head dims: 16, 64, 80 (hubert-xlarge's bidirectional encoder) and 128,
-// the switch at the end of this file and _build.FLASH_HEAD_DIMS alike.
+// the switch at the end of this file and _build.FLASH_HEAD_DIMS alike;
+// 32 (the float32 demo configs of examples/train_small_torch.py) in
+// float32 only, on the CUDA-core body (_build.FLASH_BF16_HEAD_DIMS).
 // The bf16 body needs DH % 16 == 0.  At DH = 80 it runs five k-steps of
 // Q.K^T and ten output n-blocks (five ldmatrix.trans pairs of P.V), and
 // its shared rows of 88 bf16 (176 B, eleven 16-byte chunks: an odd
@@ -542,12 +544,16 @@ cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
 template <int DH>
 cudaError_t launch(const Params& p, int dtype, cudaStream_t stream) {
   if (dtype == 0) return launch_f32<DH>(p, stream);
-  if (dtype == 1) {
-    if (p.Hkv <= 0 || p.Hq % p.Hkv || p.Hq / p.Hkv > TC_ROWS)
-      return cudaErrorInvalidValue;
-    return launch_bf16<DH>(p, stream);
+  if constexpr (DH == 32) {  // float32 only
+    return cudaErrorInvalidValue;
+  } else {
+    if (dtype == 1) {
+      if (p.Hkv <= 0 || p.Hq % p.Hkv || p.Hq / p.Hkv > TC_ROWS)
+        return cudaErrorInvalidValue;
+      return launch_bf16<DH>(p, stream);
+    }
+    return cudaErrorInvalidValue;
   }
-  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -569,6 +575,7 @@ extern "C" int repro_flash_prefill(const void* q, const void* k, const void* v,
   cudaError_t err;
   switch (Dh) {
     case 16: err = launch<16>(p, dtype, s); break;
+    case 32: err = launch<32>(p, dtype, s); break;
     case 64: err = launch<64>(p, dtype, s); break;
     case 80: err = launch<80>(p, dtype, s); break;
     case 128: err = launch<128>(p, dtype, s); break;

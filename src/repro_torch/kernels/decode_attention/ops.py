@@ -35,6 +35,11 @@ local heads, calls the sharded branch on them directly
 (:func:`on_local_heads`), with no DTensor.  ``sharded_launches`` counts
 the kernel launches the sharded branch made on this rank, keyed by
 (wrapper, local Hkv).
+
+Under :func:`repro_torch.device.analysis_mode` a call on meta tensors
+is traced: it counts and reports its cost (:func:`ring_decode_cost`,
+:func:`paged_cost`) and returns an output of the launch's shape without
+building the kernel.
 """
 from __future__ import annotations
 
@@ -45,8 +50,9 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import torch
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from repro_torch.device import on_card
 from repro_torch.distributed.context import heads_shardable, model_width
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, record_cost
 from repro_torch.kernels.decode_attention.ref import (
     decode_attention_ref,
     paged_verify_attention_ref,
@@ -59,6 +65,39 @@ paged_launches: Dict[int, int] = {}
 sharded_launches: Dict[Tuple[str, int], int] = {}
 _fn = None
 _paged_fn = None
+
+
+def ring_decode_cost(B: int, C: int, Hq: int, Hkv: int, Dh: int, esz: int,
+                     valid: Optional[int] = None,
+                     empty: int = 0) -> Tuple[float, float]:
+    """(flops, bytes) of one ``ring_decode`` call over ``valid`` live
+    (row, slot) pairs (every slot without) and ``empty`` rows with no
+    live slot: 4 Dh operations a live pair and query head; the live
+    slots' K and V, all of V for an empty row (its mean), the slot
+    positions, q and out, each moved once."""
+    valid = B * C if valid is None else valid
+    nbytes = (2 * B * Hq * Dh + (2 * valid + empty * C) * Hkv * Dh) * esz \
+        + B * C * 4 + B * 4
+    return 4.0 * valid * Hq * Dh, float(nbytes)
+
+
+def paged_cost(B: int, T: int, Hq: int, Hkv: int, Dh: int, esz: int,
+               table: int, lengths: Sequence[int],
+               window: Optional[int] = None) -> Tuple[float, float]:
+    """(flops, bytes) of one paged call with T query tokens a row over
+    rows of ``lengths`` valid tokens (the T new ones last) and a block
+    table of ``table`` entries: 4 Dh operations a visible (query, key)
+    pair and query head; each row's valid K and V, q, out, the table and
+    the lengths, each moved once."""
+    pairs = 0
+    for n in lengths:
+        for t in range(T):
+            qpos = n - T + t
+            lo = 0 if window is None else max(0, qpos - window + 1)
+            pairs += max(0, min(qpos, n - 1) - lo + 1)
+    nbytes = (2 * B * T * Hq * Dh + 2 * sum(lengths) * Hkv * Dh) * esz \
+        + table * 4 + B * 4
+    return 4.0 * pairs * Hq * Dh, float(nbytes)
 
 
 def _launched() -> int:
@@ -166,7 +205,6 @@ def decode_attention(
     axis: str = "model",
 ) -> torch.Tensor:
     """One new token per row over the ring cache; (B, Hq, Dh) in q's dtype."""
-    global launches
     if q.dim() == 3 and k_cache.dim() == 4 and heads_shardable(
             mesh, q.shape[1], k_cache.shape[2], axis):
         return _shard_map(decode_attention, mesh, axis, (q, k_cache, v_cache),
@@ -190,7 +228,7 @@ def decode_attention(
     if q.device.type == "cpu":
         return decode_attention_ref(q, k_cache, v_cache, slot_pos, q_pos,
                                     window=window, softcap=softcap)
-    if q.device.type != "cuda":
+    if not on_card(q):
         raise ValueError(f"no decode_attention for device {q.device}")
     code = _build.dtype_code(q)
     if Dh not in _build.HEAD_DIMS:
@@ -206,6 +244,8 @@ def decode_attention(
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    if q.is_meta:  # traced (analysis mode): no kernel
+        return _ring_counted(out, C, Hkv)
     fn, _, err_str = _kernel()
     n_part = _ring_scratch_floats(B, C, Hq, Hkv, Dh, code)
     part = (torch.empty(n_part, dtype=torch.float32, device=q.device)
@@ -225,7 +265,17 @@ def decode_attention(
         raise RuntimeError(
             f"ring_decode launch failed: {err_str(err).decode()} ({err})"
         )
+    return _ring_counted(out, C, Hkv)
+
+
+def _ring_counted(out, C: int, Hkv: int):
+    """Count one ``ring_decode`` call and report its cost from the shapes
+    (every slot live)."""
+    global launches
+    B, Hq, Dh = out.shape
     launches += 1
+    record_cost("ring_decode", ring_decode_cost, B, C, Hq, Hkv, Dh,
+                out.element_size())
     return out
 
 
@@ -328,7 +378,7 @@ def paged_verify_attention(
         return paged_verify_attention_ref(q, k_pages, v_pages, block_tables,
                                           lengths, window=window,
                                           softcap=softcap)
-    if q.device.type != "cuda":
+    if not on_card(q):
         raise ValueError(f"no paged_verify_attention for device {q.device}")
     code = _build.dtype_code(q)
     if Dh not in _build.HEAD_DIMS:
@@ -342,8 +392,10 @@ def paged_verify_attention(
         _build.check_operand(name, t, q.device, align=4)
     if q.numel() == 0:
         return torch.empty_like(q)
-    fn, _, err_str = _paged_kernel()
     Pmax = block_tables.shape[1]
+    if q.is_meta:  # traced (analysis mode): no kernel
+        return _paged_counted(torch.empty_like(q), Hkv, ps, Pmax, window)
+    fn, _, err_str = _paged_kernel()
     n_part = _paged_scratch_floats(B, T, Hkv * sub, Hkv, Dh, ps, Pmax, code)
     part = (torch.empty(n_part, dtype=torch.float32, device=q.device)
             if n_part else None)
@@ -366,8 +418,17 @@ def paged_verify_attention(
                                f"{err_str(err).decode()} ({err})")
         return out
 
-    out = by_head_subgroups(launch, q, Hkv, sub)
+    return _paged_counted(by_head_subgroups(launch, q, Hkv, sub), Hkv, ps,
+                          Pmax, window)
+
+
+def _paged_counted(out, Hkv: int, ps: int, Pmax: int, window):
+    """Count one paged call and report its cost from the shapes (every
+    row's table full)."""
+    B, T, Hq, Dh = out.shape
     paged_launches[T] = paged_launches.get(T, 0) + 1
+    record_cost("paged_attention", paged_cost, B, T, Hq, Hkv, Dh,
+                out.element_size(), B * Pmax, [Pmax * ps] * B, window)
     return out
 
 

@@ -11,17 +11,23 @@ slice are the rank's share), ``q_offset_launches`` those among them that
 took ``q_start``,
 ``backward_launches`` the backward calls (one C call on one stream: a
 pre-pass, then one wgmma kernel or two mma.sync / CUDA-core kernels, as
-:func:`backward_body` says).
+:func:`backward_body` says).  Under
+:func:`repro_torch.device.analysis_mode` a call on meta tensors is
+traced: it counts and reports its cost (:func:`flash_cost`,
+:func:`flash_backward_cost`) and returns outputs of the launch's shapes
+without building the kernel.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.device import on_card
+from repro_torch.kernels import _build, record_cost
 from repro_torch.kernels.flash_attention.ref import (
     attention_backward_ref,
     attention_ref,
@@ -85,9 +91,11 @@ BWD_TILE_K = 128  # ... and key tile
 
 def backward_body(code: int, Dh: int) -> str:
     """The body of ``flash_backward.cu`` that serves dtype ``code`` at head
-    dim ``Dh``: float32 on the CUDA cores; bf16 at Dh 64 and 128 in one
-    pass on wgmma and TMA, at Dh 16 and 80 in two passes on mma.sync."""
-    if Dh not in _build.FLASH_HEAD_DIMS or code not in (0, 1):
+    dim ``Dh``: float32 on the CUDA cores (every head dim of
+    ``FLASH_HEAD_DIMS``); bf16 at Dh 64 and 128 in one pass on wgmma and
+    TMA, at Dh 16 and 80 in two passes on mma.sync."""
+    dims = _build.FLASH_HEAD_DIMS if code == 0 else _build.FLASH_BF16_HEAD_DIMS
+    if Dh not in dims or code not in (0, 1):
         raise ValueError(f"no flash_backward body for dtype code {code} at "
                          f"head_dim {Dh}")
     if code == 0:
@@ -157,6 +165,76 @@ def _backward_scratch(q: torch.Tensor, k: torch.Tensor, code: int):
     return scratch, ints
 
 
+def attention_pairs(B: int, Sq: int, Skv: int, *, causal: bool,
+                    window: Optional[int] = None,
+                    q_start: Union[None, int, Sequence[int]] = None,
+                    lens: Optional[Sequence[int]] = None) -> int:
+    """Unmasked (query row, key) pairs of one query head over ``B`` rows:
+    query row i of batch row b at position ``q_start[b] + i`` (an int
+    for every row; 0 without), the keys of row b at ``0 .. lens[b] - 1``
+    (``Skv`` without), causal and windowed as the kernel masks them."""
+    starts = (list(q_start) if isinstance(q_start, (list, tuple))
+              else [q_start or 0] * B)
+    lens = [Skv] * B if lens is None else list(lens)
+    memo: Dict[Tuple[int, int], int] = {}
+    total = 0
+    for s0, n in zip(starts, lens):
+        if (s0, n) not in memo:
+            qpos = np.arange(s0, s0 + Sq, dtype=np.int64)
+            hi = np.minimum(qpos, n - 1) if causal else np.full_like(
+                qpos, n - 1)
+            lo = (np.zeros_like(qpos) if window is None
+                  else np.maximum(qpos - window + 1, 0))
+            memo[(s0, n)] = int(np.clip(hi - lo + 1, 0, None).sum())
+        total += memo[(s0, n)]
+    return total
+
+
+def flash_cost(B: int, Sq: int, Skv: int, Hq: int, Hkv: int, Dh: int,
+               esz: int, *, causal: bool, window: Optional[int] = None,
+               q_start: Union[None, int, Sequence[int]] = None,
+               lens: Optional[Sequence[int]] = None) -> Tuple[float, float]:
+    """(flops, bytes) of one ``flash_prefill`` launch: 4 Dh operations a
+    valid (query, key) pair and query head; q read and out written once,
+    each row's valid keys' K and V read once (``esz`` bytes an
+    element)."""
+    pairs = attention_pairs(B, Sq, Skv, causal=causal, window=window,
+                            q_start=q_start, lens=lens) * Hq
+    keys = B * Skv if lens is None else sum(lens)
+    nbytes = (2 * B * Sq * Hq * Dh + 2 * keys * Hkv * Dh) * esz
+    return 4.0 * pairs * Dh, float(nbytes)
+
+
+def flash_backward_cost(B: int, Sq: int, Skv: int, Hq: int, Hkv: int,
+                        Dh: int, esz: int, *, causal: bool,
+                        window: Optional[int] = None) -> Tuple[float, float]:
+    """(flops, bytes) of one ``flash_backward`` call: per valid (query,
+    key) pair and query head S = q.k, dP = dO.v, dV += P dO, dK += dS q,
+    dQ += dS k (10 Dh); q, out, dout and k, v read once, dq, dk, dv
+    written once, and the float32 lse read once."""
+    pairs = attention_pairs(B, Sq, Skv, causal=causal,
+                            window=window) * Hq
+    nbytes = (4 * B * Sq * Hq * Dh + 4 * B * Skv * Hkv * Dh) * esz \
+        + B * Hq * Sq * 4
+    return 10.0 * pairs * Dh, float(nbytes)
+
+
+_INT_SCRATCH = ("ticket", "turns", "kv_turns")
+
+
+def _traced_scratch(q: torch.Tensor, k: torch.Tensor, code: int):
+    """A traced backward's scratch on q's (meta) device, sized by
+    :func:`backward_scratch_shapes` as the library sizes the real one:
+    (floats, int32s)."""
+    B, Sq, Hq, Dh = q.shape
+    shapes = backward_scratch_shapes(B, Sq, k.shape[1], Hq, k.shape[2], Dh,
+                                     code)
+    n = [sum(int(np.prod(s)) for name, s in shapes.items()
+             if (name in _INT_SCRATCH) == is_int) for is_int in (False, True)]
+    return (torch.empty(n[0], dtype=torch.float32, device=q.device),
+            torch.empty(n[1], dtype=torch.int32, device=q.device))
+
+
 def _check_shapes(q, k, v):
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
@@ -172,8 +250,9 @@ def _check_card(q, k, named) -> int:
     """The checks every launch makes; returns the dtype code."""
     code = _build.dtype_code(q)
     Dh = q.shape[3]
-    if Dh not in _build.FLASH_HEAD_DIMS:
-        raise ValueError(f"head_dim {Dh} not in {_build.FLASH_HEAD_DIMS}")
+    dims = _build.FLASH_HEAD_DIMS if code == 0 else _build.FLASH_BF16_HEAD_DIMS
+    if Dh not in dims:
+        raise ValueError(f"head_dim {Dh} not in {dims} ({q.dtype})")
     G = q.shape[2] // k.shape[2]
     if code == 1 and G > 64:  # a bf16 forward block holds 64 (pos, head) rows
         raise ValueError(f"at most 64 q heads per kv head, got {G}")
@@ -186,7 +265,6 @@ def _launch(q, k, v, causal, window, softcap, kv_len, q_start,
             lse: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One ``flash_prefill`` launch; ``lse`` (float32, (B, Hq, Sq)), when
     given, receives each row's log-sum-exp."""
-    global launches, q_offset_launches
     B, Sq, Hq, Dh = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     code = _check_card(q, k, (("q", q), ("k", k), ("v", v)))
@@ -199,6 +277,8 @@ def _launch(q, k, v, causal, window, softcap, kv_len, q_start,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    if q.is_meta:  # traced (analysis mode): no kernel
+        return _counted(out, q, k, causal, window, q_start)
     fn, err_str = _kernel()
     with torch.cuda.device(q.device):
         err = fn(
@@ -216,9 +296,22 @@ def _launch(q, k, v, causal, window, softcap, kv_len, q_start,
         raise RuntimeError(
             f"flash_prefill launch failed: {err_str(err).decode()} ({err})"
         )
+    return _counted(out, q, k, causal, window, q_start)
+
+
+def _counted(out, q, k, causal, window, q_start):
+    """Count one ``flash_prefill`` launch and report its cost from the
+    shapes (every key valid; with ``q_start`` the rows taken to end at the
+    last key)."""
+    global launches, q_offset_launches
+    B, Sq, Hq, Dh = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
     launches += 1
     head_launches[Hq] = head_launches.get(Hq, 0) + 1
     q_offset_launches += q_start is not None
+    record_cost("flash_prefill", flash_cost, B, Sq, Skv, Hq, Hkv, Dh,
+                q.element_size(), causal=causal, window=window,
+                q_start=None if q_start is None else Skv - Sq)
     return out
 
 
@@ -242,7 +335,6 @@ def flash_backward(
     CPU tensor the plain backward (:func:`ref.attention_backward_ref`,
     which needs neither ``out`` nor ``lse``).  ``kv_len`` and ``q_start`` are refused: the
     training path never passes them."""
-    global backward_launches
     if kv_len is not None or q_start is not None:
         raise ValueError("flash_backward takes no kv_len or q_start: the "
                          "training path attends over whole rows from 0")
@@ -254,7 +346,7 @@ def flash_backward(
     if q.device.type == "cpu":
         dq, dk, dv = attention_backward_ref(q, k, v, dout, **kw)
         return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
-    if q.device.type != "cuda":
+    if not on_card(q):
         raise ValueError(f"no flash_backward for device {q.device}")
     B, Sq, Hq, Dh = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
@@ -270,6 +362,9 @@ def flash_backward(
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0 or k.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
+    if q.is_meta:  # traced: the scratch the library sizes, no kernel
+        _traced_scratch(q, k, code)
+        return _backward_counted(dq, dk, dv, q, k, causal, window)
     fn, _, _, err_str = _backward_kernel()
     with torch.cuda.device(q.device):
         scratch, ints = _backward_scratch(q, k, code)
@@ -288,7 +383,17 @@ def flash_backward(
         raise RuntimeError(
             f"flash_backward launch failed: {err_str(err).decode()} ({err})"
         )
+    return _backward_counted(dq, dk, dv, q, k, causal, window)
+
+
+def _backward_counted(dq, dk, dv, q, k, causal, window):
+    """Count one ``flash_backward`` call and report its cost."""
+    global backward_launches
+    B, Sq, Hq, Dh = q.shape
     backward_launches += 1
+    record_cost("flash_backward", flash_backward_cost, B, Sq, k.shape[1],
+                Hq, k.shape[2], Dh, q.element_size(), causal=causal,
+                window=window)
     return dq, dk, dv
 
 
@@ -341,7 +446,7 @@ def flash_attention(
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window,
                              softcap=softcap, kv_len=kv_len, q_start=q_start)
-    if q.device.type != "cuda":
+    if not on_card(q):
         raise ValueError(f"no flash_attention for device {q.device}")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):

@@ -11,7 +11,11 @@ head count H, which on a mesh slice is the rank's share), and
 ``backward_launches`` backward calls.  In
 bfloat16 a forward call is two launches, the C.B^T pre-pass and the scan;
 a backward call is three (the state gradient's walk, the sub-chunks, the
-sums over head groups); each call counts once.
+sums over head groups); each call counts once.  Under
+:func:`repro_torch.device.analysis_mode` a call on meta tensors is
+traced: it counts and reports its cost (:func:`ssd_scan_cost`,
+:func:`ssd_backward_cost`) and returns outputs of the launch's shapes
+without building the kernel.
 """
 from __future__ import annotations
 
@@ -21,7 +25,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.device import on_card
+from repro_torch.kernels import _build, record_cost
 from repro_torch.kernels.ssd.ref import ssd_backward_ref, ssd_ref
 
 launches = 0
@@ -101,6 +106,41 @@ def backward_scratch_shapes(B: int, S: int, H: int, P: int, N: int,
     return (states, (B, S, groups, N), (B, S, groups, N), states[:3])
 
 
+def ssd_scan_cost(B: int, S: int, H: int, P: int, N: int, chunk: int,
+                  esz: int, states: bool = False) -> Tuple[float, float]:
+    """(flops, bytes) of one ``ssd_scan`` call with the reference's
+    ``chunk``: per chunk of L = min(chunk, S) rows the causal half of
+    C.B^T (shared by the heads) and per head the intra-chunk, inter-chunk
+    and state products; x, dt, A, B, C read once, y and the final state
+    written once (and the sub-chunk states with ``states``)."""
+    L = min(chunk, S)
+    nbytes = (2 * B * S * H * P + 2 * B * S * N) * esz \
+        + (B * S * H + H + B * H * P * N) * 4
+    if states:
+        nbytes += 4 * B * -(-S // SUB_CHUNK) * H * P * N
+    flops = float(B * (S // L)) * (L * (L + 1) * N
+                                    + H * (L * (L + 1) * P + 4 * L * N * P))
+    return flops, float(nbytes)
+
+
+def ssd_backward_cost(B: int, S: int, H: int, P: int, N: int, esz: int,
+                      dstate: bool = False) -> Tuple[float, float]:
+    """(flops, bytes) of one ``ssd_backward`` call: per (b, h) and 64-row
+    sub-chunk of T = 64 * 65 / 2 causal pairs, dy.x^T, the intra-chunk
+    dx, dB and dC (T P, T P, 2 T N) and the state terms of dx, dB, dC and
+    the state gradient's walk (4 L N P), C.B^T (T N) once per (b,
+    sub-chunk), two operations a multiply-add; x, dt, A, B, C, dy (and
+    dstate) read once and dx, ddt, dA, dB, dC written once (the forward's
+    states and the scratch are the design's own traffic)."""
+    L = SUB_CHUNK
+    n_sub = -(-S // L)
+    T = L * (L + 1) // 2
+    nbytes = (3 * B * S * H * P + 4 * B * S * N) * esz \
+        + (2 * B * S * H + 2 * H) * 4 + (4 * B * H * P * N if dstate else 0)
+    macs = B * n_sub * (T * N + H * (2 * T * P + 2 * T * N + 4 * L * N * P))
+    return 2.0 * macs, float(nbytes)
+
+
 def _check_shapes(x, dt, A, Bm, Cm, chunk):
     if x.dim() != 4 or dt.dim() != 3 or A.dim() != 1 or Bm.dim() != 3 \
             or Bm.shape != Cm.shape:
@@ -150,11 +190,12 @@ def _check_card(x, dt, A, Bm, Cm) -> int:
     return code
 
 
-def _launch(x, dt, A, Bm, Cm, states: Optional[torch.Tensor] = None):
+def _launch(x, dt, A, Bm, Cm, states: Optional[torch.Tensor] = None,
+            chunk: int = 256):
     """One ``repro_ssd_scan`` call on checked card operands; ``states``
     (float32, :func:`states_shape`) receives the state entering each
-    sub-chunk, for the backward."""
-    global launches
+    sub-chunk, for the backward.  ``chunk`` (the reference's) only
+    enters the reported cost."""
     code = _check_card(x, dt, A, Bm, Cm)
     B, S, H, P = x.shape
     N = Bm.shape[-1]
@@ -162,6 +203,8 @@ def _launch(x, dt, A, Bm, Cm, states: Optional[torch.Tensor] = None):
     state = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
     if y.numel() == 0:
         return y, state
+    if x.is_meta:  # traced (analysis mode): no kernel
+        return _counted(y, state, N, chunk, states is not None)
     fn, _, err_str = _kernel()
     n_cb = _cb_scratch_floats(B, S, code)
     cb = (torch.empty(n_cb, dtype=torch.float32, device=x.device)
@@ -180,8 +223,17 @@ def _launch(x, dt, A, Bm, Cm, states: Optional[torch.Tensor] = None):
         raise RuntimeError(
             f"ssd_scan launch failed: {err_str(err).decode()} ({err})"
         )
+    return _counted(y, state, N, chunk, states is not None)
+
+
+def _counted(y, state, N: int, chunk: int, states: bool):
+    """Count one ``ssd_scan`` call and report its cost."""
+    global launches
+    B, S, H, P = y.shape
     launches += 1
     head_launches[H] = head_launches.get(H, 0) + 1
+    record_cost("ssd_scan", ssd_scan_cost, B, S, H, P, N, chunk,
+                y.element_size(), states)
     return y, state
 
 
@@ -201,7 +253,6 @@ def ssd_backward(
     ``ssd_backward.cu``, reading the ``states`` the training forward wrote;
     on a CPU tensor the plain backward (:func:`ref.ssd_backward_ref`, which
     needs no ``states``)."""
-    global backward_launches
     _check_shapes(x, dt, A, Bm, Cm, x.shape[1])
     B, S, H, P = x.shape
     N = Bm.shape[-1]
@@ -213,7 +264,7 @@ def ssd_backward(
     if x.device.type == "cpu":
         dx, ddt, dA, dB, dC = ssd_backward_ref(x, dt, A, Bm, Cm, dy, dstate)
         return dx.to(x.dtype), ddt, dA, dB.to(Bm.dtype), dC.to(Cm.dtype)
-    if x.device.type != "cuda":
+    if not on_card(x):
         raise ValueError(f"no ssd_backward for device {x.device}")
     code = _check_card(x, dt, A, Bm, Cm)
     if dy.dtype != x.dtype:
@@ -239,10 +290,12 @@ def ssd_backward(
     dC = torch.empty((B, S, N), dtype=Cm.dtype, device=x.device)
     if dx.numel() == 0:
         return dx.zero_(), ddt.zero_(), dA.zero_(), dB.zero_(), dC.zero_()
-    fn, _, err_str = _backward_kernel()
     dS, dBp, dCp, dAp = (
         torch.empty(shape, dtype=torch.float32, device=x.device)
         for shape in backward_scratch_shapes(B, S, H, P, N, code))
+    if x.is_meta:  # traced (analysis mode): no kernel
+        return _backward_counted((dx, ddt, dA, dB, dC), N, dstate)
+    fn, _, err_str = _backward_kernel()
     with torch.cuda.device(x.device):
         err = fn(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
@@ -259,8 +312,17 @@ def ssd_backward(
         raise RuntimeError(
             f"ssd_backward launch failed: {err_str(err).decode()} ({err})"
         )
+    return _backward_counted((dx, ddt, dA, dB, dC), N, dstate)
+
+
+def _backward_counted(grads, N: int, dstate):
+    """Count one ``ssd_backward`` call and report its cost."""
+    global backward_launches
+    B, S, H, P = grads[0].shape
     backward_launches += 1
-    return dx, ddt, dA, dB, dC
+    record_cost("ssd_backward", ssd_backward_cost, B, S, H, P, N,
+                grads[0].element_size(), dstate is not None)
+    return grads
 
 
 class _SSDScan(torch.autograd.Function):
@@ -270,7 +332,7 @@ class _SSDScan(torch.autograd.Function):
     backward the plain backward."""
 
     @staticmethod
-    def forward(ctx, x, dt, A, Bm, Cm):
+    def forward(ctx, x, dt, A, Bm, Cm, chunk=256):
         ctx.set_materialize_grads(False)
         if x.device.type == "cpu":
             states = None
@@ -279,7 +341,7 @@ class _SSDScan(torch.autograd.Function):
             B, S, H, P = x.shape
             states = torch.empty(states_shape(B, S, H, P, Bm.shape[-1]),
                                  dtype=torch.float32, device=x.device)
-            y, state = _launch(x, dt, A, Bm, Cm, states)
+            y, state = _launch(x, dt, A, Bm, Cm, states, chunk)
         ctx.save_for_backward(x, dt, A, Bm, Cm, states)
         return y, state
 
@@ -293,8 +355,9 @@ class _SSDScan(torch.autograd.Function):
         dy = dy.contiguous()
         if dy.data_ptr() % 16:
             dy = dy.clone()
-        return ssd_backward(x, dt, A, Bm, Cm, dy, states,
-                            None if dstate is None else dstate.contiguous())
+        return (*ssd_backward(x, dt, A, Bm, Cm, dy, states,
+                              None if dstate is None
+                              else dstate.contiguous()), None)
 
 
 def ssd_scan(
@@ -317,9 +380,9 @@ def ssd_scan(
     _check_shapes(x, dt, A, Bm, Cm, chunk)
     if x.device.type == "cpu":
         return ssd_ref(x, dt, A, Bm, Cm)
-    if x.device.type != "cuda":
+    if not on_card(x):
         raise ValueError(f"no ssd_scan for device {x.device}")
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, dt, A, Bm, Cm)):
-        return _SSDScan.apply(x, dt, A, Bm, Cm)
-    return _launch(x, dt, A, Bm, Cm)
+        return _SSDScan.apply(x, dt, A, Bm, Cm, chunk)
+    return _launch(x, dt, A, Bm, Cm, chunk=chunk)

@@ -11,9 +11,12 @@ layers: the model runs its attention and its prefill SSD scan through
 the Hopper kernels in ``repro_torch.kernels`` and keeps these as the
 oracle and the plain path.  MoE dispatch and the expert products are
 plain PyTorch on both paths, as the JAX package computes them outside
-any Pallas kernel.  ``analysis_mode`` (loop-free lowering for XLA's
-cost analysis) has no counterpart: it comes with the dry-run (ROADMAP
-queue 1, item 10).
+any Pallas kernel.  :func:`analysis_mode` and :func:`in_analysis_mode`
+are the reference's names for the dry-run's mode: in the reference it
+makes the lowering loop-free for XLA's cost analysis; in the port it
+means "trace, don't touch the device" (it lives in
+:mod:`repro_torch.device`, which the kernel wrappers import, and is
+re-exported here).
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.device import analysis_mode, in_analysis_mode  # noqa: F401
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.ssd import ref as ssd_ref
 

@@ -75,7 +75,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
-from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.device import DeviceLike, on_card, resolve_device
 from repro_torch.distributed import context as ctx
 from repro_torch.distributed import sharding as SH
 from repro_torch.kernels.decode_attention import (
@@ -376,7 +376,7 @@ def _row_parallel(h: torch.Tensor, w: torch.Tensor, full_in: int):
     past ``chip_smoke.py``'s ``ROUTE_MARGIN``.)"""
     if w.shape[-2] == full_in:
         return h @ w
-    if h.is_cuda and h.dtype == w.dtype == torch.bfloat16:
+    if on_card(h) and h.dtype == w.dtype == torch.bfloat16:
         y = torch.mm(h.reshape(-1, h.shape[-1]), w, out_dtype=torch.float32)
         y = y.reshape(*h.shape[:-1], w.shape[-1])
     else:
@@ -776,7 +776,7 @@ def lm_logits(params: Params, cfg: ModelConfig, hidden: torch.Tensor):
     does, with no float32 copy of the head; elsewhere both operands are
     upcast."""
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    if hidden.is_cuda and head.dtype == hidden.dtype == torch.bfloat16:
+    if on_card(hidden) and head.dtype == hidden.dtype == torch.bfloat16:
         logits = torch.mm(hidden.reshape(-1, hidden.shape[-1]), head,
                           out_dtype=torch.float32)
         logits = logits.reshape(*hidden.shape[:-1], head.shape[-1])

@@ -14,6 +14,7 @@ from repro_torch.training.optimizer import (  # noqa: F401
     adamw_update,
     cosine_schedule,
     init_opt_state,
+    opt_state_specs,
     wsd_schedule,
 )
 from repro_torch.training.trainstep import (  # noqa: F401

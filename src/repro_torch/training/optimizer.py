@@ -18,8 +18,9 @@ so the slices give the same bits, and its float32 temporaries stay
 small (mamba2-2.7b's stacked ``in_proj`` has 1.73 B elements; whole, the
 temporaries of one update took over 30 GB).  A divisor is a tensor on the operand's device
 (:func:`_div`): the card multiplies by the reciprocal of a host scalar,
-which rounds differently.  The reference's ``opt_state_specs`` belongs
-to mesh training (ROADMAP queue 1, item 13).
+which rounds differently.  :func:`opt_state_specs` is the reference
+layout's spec of the state (the dry-run's); mesh training, which would
+place the state by it, is ROADMAP queue 1, item 13.
 """
 from __future__ import annotations
 
@@ -72,6 +73,12 @@ def init_opt_state(params: PyTree) -> Dict[str, PyTree]:
         "v": tree_map(zeros, params),
         "step": torch.zeros((), dtype=torch.int32, device=first.device),
     }
+
+
+def opt_state_specs(param_specs: PyTree) -> Dict[str, PyTree]:
+    """The reference layout's specs of the optimizer state: the moments
+    mirror the params' specs, ``step`` is a scalar (the spec ``()``)."""
+    return {"m": param_specs, "v": param_specs, "step": ()}
 
 
 def global_norm(tree: PyTree) -> torch.Tensor:

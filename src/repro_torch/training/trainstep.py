@@ -26,6 +26,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.device import on_card
 from repro_torch.models import layers as L
 from repro_torch.models import model as M
 from repro_torch.training._tree import leaves, tree_map, unflatten
@@ -74,7 +75,7 @@ class _Logits(torch.autograd.Function):
 def _logits(h: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
     """float32 logits of (B, c, d) ``h`` against the (d, V) head."""
     B, c, d = h.shape
-    if h.is_cuda and h.dtype == head.dtype == torch.bfloat16:
+    if on_card(h) and h.dtype == head.dtype == torch.bfloat16:
         return _Logits.apply(h.reshape(B * c, d), head).reshape(B, c, -1)
     return h.float() @ head.float()
 

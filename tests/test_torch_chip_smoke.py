@@ -922,6 +922,29 @@ def test_mixer_phase_names_registered_configs():
     assert jamba.has_mamba and jamba.has_attention and jamba.moe is not None
 
 
+def test_mixer_phase_cuts_requests_not_depth():
+    """Phase 21 serves fewer requests than phases 4 and 6, never fewer
+    layers: the first ``MIXER_REQUESTS`` of phase 4's requests (at least
+    the 4 a dense serve needs) and ``MIXER_TURNS`` turns of the
+    multi-turn workload, whose later turns still extend the earlier
+    ones' prompts (the prefix cache's reuse)."""
+    from types import SimpleNamespace
+
+    from repro_torch.serving import Request
+
+    assert all(n is None or label == "jamba"
+               for label, _, n, _ in cs.MIXER_MODELS)
+    reqs = cs.phase4_requests(SimpleNamespace(vocab_size=1000))
+    assert 4 <= cs.MIXER_REQUESTS < len(reqs)
+    assert cs.MIXER_TURNS >= 2
+    turns = cs.multiturn_workload(Request, 1000, n_turns=cs.MIXER_TURNS)
+    assert len(turns) == 2 * cs.MIXER_TURNS
+    for late in turns[2:]:
+        early = turns[late.rid - 2]
+        assert late.conv_id == early.conv_id
+        assert late.prompt_tokens[:early.prompt_len] == early.prompt_tokens
+
+
 def _norms(tree, path=()):
     """Elements of the leaves the rules keep whole on every rank."""
     return sum(leaf.numel() for name, leaf in cs.named_leaves(tree)
@@ -1049,3 +1072,43 @@ def test_mixer_checks_hold_phase_21(fault):
         return
     with pytest.raises(RuntimeError):
         cs.mixer_checks(ranks, cfgs)
+
+
+def test_dryrun_and_demo_phases_name_what_they_run():
+    """Phase 22 traces the registered llama-3.1-8b (its weights then
+    serve phase 4) and phase 18's minicpm-2b; phase 23 trains the JAX
+    demo's float32 config at head dim 32, which only the flash kernels'
+    float32 bodies take."""
+    import sys
+
+    from repro_torch.configs.registry import REGISTRY
+    from repro_torch.kernels import _build
+
+    assert cs.DRYRUN_ARCH == "llama-3.1-8b" and cs.DRYRUN_ARCH in REGISTRY
+    assert cs.TRAIN_ARCH in REGISTRY
+    assert 0 < cs.RESIDENT_TOL <= 0.01 and cs.PEAK_TOL <= 0.25
+    assert cs.PEAK_SLACK == 64 * 2 ** 20
+    sys.path.insert(0, str(ROOT / "examples"))
+    import train_small_torch as T
+
+    cfg = T.model_config(False)
+    assert (cfg.head_dim, cfg.dtype) == (32, "float32")
+    assert cfg.head_dim in _build.FLASH_HEAD_DIMS
+    assert cfg.head_dim not in _build.FLASH_BF16_HEAD_DIMS
+    assert cs.train_launches(cfg) == {"flash_prefill": 8,
+                                      "flash_backward": 4, "ssd_scan": 0,
+                                      "ssd_backward": 0}
+
+
+def test_kernel_bounds_come_from_the_wrappers_cost_functions():
+    """The kernel phase's roofline bound of the llama prefill row is the
+    one PERF.md quotes, from ``flash_cost`` (the dry-run's source too)."""
+    from repro_torch.kernels.flash_attention import ops as fops
+
+    ms, by = cs.bound(*fops.flash_cost(1, 512, 512, 32, 8, 128, 2,
+                                       causal=True, lens=[341]), "bfloat16")
+    assert (round(ms, 5), by) == (0.00292, "bytes")
+    src = (ROOT / "chip_smoke.py").read_text()
+    for name in ("flash_cost", "flash_backward_cost", "ring_decode_cost",
+                 "paged_cost", "ssd_scan_cost", "ssd_backward_cost"):
+        assert f"ops.{name}(" in src, name

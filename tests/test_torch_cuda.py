@@ -1586,6 +1586,70 @@ def test_flash_backward_matches_plain_backward(card, dtype, Dh, B, S, Hq, Hkv,
     _grads_close(got, attention_backward_ref(q, k, v, dout, **kw), dtype)
 
 
+@pytest.mark.parametrize("B,S,Hq,Hkv,causal,window,softcap", BWD_CASES)
+def test_flash_dh32_float32_matches_plain(card, B, S, Hq, Hkv, causal,
+                                          window, softcap):
+    """Head dim 32 (the demo configs of examples/train_small_torch.py) in
+    float32: forward and backward against the plain versions, one
+    launch each, a second backward bitwise the first."""
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_backward_ref,
+    )
+
+    q, k, v, dout = _bwd_inputs(card, "float32", B, S, Hq, Hkv, 32, S + 32)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    n0, b0 = fops.launches, fops.backward_launches
+    out, *got = _kernel_grads(q, k, v, dout, **kw)
+    _, *again = _kernel_grads(q, k, v, dout, **kw)
+    torch.cuda.synchronize()
+    assert (fops.launches, fops.backward_launches) == (n0 + 2, b0 + 2)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    torch.testing.assert_close(out, attention_ref(q, k, v, **kw),
+                               atol=TOL["float32"], rtol=TOL["float32"])
+    _grads_close(got, attention_backward_ref(q, k, v, dout, **kw),
+                 "float32")
+
+
+def test_flash_dh32_is_float32_only(card):
+    """bf16 at head dim 32 has no body: the wrappers refuse it before any
+    launch."""
+    q = torch.zeros((1, 64, 4, 32), dtype=torch.bfloat16, device=card)
+    n0 = fops.launches
+    with pytest.raises(ValueError, match="head_dim 32"):
+        flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="no flash_backward body"):
+        fops.backward_body(1, 32)
+    assert fops.launches == n0
+
+
+@pytest.mark.parametrize("arch,kind", [
+    ("llama-3.1-8b", "decode"), ("llama-3.1-8b", "prefill"),
+    ("minicpm-2b", "train"), ("mamba2-2.7b", "train"),
+    ("qwen3-moe-30b-a3b", "prefill")])
+def test_dryrun_trace_equals_the_card_on_reduced_steps(card, arch, kind):
+    """launch/dryrun.py's meta trace of a reduced step and the same step
+    on the card under the same counters: equal launches, FLOPs and
+    bytes (chip_smoke.py phase 22 does this at full width)."""
+    import dataclasses
+
+    from repro_torch.configs.shapes import ShapeSuite
+    from repro_torch.device import analysis_mode
+    from repro_torch.launch import dryrun as D
+
+    cfg = dataclasses.replace(REGISTRY[arch].reduced(), n_layers=2 * len(
+        REGISTRY[arch].reduced().block_pattern))
+    shape = ShapeSuite(kind, kind, 64, 2)
+    with analysis_mode():
+        pred = D.trace(*D.build_cell(cfg, shape))
+    got = D.trace(*D.build_cell(
+        cfg, shape, device=card,
+        generator=torch.Generator(device=card).manual_seed(3)),
+        track_memory=False)
+    assert got.launches == pred.launches and got.launches
+    assert got.flops == pred.flops and got.kernel_flops > 0
+    assert got.bytes == pred.bytes
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_backward_repeats_bitwise_and_saves_the_row_lse(card, dtype):
     """Two backward calls on the same inputs agree bit for bit (no float

@@ -139,7 +139,7 @@ def test_backward_switch_names_the_flash_head_dims():
 @pytest.mark.parametrize("code,Dh,body", [
     (1, 64, "wgmma"), (1, 128, "wgmma"), (1, 16, "mma_sync"),
     (1, 80, "mma_sync"), (0, 64, "cuda_cores"), (0, 128, "cuda_cores"),
-    (0, 16, "cuda_cores"), (0, 80, "cuda_cores"),
+    (0, 16, "cuda_cores"), (0, 80, "cuda_cores"), (0, 32, "cuda_cores"),
 ])
 def test_backward_body_by_dtype_and_head_dim(code, Dh, body):
     """bf16 at Dh 64 and 128 (every model the port trains at full width)
@@ -149,8 +149,10 @@ def test_backward_body_by_dtype_and_head_dim(code, Dh, body):
     assert body in fops.BACKWARD_BODIES
 
 
-@pytest.mark.parametrize("code,Dh", [(1, 96), (1, 256), (2, 64), (0, 32)])
+@pytest.mark.parametrize("code,Dh", [(1, 96), (1, 256), (2, 64), (1, 32),
+                                     (0, 48)])
 def test_backward_body_refuses_what_no_body_takes(code, Dh):
+    """Dh 32 has the float32 body only (the demo configs)."""
     with pytest.raises(ValueError, match="no flash_backward body"):
         fops.backward_body(code, Dh)
 
