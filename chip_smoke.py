@@ -60,9 +60,20 @@ Phases, in order; any failure exits non-zero:
    head-sharded decode-attention wrappers against their plain versions
    on the full tensors, then serves through a tp=2 P/D cluster (one
    prefill and one decode instance on the same two ranks) dense, paged
-   and speculative, as phases 4, 6 and 7; both ranks must emit the same
+   and speculative, as phases 4, 6 and 7, on the first ``MESH_REQUESTS``
+   of phase 4's requests and ``MESH_TURNS`` turns of phase 6's.  Then, the drafter freed,
+   each rank quantizes its shards on the slice (``quantize_params``
+   with the mesh: each bf16 leaf freed as it goes, a row-parallel
+   leaf's absmax taken over "model"), reports their checksums, and
+   serves ``MESH_INT8_REQUESTS`` of phase 4's requests (those with the
+   fewest decode steps) dense with an int8 ring and the first
+   ``MESH_INT8_TURNS`` turn of phase 6's two conversations paged with
+   int8 weights (the second reuses the first's system-prompt pages).  Both ranks must emit the same
    streams, no rank captures a graph (mesh slices run eagerly), and the
-   parent replays one stream per serve through the meshless plain path;
+   parent replays one stream per bf16 serve and every int8 stream
+   through the meshless plain path (the int8 ones on the meshless
+   quantization of the same weights), and prints the int8 serves'
+   iteration and peak beside the bf16 ones;
 10. with llama freed, ministral-3b (G = 3) at full width and depth in
    bf16, served as phase 4 (dense ring, step graphs) with a replay, then
    as phase 7 (paged pool, prefix reuse, speculative verify at
@@ -87,9 +98,10 @@ Phases, in order; any failure exits non-zero:
    phase 4's requests dense with step graphs and again eagerly (equal
    streams), then the multi-turn workload paged + speculative; a MoE
    token depends on its batch-mates through capacity drops, so every
-   serve is replayed batch for batch (:func:`batch_replay`: the recorded
-   prefill, insert and step calls re-run through the plain path), with
-   the dropped entries a decode step;
+   serve (the eager twin by its equal streams) is replayed batch for
+   batch (:func:`batch_replay`: the recorded prefill, insert and step
+   calls re-run through the plain path), with the dropped entries a
+   decode step;
 15. jamba-v0.1-52b at full width cut to one super-block (8 layers:
    7 Mamba2 + 1 attention, 4 MoE of 16 experts top-2 + 4 MLP, 26.5 GB):
    phase 4's requests dense with step graphs, seven ssd_scan and one
@@ -108,8 +120,11 @@ Phases, in order; any failure exits non-zero:
    which is then freed) and an int8 ring: phase 4's requests dense with
    step graphs, a stream replayed through the plain path on the same
    quantized weights and rings, and served again eagerly with the same
-   streams.  Phase 14 also serves qwen3-moe with int8 dispatch on its
-   weights, replayed batch for batch;
+   streams.  The meshless tree's checksums (codes summed as int64,
+   scales as float64, block by block) must equal those of phase 9's
+   shards quantized on the slice, joined by each leaf's placement.
+   Phase 14 also serves qwen3-moe with int8 dispatch on its weights,
+   replayed batch for batch;
 18. minicpm-2b at full width and depth trained in bf16 on
    ``launch/train.py``'s synthetic batch (B=4, S=1,024, remat, CE chunks
    of 512): step 1's loss against the plain path and every gradient leaf
@@ -145,7 +160,14 @@ Phases, in order; any failure exits non-zero:
    on the first ``MIXER_TURNS`` turns of phase 6's multi-turn workload
    (the JAX package's sharded-MoE acceptance scenario), (c)
    jamba-v0.1-52b cut to one super-block (SSD heads, attention heads and
-   experts all split) dense on those requests.  Both ranks must emit the
+   experts all split) dense on those requests.  After the collective
+   probe, qwen3-moe serves ``MIXER_INT8_REQUESTS`` of phase 4's
+   requests (the fewest decode steps) with int8 dispatch on its bf16 shards (the gather moves
+   int8 codes and row scales; probed again, its bytes a layer beside
+   the bf16 gather's), and mamba2's shards, quantized on the slice
+   (``in_proj``'s scales cut by segment, ``conv_w``'s and
+   ``out_proj``'s taken over "model"), serve those requests with int8
+   weights.  Both ranks must emit the
    same streams of ``decode_len + 1`` tokens, hold the rules' local
    parameter counts, launch ssd_scan and flash_prefill at their share of
    the heads only (and the decode wrapper's sharded branch at their kv
@@ -268,6 +290,15 @@ PAGE_SIZE = 16
 PMAX = MAX_LEN // PAGE_SIZE
 POOL_PAGES = (2 * SLOTS + 8) * PMAX  # the backend's default pool
 MESH_TP = 2  # phase 9: ranks of the world, each instance's slice width
+# gloo stages phase 9's collectives through the host, so its iterations
+# take 150-720 ms and the phase's wall varies 2x between calls: it serves
+# fewer requests than phases 4, 6 and 7, at full depth
+MESH_REQUESTS = 4  # the first of phase 4's requests, the bf16 dense serve
+MESH_TURNS = 2  # of phase 6's multi-turn workload, bf16 paged and spec
+# phase 9's int8 serves, after its bf16 ones: requests cut, never depth
+MESH_INT8_REQUESTS = 3  # of phase 4's requests (the shortest), dense
+MESH_INT8_TURNS = 1  # of phase 6's multi-turn workload (2 requests), paged
+MESH_SERVES = ("dense", "paged", "spec", "int8-dense", "int8-paged")
 # phase 13: gemma2-27b past its window, 4 slots of 8,192 + 64 positions
 GEMMA_WINDOW = 4096
 GEMMA_BUCKET = 8192
@@ -1655,6 +1686,16 @@ def phase4_requests(cfg):
                          cfg.vocab_size, seed=1)
 
 
+def shortest_requests(cfg, n: int):
+    """The ``n`` of phase 4's requests with the fewest decode steps (the
+    earlier one on a tie), in arrival order: a cut of the workload that
+    keeps its prompts and its batching, at the fewest iterations."""
+    reqs = phase4_requests(cfg)
+    keep = sorted(sorted(range(len(reqs)),
+                         key=lambda i: (reqs[i].decode_len, i))[:n])
+    return [reqs[i] for i in keep]
+
+
 def kernel_layers(cfg, name: str) -> int:
     """Layers of ``cfg`` that launch kernel ``name`` once per call: the
     Mamba2 layers for the SSD scan, the attention layers otherwise."""
@@ -1706,8 +1747,10 @@ def serve_phase(torch, arch, label, per_iter, params=None, tp=0,
     if params is None:
         cfg, params = init_model(torch, arch)
     pred = build_predictor(cfg, A100, A100.freq_levels_2, kv_cap=400_000)
+    # phase 4's workload whole, or a cut of it that still batches
+    least = 4 if reqs is None else 2
     reqs = reqs if reqs is not None else phase4_requests(cfg)
-    check(len(reqs) >= 4, f"workload too small: {len(reqs)} requests")
+    check(len(reqs) >= least, f"workload too small: {len(reqs)} requests")
 
     walls = {"prefill": [], "decode": []}
     base = make_real_backend_factory(cfg, params, slots=slots,
@@ -2603,11 +2646,12 @@ def mesh_rank(rank: int, world: int, init: str, out: str, pred) -> None:
         _, _, reqs, _, stats = serve_phase(
             torch, "llama-3.1-8b", f"mesh-dense rank {rank}",
             {"flash_prefill": "prefill", "ring_decode": "decode"},
-            params=params, tp=world)
+            params=params, tp=world,
+            reqs=phase4_requests(cfg)[:MESH_REQUESTS])
         serves["dense"] = (_streams(reqs), [], stats)
         reqs, log, _, stats = paged_serve_phase(
             torch, cfg, params, pred, tp=world,
-            label=f"mesh-paged rank {rank}")
+            label=f"mesh-paged rank {rank}", n_turns=MESH_TURNS)
         serves["paged"] = (_streams(reqs), log, stats)
         dcfg = make_draft_config(cfg)
         dparams = M.init_params(
@@ -2615,14 +2659,133 @@ def mesh_rank(rank: int, world: int, init: str, out: str, pred) -> None:
             device="cuda", mesh=mesh)
         reqs, log, _, stats = paged_serve_phase(
             torch, cfg, params, pred, drafter=(dcfg, dparams), tp=world,
-            label=f"mesh-spec rank {rank}")
+            label=f"mesh-spec rank {rank}", n_turns=MESH_TURNS)
         serves["spec"] = (_streams(reqs), log, stats)
+        del dparams, reqs, log
+        res["int8"] = mesh_int8_serves(torch, cfg, params, pred, mesh, rank,
+                                       serves)
         res.update(serves=serves, ok=True)
     except BaseException:  # the parent fails the phase with it
         res["error"] = traceback.format_exc()
     Path(out).write_bytes(pickle.dumps(res))
     if dist.is_initialized():
         dist.destroy_process_group()
+
+
+def serve_config(cfg, serve: str):
+    """The config a serve named ``serve`` runs: ``int8-dense`` int8
+    weights and an int8 ring, ``int8-paged`` and ``int8`` int8 weights,
+    ``dispatch8`` int8 MoE dispatch; any other name ``cfg`` itself."""
+    import dataclasses
+
+    if serve == "dispatch8":
+        return dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, dispatch_dtype="int8"))
+    if serve == "int8-dense":
+        return dataclasses.replace(cfg, weight_dtype="int8", kv_dtype="int8")
+    if serve in ("int8", "int8-paged"):
+        return dataclasses.replace(cfg, weight_dtype="int8")
+    return cfg
+
+
+def int8_checksums(params) -> dict:
+    """Per int8 leaf of ``params`` (``{path: [one sum a block]}``): its
+    codes summed as int64 and its scales as float64, a stacked leaf
+    block by block.  Sums of float32 scales of one magnitude in float64
+    are exact, so they do not depend on how a leaf is cut."""
+    import torch
+
+    out = {}
+    for name, leaf in named_leaves(params):
+        if name.rsplit("/", 1)[-1] not in ("q8", "sc"):
+            continue
+        acc = torch.int64 if leaf.dtype == torch.int8 else torch.float64
+        rows = leaf.reshape(leaf.shape[0], -1) if "/blocks/" in name \
+            else leaf.reshape(1, -1)
+        out[name] = rows.sum(dim=1, dtype=acc).tolist()
+    return out
+
+
+def slice_view(width: int):
+    """A stand-in for rank 0 of a ``width``-wide ``(1, width)`` slice: the
+    axis names and sizes the sharding rules read."""
+    return SimpleNamespace(mesh_dim_names=("data", "model"),
+                           shape=(1, width), get_local_rank=lambda a: 0)
+
+
+def join_checksums(cfg, per_rank, width: int) -> dict:
+    """The whole tree's :func:`int8_checksums` from each rank's of its
+    shards: a leaf cut by its placement adds up over the ranks, a
+    replicated one (a row-parallel leaf's scales) is the same on every
+    rank and counts once."""
+    from repro_torch.distributed import sharding as SH
+
+    out = {}
+    for name, sums in per_rank[0].items():
+        spec = SH.leaf_placement(cfg, tuple(name.split("/")[1:]),
+                                 slice_view(width))
+        each = [r[name] for r in per_rank]
+        check(not isinstance(spec, SH.Segments),
+              f"int8 checksums: {name} is cut by segment")
+        if spec.is_replicate():
+            check(all(e == sums for e in each),
+                  f"int8 checksums: the ranks' replicated {name} differ")
+            out[name] = list(sums)
+        else:
+            out[name] = [sum(col) for col in zip(*each)]
+    return out
+
+
+def compare_checksums(got: dict, want: dict, label: str) -> int:
+    """Fail unless two :func:`int8_checksums` agree leaf for leaf and
+    block for block: codes exactly, scales within 1e-12 relative.
+    Returns the leaves compared."""
+    check(set(got) == set(want),
+          f"{label}: checksums of {sorted(set(got) ^ set(want))[:4]} on "
+          "one side only")
+    for name in want:
+        for i, (g, w) in enumerate(zip(got[name], want[name])):
+            ok = g == w if name.endswith("/q8") else \
+                abs(g - w) <= 1e-12 * abs(w)
+            check(ok and len(got[name]) == len(want[name]),
+                  f"{label}: {name} block {i} sums to {g!r}, the meshless "
+                  f"tree's {w!r}")
+    return len(want)
+
+
+def mesh_int8_serves(torch, cfg, params, pred, mesh, rank, serves) -> dict:
+    """Phase 9's int8 serves on one rank: this rank's bf16 shards of
+    llama quantized on the slice (``quantize_params(..., mesh,
+    consume=True)``: each bf16 leaf freed as its int8 form is made, the
+    absmax of a row-parallel leaf taken over ``"model"``) and their
+    :func:`int8_checksums`; then ``MESH_INT8_REQUESTS`` of phase 4's
+    requests (:func:`shortest_requests`) dense with an int8 ring and
+    ``MESH_INT8_TURNS`` turns of phase 6's workload paged with int8
+    weights, added to ``serves``.  Returns the quantization's wall, peak and bytes and the
+    checksums."""
+    from repro_torch.models import model as M
+
+    free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.quantize_params(params, cfg, mesh, consume=True)
+    torch.cuda.synchronize()
+    out = {"quant_s": time.perf_counter() - t0,
+           "quant_peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "held_gb": sum(t.numel() * t.element_size()
+                          for t in _leaves(params)) / 1e9,
+           "sums": int8_checksums(params)}
+    free(torch)
+    _, _, reqs, _, stats = serve_phase(
+        torch, "llama-3.1-8b", f"mesh-int8-dense rank {rank}", ATTN_KERNELS,
+        params=params, cfg=serve_config(cfg, "int8-dense"), tp=MESH_TP,
+        reqs=shortest_requests(cfg, MESH_INT8_REQUESTS))
+    serves["int8-dense"] = (_streams(reqs), [], stats)
+    reqs, log, _, stats = paged_serve_phase(
+        torch, serve_config(cfg, "int8-paged"), params, pred, tp=MESH_TP,
+        label=f"mesh-int8-paged rank {rank}", n_turns=MESH_INT8_TURNS)
+    serves["int8-paged"] = (_streams(reqs), log, stats)
+    return out
 
 
 def time_collectives(torch, mesh, iters: int = 50):
@@ -2783,7 +2946,9 @@ def mesh_phase(torch, pred):
     # each serve's sharded wrapper, at the kv heads of one rank's shard
     wrapper = {serve: name.split("(")[0]
                for name, (_, _, serve, _) in WRAPPERS.items()}
-    for name in ("dense", "paged", "spec"):
+    wrapper.update({f"int8-{serve}": wrapper[serve]
+                    for serve in ("dense", "paged")})
+    for name in MESH_SERVES:
         per = [res["serves"][name] for res in ranks]
         check(all(p[0] == per[0][0] for p in per),
               f"mesh-{name}: the ranks emitted different streams")
@@ -2796,12 +2961,30 @@ def mesh_phase(torch, pred):
             check(st["captures"] == 0,
                   f"mesh-{name}: rank {r} captured {st['captures']} graphs")
         cols = ("prefill_ms_median",
-                "decode_ms_median" if name == "dense" else "iter_ms_median",
+                "decode_ms_median" if name.endswith("dense")
+                else "iter_ms_median",
                 "decode_tok_s", "max_memory_allocated_gb", "launches",
                 "sharded_launches", "captures", "dispatch_s",
                 "device_wait_s")
         print(f"serve[mesh-{name}] per rank: " + json.dumps(
             {c: [st[c] for _, _, st in per] for c in cols}))
+    int8 = [res["int8"] for res in ranks]
+    print("mesh-int8: llama's shards quantized on the slice, per rank: "
+          + json.dumps({k: [q[k] for q in int8]
+                        for k in ("quant_s", "quant_peak_gb", "held_gb")})
+          + "; reckoned a rank " + json.dumps(
+              reckon_gb(serve_config(config_of("llama-3.1-8b"),
+                                     "int8-dense"), width=MESH_TP)))
+    bf16 = {n: ranks[0]["serves"][n][2] for n in ("dense", "paged")}
+    for n in ("dense", "paged"):
+        st, key = ranks[0]["serves"][f"int8-{n}"][2], \
+            "decode_ms_median" if n == "dense" else "iter_ms_median"
+        print(f"mesh-int8-{n} against mesh-{n}, rank 0: iteration "
+              f"{st[key]:.2f} ms against {bf16[n][key]:.2f} ms, peak "
+              f"{st['max_memory_allocated_gb']:.2f} GB against "
+              f"{bf16[n]['max_memory_allocated_gb']:.2f} GB a rank")
+    ranks[0]["int8_sums"] = join_checksums(
+        config_of("llama-3.1-8b"), [q["sums"] for q in int8], MESH_TP)
     return ranks[0]
 
 
@@ -3016,10 +3199,11 @@ def reckon_gb(cfg, slots=SLOTS, max_len=MAX_LEN, pool_pages=None,
     ``kv_dtype="int8"``), the Mamba2 states of those slots where it has
     Mamba2 layers, and with ``pool_pages`` the paged pools of the
     prefill and the decode instance.  With ``width`` > 1, what one rank
-    of a ``width``-wide slice holds: its bf16 shards by the sharding
-    rules (:func:`expected_local_params`), its share of the kv heads
-    where the attention heads split, and of the SSD heads (with B and C
-    whole in the conv tail) where they split."""
+    of a ``width``-wide slice holds: its shards by the sharding rules
+    (:func:`expected_local_bytes`: bf16, or int8 codes with their scales
+    cut as the codes are), its share of the kv heads where the attention
+    heads split, and of the SSD heads (with B and C whole in the conv
+    tail) where they split."""
     from repro_torch.models.model import cache_capacity
 
     kv_heads, ssd_shards = cfg.n_kv_heads, 1
@@ -3037,7 +3221,7 @@ def reckon_gb(cfg, slots=SLOTS, max_len=MAX_LEN, pool_pages=None,
     if width > 1:
         import torch
 
-        weights = expected_local_params(torch, cfg, width) * 2
+        weights = expected_local_bytes(torch, cfg, width)
     elif cfg.weight_dtype == "int8":
         blocks = sum(cfg._layer_params(spec)[0]
                      for spec in cfg.block_pattern) * cfg.n_blocks
@@ -3344,7 +3528,8 @@ def moe_phase(torch):
     served dense with step graphs and again eagerly (equal streams), then
     with int8 dispatch (``dispatch_dtype="int8"``) on the same weights,
     then the multi-turn workload paged + speculative at ``SPEC_K``, every
-    serve replayed batch for batch (:func:`batch_replay`).  Frees its
+    serve but the eager twin (its streams are the graph serve's) replayed
+    batch for batch (:func:`batch_replay`).  Frees its
     weights; returns the launch counts and stats by label."""
     import dataclasses
 
@@ -3357,13 +3542,14 @@ def moe_phase(torch):
     cfg, params = init_model(torch, arch, pool_pages=POOL_PAGES)
     out, streams = {}, {}
     for label, graphs in (("qwen3moe", None), ("qwen3moe-eager", False)):
-        rec = Recorder()
+        rec = Recorder() if graphs is None else None
         _, _, reqs, launches, stats = serve_phase(
             torch, arch, label, ATTN_KERNELS, params=params, cfg=cfg,
             cuda_graphs=graphs, recorder=rec)
         peak_line(label, stats)
-        stats["batch_replay"] = batch_replay(torch, rec, (cfg, params),
-                                             label=label)
+        if rec is not None:  # the eager twin must emit the same streams
+            stats["batch_replay"] = batch_replay(torch, rec, (cfg, params),
+                                                 label=label)
         streams[label] = [list(r.output_tokens) for r in reqs]
         out[label] = (launches, stats)
         del rec, reqs
@@ -3448,36 +3634,55 @@ MIXER_TIMEOUT_S = 900.0  # the parent's wait for the phase 21 world
 # shards, collectives and per-rank memory whole
 MIXER_REQUESTS = 4  # the first of phase 4's requests, each dense serve
 MIXER_TURNS = 2  # of phase 6's multi-turn workload, the paged serve
+MIXER_INT8_REQUESTS = 2  # of phase 4's requests (the shortest), int8 serves
 # (label, arch, the depth it is cut to or None, its serves); each
-# model is drawn on the slice, served, then freed
+# model is drawn on the slice, served, then freed.  The int8 serves
+# (:func:`serve_config`) come last, dense, after the collective probe:
+# "dispatch8" on the bf16 shards, "int8" on the shards quantized on the
+# slice (qwen3-moe's bf16 shards and an int8 copy would pass the card)
 MIXER_MODELS = (
-    ("mamba2", "mamba2-2.7b", None, ("dense",)),
-    ("qwen3moe", "qwen3-moe-30b-a3b", None, ("dense", "paged")),
+    ("mamba2", "mamba2-2.7b", None, ("dense", "int8")),
+    ("qwen3moe", "qwen3-moe-30b-a3b", None, ("dense", "paged", "dispatch8")),
     ("jamba", "jamba-v0.1-52b", JAMBA_LAYERS, ("dense",)),
 )
+MIXER_INT8 = ("int8", "dispatch8")
 MIXER_PROBE_PROMPT = 512  # the prefill bucket the collective probe runs
+
+
+def local_leaves(torch, cfg, width: int):
+    """(leaf of the full tree on the meta device, the elements one rank
+    of a ``width``-wide slice holds of it by the sharding rules); with
+    ``weight_dtype="int8"`` the tree of int8 codes and float32 scales,
+    each scale cut as its codes are."""
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.models import model as M
+
+    full = M.init_params(cfg, torch.Generator(), device="meta")
+    if cfg.weight_dtype == "int8":
+        full = M.quantize_params(full)
+    for name, leaf in named_leaves(full):
+        spec = SH.leaf_placement(cfg, tuple(name.split("/")[1:]),
+                                 slice_view(width))
+        n = leaf.numel()
+        if isinstance(spec, SH.Segments):
+            n = n // spec.size() * spec.size(width)
+        elif not spec.is_replicate():
+            n //= width
+        yield leaf, n
 
 
 def expected_local_params(torch, cfg, width: int) -> int:
     """What one rank of a ``width``-wide slice holds of ``cfg``'s
     parameters by the sharding rules: each leaf of the full tree (on the
     meta device) at its placement's local share."""
-    from repro_torch.distributed import sharding as SH
-    from repro_torch.models import model as M
+    return sum(n for _, n in local_leaves(torch, cfg, width))
 
-    full = M.init_params(cfg, torch.Generator(), device="meta")
-    mesh = SimpleNamespace(mesh_dim_names=("data", "model"),
-                           shape=(1, width), get_local_rank=lambda a: 0)
-    total = 0
-    for name, leaf in named_leaves(full):
-        spec = SH.leaf_placement(cfg, tuple(name.split("/")[1:]), mesh)
-        n = leaf.numel()
-        if isinstance(spec, SH.Segments):
-            n = n // spec.size() * spec.size(width)
-        elif not spec.is_replicate():
-            n //= width
-        total += n
-    return total
+
+def expected_local_bytes(torch, cfg, width: int) -> int:
+    """The bytes of :func:`expected_local_params`' elements: int8 codes
+    and float32 scales with ``weight_dtype="int8"``."""
+    return sum(n * leaf.element_size()
+               for leaf, n in local_leaves(torch, cfg, width))
 
 
 def collective_probe(torch, cfg, params, mesh,
@@ -3549,6 +3754,22 @@ def collective_probe(torch, cfg, params, mesh,
     return res
 
 
+def moe_gather_bytes(bf16, int8) -> dict:
+    """One MoE layer's gather, bytes a rank gets back, from two
+    :func:`collective_probe` results (the bf16 shards' and int8
+    dispatch's): by call (prefill, decode step), each beside the other
+    and their ratio."""
+    out = {}
+    for when in ("prefill", "decode"):
+        a, b = bf16[when]["moe_gather"], int8[when]["moe_gather"]
+        check(a["calls"] == b["calls"],
+              f"moe gather: {a['calls']} bf16 calls, {b['calls']} int8")
+        out[when] = {"bf16": a["bytes_out"] // a["calls"],
+                     "int8": b["bytes_out"] // b["calls"],
+                     "ratio": b["bytes_out"] / a["bytes_out"]}
+    return out
+
+
 def host_events(rec):
     """A :class:`Recorder`'s events with every tensor on the host, to
     leave the rank."""
@@ -3611,26 +3832,44 @@ def mixer_rank(rank: int, world: int, init: str, out: str, preds) -> None:
             if cfg.has_attention:
                 per_iter.update(ATTN_KERNELS)
             for serve in serves:
+                if serve in MIXER_INT8 and "collectives" not in got:
+                    got["collectives"] = collective_probe(torch, cfg, params,
+                                                          mesh)
+                if serve == "int8":  # each bf16 leaf freed as it goes
+                    t0 = time.perf_counter()
+                    params = M.quantize_params(params, cfg, mesh,
+                                               consume=True)
+                    torch.cuda.synchronize()
+                    got["quant_s"] = time.perf_counter() - t0
+                    free(torch)
+                scfg = serve_config(cfg, serve)
                 rec, routes = Recorder(), Routes(L, torch)
                 name = f"mixer-{label}-{serve} rank {rank}"
                 with routes:
                     routes.mode = "record"
-                    if serve == "dense":
-                        _, _, reqs, _, stats = serve_phase(
-                            torch, arch, name, per_iter, params=params,
-                            cfg=cfg, tp=world, recorder=rec,
-                            reqs=phase4_requests(cfg)[:MIXER_REQUESTS])
-                    else:
+                    if serve == "paged":
                         reqs, _, _, stats = paged_serve_phase(
                             torch, cfg, params, preds[label], tp=world,
                             label=name, recorder=rec, n_turns=MIXER_TURNS)
+                    else:
+                        _, _, reqs, _, stats = serve_phase(
+                            torch, arch, name, per_iter, params=params,
+                            cfg=scfg, tp=world, recorder=rec,
+                            reqs=shortest_requests(cfg, MIXER_INT8_REQUESTS)
+                            if serve in MIXER_INT8
+                            else phase4_requests(cfg)[:MIXER_REQUESTS])
                 got["serves"][serve] = {
                     "streams": _streams(reqs), "stats": stats,
                     "decode_lens": [r.decode_len for r in reqs],
                     "record": host_events(rec),
                     "routes": [t.cpu() for t in routes.log]}
                 del rec, routes, reqs
-            got["collectives"] = collective_probe(torch, cfg, params, mesh)
+                if serve == "dispatch8":
+                    got["collectives_dispatch8"] = collective_probe(
+                        torch, scfg, params, mesh)
+            if "collectives" not in got:
+                got["collectives"] = collective_probe(torch, cfg, params,
+                                                      mesh)
             res["models"][label] = got
             del params
             free(torch)
@@ -3737,10 +3976,21 @@ def mixer_phase(torch, preds):
               "slots (calls, bytes in, bytes out, ms total, median ms a "
               "call; moe_gather: one a MoE layer): " + json.dumps(
                   [m["collectives"] for m in models]))
+        if "quant_s" in models[0]:
+            print(f"mixer-{label}: shards quantized on the slice in "
+                  f"{[round(m['quant_s'], 2) for m in models]} s; reckoned "
+                  "a rank " + json.dumps(reckon_gb(
+                      serve_config(cfg, "int8"), width=MIXER_TP)))
+        if "collectives_dispatch8" in models[0]:
+            print(f"mixer-{label} MoE gather a layer, bytes a rank gets "
+                  "back, bf16 rows against int8 dispatch (codes and row "
+                  "scales): " + json.dumps(moe_gather_bytes(
+                      models[0]["collectives"],
+                      models[0]["collectives_dispatch8"])))
         for serve in models[0]["serves"]:
             per = [m["serves"][serve]["stats"] for m in models]
-            iters = "decode_ms_median" if serve == "dense" \
-                else "iter_ms_median"
+            iters = "iter_ms_median" if serve == "paged" \
+                else "decode_ms_median"
             print(f"serve[mixer-{label}-{serve}] per rank: " + json.dumps(
                 {c: [st[c] for st in per] for c in (
                     "prefill_ms_median", iters, "decode_tok_s",
@@ -3760,7 +4010,12 @@ def mixer_phase(torch, preds):
     for label, arch, n_layers, _ in MIXER_MODELS:
         cfg, params = init_model(torch, arch, n_layers=n_layers)
         for serve, got in ranks[0]["models"][label]["serves"].items():
-            batch_replay(torch, got["record"], (cfg, params),
+            if serve == "int8":  # the last serve: the bf16 tree can go
+                from repro_torch.models import model as M
+
+                params = M.quantize_params(params, consume=True)
+            batch_replay(torch, got["record"],
+                         (serve_config(cfg, serve), params),
                          label=f"mixer-{label}-{serve}",
                          served_routes=got["routes"])
         del params
@@ -3968,14 +4223,17 @@ def int8_step_profile(torch, cfg, params):
     return out
 
 
-def int8_phase(torch):
+def int8_phase(torch, mesh_sums=None):
     """Phase 17: llama-3.1-8b at full width and depth with int8 weights
     (initialised in bf16, quantized by ``quantize_params``, the bf16 tree
     freed) and an int8 ring: phase 4's requests served dense with step
     graphs, a stream replayed through the plain path on the same
     quantized weights and int8 rings, and the same requests served again
     eagerly (``cuda_graphs=False``), which must emit the same streams.
-    Frees its weights; returns the launch counts and stats by label."""
+    With ``mesh_sums`` (phase 9's :func:`int8_checksums` of the shards
+    its ranks quantized on the slice, joined) the meshless tree's must
+    agree with them, leaf for leaf and block for block.  Frees its
+    weights; returns the launch counts and stats by label."""
     import dataclasses
 
     from repro_torch.models import model as M
@@ -3993,6 +4251,11 @@ def int8_phase(torch):
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB with the bf16 "
           f"tree; the int8 tree holds {held / 1e9:.3f} GB; reckoned "
           + json.dumps(reckon_gb(cfg)))
+    if mesh_sums is not None:
+        n = compare_checksums(mesh_sums, int8_checksums(params), "int8")
+        print(f"int8: the checksums of phase 9's {MESH_TP} ranks' shards, "
+              f"quantized on the slice, equal the meshless tree's in all "
+              f"{n} leaves, block by block")
     int8_step_profile(torch, cfg, params)
     _, _, reqs, launches, stats = serve_phase(
         torch, arch, "int8", ATTN_KERNELS, params=params, cfg=cfg)
@@ -4700,6 +4963,17 @@ def main(argv=None) -> int:
                                     f"rid {r.rid}")
             models["draft"] = (dcfg, dparams)
         replay_phase(torch, models, r, kinds)
+    # every int8 stream, on the meshless quantization of the same weights
+    # (phase 17 holds its checksums against the slice's)
+    qparams = M.quantize_params(params)
+    for name in ("int8-dense", "int8-paged"):
+        for stream in mesh["serves"][name][0]:
+            r = SimpleNamespace(**stream)
+            r.rid = f"{r.rid} (mesh-{name})"
+            replay_phase(torch, {"target": (serve_config(cfg, name),
+                                            qparams)}, r)
+    del qparams
+    free(torch)
     seconds["9"] = time.perf_counter() - t0
     t0 = time.perf_counter()
 
@@ -4731,7 +5005,8 @@ def main(argv=None) -> int:
         family[arch.split("-")[0]] = kernel_path_phase(torch, arch)
     seconds["10-12"] = time.perf_counter() - t0
     for n, phase in ((13, gemma2_phase), (14, moe_phase), (15, jamba_phase),
-                     (16, hubert_phase), (17, int8_phase),
+                     (16, hubert_phase),
+                     (17, partial(int8_phase, mesh_sums=mesh["int8_sums"])),
                      (18, train_phase), (19, mamba_train_phase)):
         t0 = time.perf_counter()
         family.update(phase(torch))
@@ -4745,7 +5020,7 @@ def main(argv=None) -> int:
     by_phase = {"dense": dense_launches, "paged": paged_launches,
                 "spec": spec_launches, "mamba": mamba_launches}
     by_phase.update({f"mesh-{name}": mesh["serves"][name][2]["launches"]
-                     for name in ("dense", "paged", "spec")})
+                     for name in MESH_SERVES})
     by_phase.update(disjoint_launches)
     by_phase.update(mixer_launches)
     by_phase.update({name: launches

@@ -1,4 +1,4 @@
-"""Mesh context, the world of ranks, and the model's two collectives.
+"""Mesh context, the world of ranks, and the model's collectives.
 
 Counterpart of ``repro/distributed/context.py``.  Model code never holds
 a mesh: it consults this context, and outside any mesh the helpers say
@@ -10,7 +10,8 @@ SGLang runs tensor parallelism: one process per rank, every rank running
 the same control plane (it is seeded and never reads token content, so
 every rank takes the same decisions) and holding only its local shards.
 The model makes its collectives explicit on the slice's ``"model"``
-group through :func:`reduce_model` and :func:`gather_model`.
+group through :func:`reduce_model` and :func:`gather_model`, and
+``quantize_params`` on a slice through :func:`max_model`.
 :func:`init_world` sets that world up.
 """
 from __future__ import annotations
@@ -136,6 +137,16 @@ def reduce_model(x: torch.Tensor) -> torch.Tensor:
     """Sum ``x`` over the ``"model"`` axis, in place: the row-parallel
     outputs (``wo``, ``w_out``) and the vocab-parallel embedding."""
     dist.all_reduce(x, group=_sharding_mesh().get_group(MODEL_AXIS))
+    return x
+
+
+def max_model(x: torch.Tensor) -> torch.Tensor:
+    """The elementwise maximum of ``x`` over the ``"model"`` axis, in
+    place: the absmax of an int8 weight whose input dim is cut
+    (``quantize_params`` on a slice).  A maximum is exact, so every rank
+    gets the meshless value."""
+    dist.all_reduce(x, op=dist.ReduceOp.MAX,
+                    group=_sharding_mesh().get_group(MODEL_AXIS))
     return x
 
 

@@ -229,20 +229,53 @@ def _global_size(cfg, path):
 
 def _param_path(path):
     """``path`` read as the rules read it: a quantized weight's ``q8``
-    takes its parent leaf's rule."""
+    and ``sc`` take their parent leaf's rule."""
     path = tuple(path)
-    return path[:-1] if path[-1] == "q8" else path
+    return path[:-1] if path[-1] in ("q8", "sc") else path
+
+
+def _matrix_ndim(path) -> int:
+    """The dims of the weight at ``path`` (its parent's for a ``q8`` or
+    ``sc``): a matrix, or a MoE's ``(E, d, ffe)`` / ``(E, ffe, d)``
+    expert stack, behind the ``n_blocks`` axis of a stacked leaf."""
+    path = _param_path(path)
+    experts = "moe" in path and path[-1] in _EXPERT_WEIGHTS
+    return (3 if experts else 2) + (1 if "blocks" in path else 0)
+
+
+def scale_placement(parent, ndim: int):
+    """The placement of an int8 weight's scales ``sc``, given its codes'
+    (``parent``, of an ``ndim``-dim ``q8``): the scales are the codes with
+    their input dim (-2) reduced away (:func:`~repro_torch.models.model.
+    quantize_params`), so they are placed as the codes are with that dim
+    removed.  A cut of the output dim (column-parallel ``wq``, ``w_gate``;
+    a Mamba2 ``in_proj``'s :class:`Segments`) becomes the same cut of the
+    scales' last dim, a cut of a leading dim (a MoE's experts) stays on
+    it, and a cut of the input dim (row-parallel ``wo``, ``w_out``,
+    ``out_proj``; a Mamba2 ``conv_w``'s channels) leaves every rank the
+    whole scale row: ``quantize_params`` takes its max over
+    ``"model"``."""
+    if not isinstance(parent, (Shard, Segments)) or parent.dim == ndim - 2:
+        return Replicate()
+    if parent.dim < ndim - 2:
+        return parent
+    if isinstance(parent, Shard):
+        return Shard(ndim - 2)
+    return Segments(ndim - 2, parent.parts, parent.kind)
 
 
 def leaf_placement(cfg, path, mesh):
     """The placement on the model axis of the parameter at ``path``
     (its keys in the param tree): ``Shard(d)`` of the leaf (counting the
     leading ``n_blocks`` axis of a stacked block leaf), a Mamba2
-    projection's :class:`Segments`, or ``Replicate()``.  It depends on
-    the config and the path, not on the leaf's shape, so a draw is cut
-    before the next one is made."""
-    if tuple(path)[-1] == "sc":  # int8 weight scales: tiny, replicated
-        return Replicate()
+    projection's :class:`Segments`, or ``Replicate()``; an int8 weight's
+    codes ``q8`` take their parent's and its scales ``sc``
+    :func:`scale_placement`.  It depends on the config and the path, not
+    on the leaf's shape, so a draw is cut before the next one is
+    made."""
+    if tuple(path)[-1] == "sc":
+        return scale_placement(
+            leaf_placement(cfg, _param_path(path), mesh), _matrix_ndim(path))
     path = _param_path(path)
     name = path[-1]
     n = model_width(mesh)

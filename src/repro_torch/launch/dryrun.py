@@ -36,9 +36,13 @@ Each record holds three groups of figures:
 
 A cell the port refuses gets ``status: "not_ported"`` with the refusal's
 message and the ROADMAP item it names (training on a mesh wider than 1
-is item 13; int8 above width 1 is item 8c); ``"fail"`` is kept for a
-sharding bug, ``"skip"`` follows ``cell_skip_reason``.  So the output is
-also the port's coverage map.
+is item 13); ``"fail"`` is kept for a sharding bug, ``"skip"`` follows
+``cell_skip_reason``.  So the output is also the port's coverage map.
+The int8 variants (``weight_dtype``, ``kv_dtype``, ``dispatch_dtype``)
+run on the rank's shards: its weights are quantized on the slice when
+the cell is built, outside the traced step, so the step's collectives
+hold no load-time absmax reduce, as the reference compiles the step
+alone.
 
 The reference's ``donate_for`` has no counterpart: the port compiles no
 step to donate buffers to, and its steps update the decode cache and a
@@ -171,10 +175,10 @@ def build_cell(cfg: ModelConfig, shape: ShapeSuite, *, microbatches: int = 1,
     B = shape.global_batch if batch is None else batch
     shape = dataclasses.replace(shape, global_batch=B)
     if params is None:
-        params = M.init_params(cfg, generator, device=device,
-                               mesh=current_mesh())
-        if cfg.weight_dtype == "int8":
-            params = M.quantize_params(params)
+        mesh = current_mesh()
+        params = M.init_params(cfg, generator, device=device, mesh=mesh)
+        if cfg.weight_dtype == "int8":  # on the slice: before the step
+            params = M.quantize_params(params, cfg, mesh, consume=True)
     specs = input_specs(cfg, shape) if shape.kind != "decode" else {
         "tokens": torch.empty((B,), dtype=I32, device=ANALYSIS_DEVICE)}
     made = {k: _materialize(k, v, device, generator, cfg.vocab_size,

@@ -328,18 +328,23 @@ def _sorted_slots(flat_e, E: int, C: int):
     return order, torch.where(rank < C, se * C + rank, E * C)
 
 
-def quantize(x: torch.Tensor, dim: int):
+def quantize(x: torch.Tensor, dim: int,
+             absmax: Optional[Callable[[torch.Tensor], torch.Tensor]] = None):
     """Symmetric int8 over ``dim``: (codes int8, scale float32 with
     ``dim`` dropped), ``scale = max|x| / 127 + 1e-9`` and ``codes =
     clip(round(x / scale), -127, 127)`` in float32: the arithmetic of
     the reference's ``quantize_params`` (dim -2), ``quantize_kv`` and
-    MoE row quantizer (dim -1).  The divisor is a tensor filled on
-    ``x``'s device, so the card divides as the CPU does (it would
-    multiply by the reciprocal of a CPU scalar) and a CUDA graph can
-    capture it (no copy from the host)."""
+    MoE row quantizer (dim -1).  ``absmax``, where given, maps the
+    float32 ``max|x|`` before the divide (on a slice, its maximum over
+    ranks holding the other parts of ``dim``).  The divisor is a tensor
+    filled on ``x``'s device, so the card divides as the CPU does (it
+    would multiply by the reciprocal of a CPU scalar) and a CUDA graph
+    can capture it (no copy from the host)."""
     xf = x.float()
-    sc = xf.abs().amax(dim=dim, keepdim=True).div_(
-        torch.full((), 127.0, device=x.device)).add_(1e-9)
+    m = xf.abs().amax(dim=dim, keepdim=True)
+    if absmax is not None:
+        m = absmax(m)
+    sc = m.div_(torch.full((), 127.0, device=x.device)).add_(1e-9)
     q = torch.clamp(torch.round(xf / sc), -127, 127).to(torch.int8)
     return q, sc.squeeze(dim)
 
@@ -372,19 +377,64 @@ class ExpertShard:
     gather: Callable[[torch.Tensor], torch.Tensor]
 
 
-def _local_experts(x, rows, slot_sorted, C: int, w_gate, w_in, w_out,
-                   act: str, shard: ExpertShard):
+def _expert_outputs(rows, slots, C: int, w_gate, w_in, w_out, act: str,
+                    int8: bool):
+    """The ``(n·C, d)`` outputs of the ``n`` experts of ``w_gate``: each
+    row of ``rows`` is copied into its slot of the dispatch buffer (a
+    slot of ``n·C``, the dump row, drops it), and the experts run on
+    their ``(n, C, d)`` slab.  With ``int8`` the rows go in as int8
+    codes with a float32 scale a row (an empty slot keeps code 0 and
+    scale 0, and dequantizes to 0) and the outputs come back the same
+    way: ``(codes, scales)``."""
+    n, d = w_gate.shape[0], rows.shape[1]
+    R = n * C
+    if int8:
+        codes, sc = quantize(rows, -1)
+        buf = torch.zeros((R + 1, d), dtype=torch.int8, device=rows.device)
+        sbuf = torch.zeros((R + 1,), dtype=torch.float32, device=rows.device)
+        buf[slots] = codes
+        sbuf[slots] = sc
+        xe = dequantize(buf[:R], sbuf[:R, None], rows.dtype)
+    else:
+        buf = torch.zeros((R + 1, d), dtype=rows.dtype, device=rows.device)
+        buf[slots] = rows
+        xe = buf[:R]
+    ye = _experts(xe.view(n, C, d), w_gate, w_in, w_out, act).reshape(R, d)
+    return quantize(ye, -1) if int8 else ye
+
+
+def pack_rows(codes: torch.Tensor, sc: torch.Tensor) -> torch.Tensor:
+    """int8 rows and their float32 scales as one int8 tensor ``(R, d +
+    4)``, each scale's four bytes after its row: one gather moves both."""
+    return torch.cat([codes, sc.contiguous().view(torch.int8).view(-1, 4)],
+                     dim=1)
+
+
+def unpack_rows(packed: torch.Tensor):
+    """:func:`pack_rows` undone: (codes ``(R, d)``, scales ``(R,)``)."""
+    d = packed.shape[1] - 4
+    return (packed[:, :d],
+            packed[:, d:].contiguous().view(torch.float32).view(-1))
+
+
+def _local_experts(rows, slot_sorted, C: int, w_gate, w_in, w_out,
+                   act: str, shard: ExpertShard, int8: bool):
     """Every expert's ``(E·C, d)`` outputs on a slice that splits the
     experts: this rank fills its own experts' slab of the dispatch
     buffer (entries of other experts go to its dump row), runs them, and
-    gathers the slabs of all ranks in shard order."""
-    n, d = w_gate.shape[0], x.shape[1]
+    gathers the slabs of all ranks in shard order.  With ``int8`` the
+    slab goes in as int8 rows and the gather moves the outputs' int8
+    codes and row scales (:func:`pack_rows`), about half the bf16
+    gather's bytes; each row is quantized on its own, so the rows
+    gathered are the meshless int8 branch's bit for bit."""
+    n = w_gate.shape[0]
     local = slot_sorted - shard.first * C  # the dump row: n * C
     local = torch.where((local >= 0) & (local < n * C), local, n * C)
-    buf = torch.zeros((n * C + 1, d), dtype=x.dtype, device=x.device)
-    buf[local] = rows
-    ye = _experts(buf[: n * C].view(n, C, d), w_gate, w_in, w_out, act)
-    return shard.gather(ye.reshape(n * C, d))
+    ye = _expert_outputs(rows, local, C, w_gate, w_in, w_out, act, int8)
+    if not int8:
+        return shard.gather(ye)
+    codes, sc = unpack_rows(shard.gather(pack_rows(*ye)))
+    return dequantize(codes, sc[:, None], rows.dtype)
 
 
 def moe_ffn_sorted(
@@ -423,35 +473,25 @@ def moe_ffn_sorted(
     output before the meshless combine, which keeps its fixed order.
     ``aux`` is the full routing's, the same on every rank.  (An
     all-reduce of per-rank partial combines would move fewer bytes but
-    split the sum over k.)  With ``expert_shard`` the dispatch is in the
-    model dtype: the model refuses int8 dispatch on a slice
-    (``model._check_mesh``, ROADMAP queue 1, item 8c)."""
+    split the sum over k.)  With ``dispatch_dtype="int8"`` the slab is
+    int8 too and the gather moves int8 codes and float32 row scales, as
+    the JAX layer's all-to-all moves int8; the rows are quantized one by
+    one, so the output is the meshless int8 branch's bitwise."""
     T, d = x.shape
     E = router.shape[-1]
     probs, topw, tope, C = _route(x, router, top_k, capacity_factor)
     flat_e = tope.reshape(-1)  # (T*k,) token-major
     order, slot_sorted = _sorted_slots(flat_e, E, C)
     rows = x[order // top_k]
+    int8 = dispatch_dtype == "int8"
     if expert_shard is not None:
-        ye = _local_experts(x, rows, slot_sorted, C, w_gate, w_in, w_out,
-                            act, expert_shard)
-    elif dispatch_dtype == "int8":
-        # an empty slot keeps code 0 and scale 0, and dequantizes to 0
-        codes, sc = quantize(rows, -1)
-        buf = torch.zeros((E * C + 1, d), dtype=torch.int8, device=x.device)
-        sbuf = torch.zeros((E * C + 1,), dtype=torch.float32,
-                           device=x.device)
-        buf[slot_sorted] = codes
-        sbuf[slot_sorted] = sc
-        xe = dequantize(buf[: E * C], sbuf[: E * C, None], x.dtype)
-        ye = _experts(xe.view(E, C, d), w_gate, w_in, w_out, act)
-        codes, sc = quantize(ye.reshape(E * C, d), -1)
-        ye = dequantize(codes, sc[:, None], x.dtype)
+        ye = _local_experts(rows, slot_sorted, C, w_gate, w_in, w_out, act,
+                            expert_shard, int8)
     else:
-        buf = torch.zeros((E * C + 1, d), dtype=x.dtype, device=x.device)
-        buf[slot_sorted] = rows
-        ye = _experts(buf[: E * C].view(E, C, d), w_gate, w_in, w_out, act)
-        ye = ye.reshape(E * C, d)
+        ye = _expert_outputs(rows, slot_sorted, C, w_gate, w_in, w_out, act,
+                             int8)
+        if int8:
+            ye = dequantize(ye[0], ye[1][:, None], x.dtype)
     # back to token-major order for the combine
     slot = torch.empty_like(slot_sorted)
     slot[order] = slot_sorted

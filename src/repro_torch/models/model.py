@@ -62,8 +62,12 @@ whole d_inner) and ``out_proj`` is row-parallel.  A MoE layer routes
 every token on every rank with the replicated router (so capacity and
 drops are the full routing's), fills and runs only its own experts'
 slab of the dispatch buffer, and gathers every expert's output over
-``"model"`` before the meshless combine.  Every int8 mode on a mesh
-wider than 1 raises (ROADMAP queue 1, item 8c).
+``"model"`` before the meshless combine (with int8 dispatch: its int8
+codes and row scales).  int8 weights on a slice are quantized on the
+rank's shards (:func:`quantize_params` with ``mesh``: the scales of a
+row-parallel leaf take their max over ``"model"``) or cut from a
+quantized whole tree, which gives the same shards; an int8 ring is cut
+with its kv heads, its scales too.
 """
 from __future__ import annotations
 
@@ -73,6 +77,7 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
+from torch.distributed.tensor import Replicate
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.device import DeviceLike, on_card, resolve_device
@@ -97,9 +102,9 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Reject what the port does not serve yet: int8 on a mesh wider
-    than 1 (ROADMAP queue 1, item 8c)."""
-    _check_mesh(cfg, ctx.axis_size("model"))
+    """Reject a config the port does not serve: every entry point calls
+    it first.  Every config of the registry, every int8 mode and every
+    slice width is served, so it refuses nothing at present."""
 
 
 def check_trainable(cfg: ModelConfig, params: Params) -> None:
@@ -116,27 +121,6 @@ def check_trainable(cfg: ModelConfig, params: Params) -> None:
         raise NotImplementedError(
             f"model '{cfg.name}': training on a mesh wider than 1 is "
             "ROADMAP queue 1, item 13"
-        )
-
-
-def _int8_modes(cfg: ModelConfig):
-    """The int8 modes ``cfg`` asks for: weights, KV, MoE dispatch."""
-    return [name for name, on in (
-        ("weights", cfg.weight_dtype == "int8"),
-        ("KV", cfg.kv_dtype == "int8"),
-        ("MoE dispatch",
-         cfg.moe is not None and cfg.moe.dispatch_dtype == "int8")) if on]
-
-
-def _check_mesh(cfg: ModelConfig, width: int) -> None:
-    if width <= 1:
-        return
-    modes = _int8_modes(cfg)
-    if modes:
-        raise NotImplementedError(
-            f"model '{cfg.name}': int8 {', '.join(modes)} on a mesh wider "
-            "than 1 is ROADMAP queue 1, item 8c (a column-parallel leaf's "
-            "scales must be cut with its output dim)"
         )
 
 
@@ -174,8 +158,6 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         def cut(path, x, stacked):
             return x
     else:
-        _check_mesh(cfg, ctx.model_width(mesh))
-
         def cut(path, x, stacked):
             return SH.local_shard(x, SH.leaf_placement(cfg, path, mesh), mesh,
                                   offset=-1 if stacked else 0)
@@ -290,7 +272,8 @@ _QUANT_LEAVES = {
 }
 
 
-def quantize_params(params: Params) -> Params:
+def quantize_params(params: Params, cfg: Optional[ModelConfig] = None,
+                    mesh=None, *, consume: bool = False) -> Params:
     """Per-output-channel symmetric int8 for the block weight matrices.
 
     Counterpart of ``repro.models.model.quantize_params``: each leaf
@@ -299,27 +282,60 @@ def quantize_params(params: Params) -> Params:
     norms, the Mamba2 float32 leaves, the embedding and the LM head keep
     their dtype.  A stacked leaf is quantized one block at a time (the
     reduction never crosses the block axis), so no float32 copy of a
-    whole stack is held: llama's ``w_gate`` would take 7.5 GB."""
+    whole stack is held: llama's ``w_gate`` would take 7.5 GB.
 
-    def leaf(x: torch.Tensor):
+    On a slice (``mesh`` wider than 1, ``params`` this rank's shards of
+    ``cfg``'s tree, from ``init_params(mesh=)`` or ``shard_params``), a
+    leaf whose placement cuts its input dim (row-parallel ``wo``,
+    ``w_out`` and ``out_proj``, a Mamba2 ``conv_w``'s channels) takes the
+    maximum of its absmax over ``"model"`` before the divide: a maximum
+    is exact, so every rank's scales are the meshless ones bitwise and
+    its codes the cut of the meshless codes.  Every other leaf reduces
+    over a dim it holds whole.  ``consume`` writes each leaf's int8 form
+    into ``params`` in place of its float leaf, so the float leaf is
+    freed as soon as the caller holds no other reference to it."""
+    width = ctx.model_width(mesh)
+    if width > 1 and cfg is None:
+        raise ValueError("quantize_params on a slice reads the leaves' "
+                         "placements: pass the config")
+
+    def absmax(path, ndim: int):
+        if width < 2:
+            return None
+        spec = SH.leaf_placement(cfg, path, mesh)
+        # a cut leaf whose scales stay whole: its input dim is the cut one
+        if isinstance(spec, Replicate) or not isinstance(
+                SH.scale_placement(spec, ndim), Replicate):
+            return None
+
+        def over_model(m):
+            with ctx.mesh_context(mesh):
+                return ctx.max_model(m)
+        return over_model
+
+    def leaf(path, x: torch.Tensor):
+        red = absmax(path, x.dim())
         if x.dim() < 3:
-            q, sc = L.quantize(x, -2)
+            q, sc = L.quantize(x, -2, red)
             return {"q8": q, "sc": sc}
         q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
         sc = torch.empty((*x.shape[:-2], x.shape[-1]), dtype=torch.float32,
                          device=x.device)
         for i in range(x.shape[0]):
-            q[i], sc[i] = L.quantize(x[i], -2)
+            q[i], sc[i] = L.quantize(x[i], -2, red)
         return {"q8": q, "sc": sc}
 
-    def visit(name, x):
+    def visit(path, x):
         if isinstance(x, dict):
-            return {k: visit(k, v) for k, v in x.items()}
-        if name in _QUANT_LEAVES and x.dim() >= 2:
-            return leaf(x)
+            out = x if consume else {}
+            for k in list(x):
+                out[k] = visit(path + (k,), x[k])
+            return out
+        if path and path[-1] in _QUANT_LEAVES and x.dim() >= 2:
+            return leaf(path, x)
         return x
 
-    return visit(None, params)
+    return visit((), params)
 
 
 def _dequant_tree(t, dt: torch.dtype):

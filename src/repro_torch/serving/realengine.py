@@ -72,13 +72,17 @@ slices share a rank, a send or receive of kv-head pieces where they do
 not; between slices of different widths it re-cuts the kv heads, a
 Mamba2 SSM state's heads and its conv tail's x channels (B and C move
 whole).  Mamba2 and MoE slices run their SSD heads and experts split
-over ``"model"``; every int8 mode on a mesh wider than 1 raises (ROADMAP
-queue 1, item 8c).
+over ``"model"``.
 
 **int8.**  Weights quantized by
 :func:`~repro_torch.models.model.quantize_params` are served as they
 come (every entry point dequantizes block by block), and
-``kv_dtype="int8"`` rings hand their scales over with their codes.  An
+``kv_dtype="int8"`` rings hand their scales over with their codes.  On
+a slice ``params`` may be a quantized whole tree, cut here with each
+scale placed as its codes are (``sharding.scale_placement``), or this
+rank's shards quantized on the slice (``quantize_params(params, cfg,
+mesh)``): the two are the same shards.  The paged pool carries no int8
+KV, as in the reference.  An
 encoder fed embeddings (hubert) has no decode phase and is refused.
 """
 from __future__ import annotations
@@ -118,12 +122,6 @@ def _bucket(n: int, lo: int = 16, hi: Optional[int] = None) -> int:
     if hi is not None:
         b = min(b, hi)
     return b
-
-
-def _not_ported(cfg: ModelConfig, tp: int) -> None:
-    """Reject the mesh slices the port does not serve yet: every int8
-    mode on a slice wider than 1 (ROADMAP queue 1, item 8c)."""
-    M._check_mesh(cfg, tp)
 
 
 def _check_servable(cfg: ModelConfig) -> None:
@@ -975,7 +973,6 @@ def make_real_backend_factory(
     slicer = None
     if tp or devices is not None:
         slicer = MeshSlicer(devices, device_type=dev.type)
-        _not_ported(cfg, tp or 1)
     default_tp = tp
     shards: Dict[tuple, tuple] = {}  # slice -> (params, draft params)
 
@@ -986,7 +983,6 @@ def make_real_backend_factory(
         mesh, p, dp = None, params, draft_params
         if slicer is not None:
             degree = tp if tp else (default_tp or 1)
-            _not_ported(cfg, degree)
             mesh = slicer.slice(degree)
             # one cut per slice, shared by its instances; a rank outside
             # the slice cuts nothing (its instance is remote)

@@ -798,3 +798,107 @@ def mixer_cluster_rank(rank, world, cases, preds):
                 e.backend.pool.assert_empty()
         out[name] = (reqs, m, widths)
     return out
+
+
+# ---------------------------------------------------------------------------
+# int8 on a slice
+# ---------------------------------------------------------------------------
+
+
+def int8_rank(rank, world, variants):
+    """Per variant ``(name, int8 config, numpy float params, forward
+    script or None)``: this rank's shards of the float tree quantized on
+    a ``world``-wide slice (``quantize_params(..., mesh)``, the absmax of
+    a leaf with a cut input dim taken over ``"model"``), as ``{path:
+    numpy leaf}``, and the script's logits run on those shards.  Returns
+    {name: {"shards": ..., "logits": [...] or None}}."""
+    import torch
+
+    from repro_torch.distributed import (
+        make_slice_mesh, mesh_context, shard_params,
+    )
+    from repro_torch.models import model as TM
+    from repro_torch.models.bridge import params_from_jax
+
+    mesh = make_slice_mesh(range(world), "cpu")
+    res = {}
+    for name, cfg, np_params, script in variants:
+        params = shard_params(params_from_jax(np_params, device="cpu"), cfg,
+                              mesh)
+        params = TM.quantize_params(params, cfg, mesh, consume=True)
+        got = {"shards": {"/".join(p): t.numpy()
+                          for p, t in tree_leaves(params)},
+               "logits": None}
+        if script is not None:
+            with mesh_context(mesh):
+                got["logits"] = run_forward_script(TM, cfg, params, script,
+                                                   torch)
+        res[name] = got
+    return res
+
+
+def card_int8_rank(rank, world, pred):
+    """On a ``world``-wide slice of the card: reduced llama (float32)
+    drawn on the slice, quantized there, served through a tp=``world``
+    dense cluster with int8 weights and an int8 ring, then every stream
+    replayed alone through the meshless plain path on the meshless
+    quantization of the same draw.  Returns (whether this rank's shards
+    equal the cut of the meshless int8 tree bitwise, the streams, the
+    worst gap of an emitted token to its plain row's max logit, the
+    sharded ring_decode launches)."""
+    import dataclasses
+
+    import torch
+
+    import repro_torch.serving as TS
+    from repro_torch.configs.registry import REGISTRY
+    from repro_torch.core.power import A100
+    from repro_torch.distributed import make_slice_mesh, shard_params
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.models import model as TM
+    from repro_torch.serving.realengine import (
+        _bucket, make_real_backend_factory,
+    )
+
+    base = dataclasses.replace(REGISTRY["llama-3.1-8b"].reduced(),
+                               dtype="float32")
+    cfg = dataclasses.replace(base, weight_dtype="int8", kv_dtype="int8")
+    mesh = make_slice_mesh(range(world), "cuda")
+
+    def draw(mesh=None):
+        return TM.init_params(base, torch.Generator("cuda").manual_seed(0),
+                              device="cuda", mesh=mesh)
+
+    shards = TM.quantize_params(draw(mesh), cfg, mesh, consume=True)
+    whole = TM.quantize_params(draw())
+    cut = dict(tree_leaves(shard_params(whole, cfg, mesh)))
+    same = all(torch.equal(leaf, cut[path])
+               for path, leaf in tree_leaves(shards))
+    dops.sharded_launches.clear()
+    reqs = workload(TS, cfg.vocab_size)
+    m = TS.PDCluster(cluster_cfg(
+        TS, REGISTRY["llama-3.1-8b"], A100, pred, tp=world,
+        backend_factory=make_real_backend_factory(
+            cfg, shards, slots=8, max_len=MAX_LEN, tp=world,
+            device="cuda"))).run(reqs)
+    assert m.finished_frac() == 1.0
+    launched = dict(dops.sharded_launches)
+    worst = 0.0
+    for r in reqs:
+        toks = torch.tensor(r.prompt_tokens, dtype=torch.int32,
+                            device="cuda")
+        buf = torch.zeros((1, _bucket(len(toks), hi=MAX_LEN)),
+                          dtype=torch.int32, device="cuda")
+        buf[0, : len(toks)] = toks
+        pos = torch.tensor([len(toks)], dtype=torch.int32, device="cuda")
+        logits, cache = TM.prefill(whole, cfg, buf, pos, max_len=MAX_LEN,
+                                   plain_attention=True)
+        for tok in r.output_tokens:
+            row = logits[0].double()
+            worst = max(worst, float(row.max() - row[tok]))
+            logits, cache = TM.decode_step(
+                whole, cfg, torch.tensor([tok], dtype=torch.int32,
+                                         device="cuda"),
+                cache, pos, plain_attention=True)
+            pos = pos + 1
+    return same, [list(r.output_tokens) for r in reqs], worst, launched

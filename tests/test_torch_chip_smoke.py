@@ -9,6 +9,8 @@ from pathlib import Path
 import pytest
 import torch
 
+import _mesh_worlds as W
+
 ROOT = Path(__file__).resolve().parents[1]
 _spec = importlib.util.spec_from_file_location("chip_smoke",
                                                ROOT / "chip_smoke.py")
@@ -904,14 +906,16 @@ def test_handoff_stats_price_each_move_beside_the_clock():
 def test_mixer_phase_names_registered_configs():
     """Phase 21 serves mamba2-2.7b and qwen3-moe-30b-a3b at full depth and
     jamba cut to its super-block, each at full width; qwen3-moe also
-    over the paged pool (the JAX package's acceptance scenario)."""
+    over the paged pool (the JAX package's acceptance scenario) and with
+    int8 dispatch, mamba2 also with int8 weights."""
     from repro_torch.configs.registry import REGISTRY
 
     got = {label: (arch, n, serves)
            for label, arch, n, serves in cs.MIXER_MODELS}
     assert got == {
-        "mamba2": ("mamba2-2.7b", None, ("dense",)),
-        "qwen3moe": ("qwen3-moe-30b-a3b", None, ("dense", "paged")),
+        "mamba2": ("mamba2-2.7b", None, ("dense", "int8")),
+        "qwen3moe": ("qwen3-moe-30b-a3b", None,
+                     ("dense", "paged", "dispatch8")),
         "jamba": ("jamba-v0.1-52b", cs.JAMBA_LAYERS, ("dense",))}
     for label, (arch, n, _) in got.items():
         cfg = cs.config_of(arch, n)
@@ -977,7 +981,8 @@ def test_expected_local_params_follow_the_rules():
 
 
 def test_reckon_gb_counts_one_rank_of_a_slice():
-    """At width 2 a rank holds its bf16 shards by the rules, half the kv
+    """At width 2 a rank holds its shards by the rules (bf16, mamba2's
+    float32 leaves at 4 bytes), half the kv
     heads of a ring or pool, and half the SSD heads of a Mamba2 state
     with the conv tail's B and C channels whole; phase 21's two ranks
     fit the card together."""
@@ -988,7 +993,7 @@ def test_reckon_gb_counts_one_rank_of_a_slice():
         got = cs.reckon_gb(cfg, pool_pages=pages, width=2)
         assert got.keys() == full.keys()
         assert got["weights_gb"] == pytest.approx(
-            cs.expected_local_params(torch, cfg, 2) * 2 / 1e9, rel=1e-12)
+            cs.expected_local_bytes(torch, cfg, 2) / 1e9, rel=1e-12)
         for leaf in ("ring_gb", "pools_gb"):
             if leaf in full:
                 assert got[leaf] == pytest.approx(full[leaf] / 2, rel=1e-12)
@@ -1002,6 +1007,9 @@ def test_reckon_gb_counts_one_rank_of_a_slice():
     qwen = cs.config_of("qwen3-moe-30b-a3b", None)
     assert cs.reckon_gb(qwen, width=2)["weights_gb"] == pytest.approx(
         30.545, abs=1e-3)
+    # every leaf bf16 but mamba2's float32 A_log, dt_bias and D
+    assert cs.expected_local_bytes(torch, qwen, 2) == \
+        2 * cs.expected_local_params(torch, qwen, 2)
 
 
 def _mixer_world():
@@ -1112,3 +1120,140 @@ def test_kernel_bounds_come_from_the_wrappers_cost_functions():
     for name in ("flash_cost", "flash_backward_cost", "ring_decode_cost",
                  "paged_cost", "ssd_scan_cost", "ssd_backward_cost"):
         assert f"ops.{name}(" in src, name
+
+
+# ---------------------------------------------------------------------------
+# int8 on a slice (phases 9, 17 and 21)
+# ---------------------------------------------------------------------------
+
+
+def test_int8_serves_name_registered_configs_and_cut_requests_only():
+    """Phase 9's int8 serves are llama-3.1-8b at full width and depth on
+    the shortest of phase 4's requests (dense, an int8 ring) and the first
+    turn of phase 6's two conversations (paged, int8 weights); phase
+    21's are mamba2 (int8 weights) and qwen3-moe (int8 dispatch) at full
+    depth on fewer of phase 4's requests.  Each serve names its int8
+    modes."""
+    from types import SimpleNamespace
+
+    from repro_torch.configs.registry import REGISTRY
+
+    llama = cs.config_of("llama-3.1-8b")
+    assert llama == REGISTRY["llama-3.1-8b"] and llama.n_layers == 32
+    assert {"int8-dense", "int8-paged"} <= set(cs.MESH_SERVES)
+    vocab = SimpleNamespace(vocab_size=1000)
+    reqs = cs.phase4_requests(vocab)
+    for n in (cs.MESH_INT8_REQUESTS, cs.MIXER_INT8_REQUESTS):
+        assert 2 <= n < len(reqs)
+        cut = cs.shortest_requests(vocab, n)
+        assert len(cut) == n and all(r in reqs for r in cut)
+        assert [r.rid for r in cut] == sorted(r.rid for r in cut)
+        longest = max(r.decode_len for r in cut)
+        assert all(r.decode_len >= longest for r in reqs if r not in cut)
+    assert 1 <= cs.MESH_INT8_TURNS < 3  # both conversations, 2+ requests
+    # phase 9's bf16 serves: cut requests, at least a dense serve's 4
+    assert 4 <= cs.MESH_REQUESTS < len(reqs) and cs.MESH_TURNS >= 2
+    dense = cs.serve_config(llama, "int8-dense")
+    assert (dense.weight_dtype, dense.kv_dtype) == ("int8", "int8")
+    paged = cs.serve_config(llama, "int8-paged")
+    assert (paged.weight_dtype, paged.kv_dtype) == ("int8", llama.kv_dtype)
+    assert dense.n_layers == paged.n_layers == llama.n_layers
+    for label, arch, n_layers, serves in cs.MIXER_MODELS:
+        for serve in set(serves) & set(cs.MIXER_INT8):
+            assert n_layers is None
+            cfg = cs.serve_config(cs.config_of(arch), serve)
+            assert cfg.n_layers == REGISTRY[arch].n_layers
+            if serve == "dispatch8":
+                assert cfg.moe.dispatch_dtype == "int8"
+                assert cfg.weight_dtype == "bfloat16"
+            else:
+                assert cfg.weight_dtype == "int8"
+    assert cs.serve_config(llama, "dense") is llama
+
+
+def test_reckon_gb_counts_a_ranks_int8_shards_with_their_cut_scales():
+    """At width 2 a rank of int8 llama holds half of every split leaf's
+    codes, the scales of a column-parallel leaf halved with its columns
+    and a row-parallel leaf's whole, and half of the bf16 embedding and
+    head: the bytes of rank 0's cut of the quantized tree on the reduced
+    config, and the count by hand at full width."""
+    import dataclasses
+
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.models import model as M
+
+    small = dataclasses.replace(
+        cs.config_of("llama-3.1-8b").reduced(), weight_dtype="int8")
+    full = M.quantize_params(M.init_params(
+        small, torch.Generator().manual_seed(0), device="cpu"))
+    cut = SH.shard_params(full, small, W.FakeMesh(2, 0))
+    held = sum(t.numel() * t.element_size() for _, t in cs.named_leaves(cut))
+    assert cs.expected_local_bytes(torch, small, 2) == held
+    cfg = dataclasses.replace(cs.config_of("llama-3.1-8b"),
+                              weight_dtype="int8")
+    d, q, kv, ff, V = (cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.d_ff,
+                       cfg.vocab_size)
+    codes = (2 * q * d + 2 * kv * d + 3 * d * ff) // 2
+    scales = 4 * ((q + 2 * kv + 2 * ff) // 2 + 2 * d)
+    layer = codes + scales + 2 * 2 * d  # and two bf16 norms
+    want = cfg.n_layers * layer + 2 * V * d + 2 * d
+    assert cs.reckon_gb(cfg, width=2)["weights_gb"] == pytest.approx(
+        want / 1e9, rel=1e-12)
+    assert cs.reckon_gb(cfg, width=2)["weights_gb"] < \
+        cs.reckon_gb(cs.config_of("llama-3.1-8b"), width=2)["weights_gb"]
+
+
+@pytest.mark.parametrize("fault", [None, "scale", "code", "one-rank"])
+def test_int8_checksums_of_the_shards_join_to_the_meshless_tree(fault):
+    """Phase 9's per-rank checksums of its shards, joined by each leaf's
+    placement (a cut leaf adds up, a replicated scale counts once),
+    equal phase 17's of the meshless tree; a scale off by one part in a
+    million, a code off by one, or one rank's replicated scale off, each
+    fails the check."""
+    import dataclasses
+
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.models import model as M
+
+    cfg = dataclasses.replace(cs.config_of("llama-3.1-8b").reduced(),
+                              weight_dtype="int8")
+    full = M.quantize_params(M.init_params(
+        cfg, torch.Generator().manual_seed(0), device="cpu"))
+    cuts = [SH.shard_params(full, cfg, W.FakeMesh(2, i)) for i in range(2)]
+    attn = "/blocks/layer_0/attn"
+    if fault == "scale":  # a row-parallel scale, on both ranks alike
+        for c in cuts:
+            sc = c["blocks"]["layer_0"]["attn"]["wo"]["sc"] = \
+                c["blocks"]["layer_0"]["attn"]["wo"]["sc"].clone()
+            sc[0, 3] *= 1 + 1e-6  # 8 float32 ulps
+    elif fault == "code":
+        q8 = cuts[1]["blocks"]["layer_0"]["attn"]["wq"]["q8"].clone()
+        q8[0, 0, 0] += 1
+        cuts[1]["blocks"]["layer_0"]["attn"]["wq"]["q8"] = q8
+    elif fault == "one-rank":
+        sc = cuts[1]["blocks"]["layer_0"]["mlp"]["w_out"]["sc"].clone()
+        sc[0, 0] *= 2
+        cuts[1]["blocks"]["layer_0"]["mlp"]["w_out"]["sc"] = sc
+    per_rank = [cs.int8_checksums(c) for c in cuts]
+    want = cs.int8_checksums(full)
+    assert f"{attn}/wq/q8" in want and f"{attn}/wo/sc" in want
+    if fault is None:
+        joined = cs.join_checksums(cfg, per_rank, 2)
+        assert cs.compare_checksums(joined, want, "int8") == len(want) == 14
+        return
+    with pytest.raises(RuntimeError):
+        cs.compare_checksums(cs.join_checksums(cfg, per_rank, 2), want,
+                             "int8")
+
+
+def test_moe_gather_bytes_set_int8_beside_bf16():
+    probe = {w: {"moe_gather": {"calls": 48, "bytes_out": 48 * b}}
+             for w, b in (("prefill", 4096), ("decode", 256))}
+    int8 = {w: {"moe_gather": {"calls": 48, "bytes_out": 48 * b}}
+            for w, b in (("prefill", 2052), ("decode", 130))}
+    got = cs.moe_gather_bytes(probe, int8)
+    assert got["prefill"] == {"bf16": 4096, "int8": 2052,
+                              "ratio": 2052 / 4096}
+    with pytest.raises(RuntimeError):
+        int8["decode"]["moe_gather"]["calls"] = 47
+        cs.moe_gather_bytes(probe, int8)

@@ -1,8 +1,8 @@
 """The port on the card: each Hopper kernel against its plain PyTorch
 version, the head-sharded wrappers on a 2-rank world sharing the card,
 the model's kernel path against its plain path, and served clusters
-(dense llama, paged with speculation, dense Mamba2) that launch every
-kernel.
+(dense llama, paged with speculation, dense Mamba2, int8 at tp=2) that
+launch every kernel.
 
 Every test here needs a CUDA card (marker ``cuda``) and skips without
 one.  The file imports no JAX, so it also runs on a machine without it:
@@ -1515,6 +1515,74 @@ def test_int8_graph_replay_equals_eager_decode(card):
     counts = _graph_vs_eager(partial(TM.decode_step_greedy, cfg=cfg), params,
                              cache, inputs, chain=True)
     assert counts == {("decode_attention", "launches"): cfg.n_layers * steps}
+
+
+def test_int8_tp2_serve_matches_the_plain_path(card, tmp_path):
+    """Reduced llama in float32 on a 2-rank world sharing the card: its
+    shards drawn on the slice and quantized there equal the cut of the
+    meshless int8 tree bitwise, a tp=2 dense cluster with int8 weights
+    and an int8 ring serves through the sharded ring_decode on each
+    rank's kv head, both ranks emit the same streams, and every token
+    lies within 0.05 of the meshless plain path's max logit."""
+    from repro_torch.kernels import _build
+
+    _build.build(["flash_prefill", "ring_decode"])  # once, not per rank
+    pred = build_predictor(REGISTRY["llama-3.1-8b"], A100,
+                           A100.freq_levels_2, kv_cap=400_000)
+    ranks = W.start_world(W.card_int8_rank, 2, tmp_path, pred,
+                          device_type="cuda").result()
+    for rank, (same, streams, worst, launched) in enumerate(ranks):
+        assert same, rank
+        assert streams == ranks[0][1], rank
+        assert worst <= 0.05, (rank, worst)
+        assert launched.get(("decode_attention", 1), 0) > 0, launched
+
+
+def test_sliced_int8_moe_layer_matches_the_meshless_one(card):
+    """The int8 MoE layer at qwen3-moe's widths (d 2048, 128 experts of
+    768, top-8) in bf16 on the card, its experts over 2 ranks: each
+    rank's slab, gathered as int8 codes with their row scales, gives the
+    meshless int8 branch's output within the bf16 tolerance of its max
+    (the batched expert products may round a slab otherwise than the
+    whole, and a code then flips) and its aux exactly."""
+    from repro_torch.models import layers as TL
+
+    g = torch.Generator(device=card).manual_seed(3)
+    T, d, E, ffe, k, n = 64, 2048, 128, 768, 8, 2
+
+    def randn(*shape, s=1.0):
+        return (torch.randn(shape, generator=g, device=card) * s).to(
+            torch.bfloat16)
+
+    x, router = randn(T, d), randn(d, E, s=0.02)
+    w = [randn(E, d, ffe, s=0.02), randn(E, d, ffe, s=0.02),
+         randn(E, ffe, d, s=0.02)]
+    kw = dict(top_k=k, capacity_factor=1.25, dispatch_dtype="int8")
+    want, aux = TL.moe_ffn_sorted(x, router, *w, **kw)
+    m, slabs, dtypes = E // n, [None] * n, []
+
+    def run(i, gather):
+        return TL.moe_ffn_sorted(
+            x, router, *(t[i * m:(i + 1) * m] for t in w),
+            expert_shard=TL.ExpertShard(first=i * m, gather=gather), **kw)
+
+    for i in range(n):
+        def keep(ye, i=i):
+            slabs[i] = ye
+            return ye.new_zeros((n * ye.shape[0], ye.shape[1]))
+        run(i, keep)
+
+    def joined(ye):
+        dtypes.append(ye.dtype)
+        return torch.cat(slabs)
+
+    for i in range(n):
+        got, got_aux = run(i, joined)
+        err = float((got.float() - want.float()).abs().max())
+        assert err <= TOL["bfloat16"] * float(want.float().abs().max()), i
+        for key in aux:
+            assert torch.equal(got_aux[key], aux[key]), key
+    assert dtypes == [torch.int8] * n
 
 
 # ---------------------------------------------------------------------------

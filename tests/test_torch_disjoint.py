@@ -18,8 +18,8 @@ no JAX in the ranks), on the reduced models in float32:
   ranks) and on llama's int8 ring (codes and float32 scales);
 * a 3-rank world of unequal widths (prefill at tp=1 on rank 0, decode at
   tp=2 on ranks 1-2) against the JAX meshless cluster at the same fleet;
-* the head-range plan, and the refusals that stay (ROADMAP queue 1,
-  item 8c).
+* the head-range plan, and the factory's slices (int8 too) built
+  before any process group.
 """
 import dataclasses
 
@@ -271,27 +271,23 @@ def test_head_plan_prefers_a_local_holder():
         head_plan(6, [0], [1, 2, 3, 4])
 
 
-@pytest.mark.parametrize("arch,kw,raises", [
-    pytest.param("llama-3.1-8b", dict(tp=1, devices=[0, 1]), False,
+@pytest.mark.parametrize("arch,kw", [
+    pytest.param("llama-3.1-8b", dict(tp=1, devices=[0, 1]),
                  id="llama-tp1-disjoint"),
-    pytest.param("mamba2-2.7b", dict(tp=1, devices=[0, 1]), False,
+    pytest.param("mamba2-2.7b", dict(tp=1, devices=[0, 1]),
                  id="mamba2-tp1-disjoint"),
     pytest.param("qwen3-moe-30b-a3b", dict(tp=2, devices=[0, 1, 2, 3]),
-                 False, id="moe-tp2"),
+                 id="moe-tp2"),
     pytest.param("llama-3.1-8b-int8", dict(tp=2, devices=[0, 1, 2, 3]),
-                 True, id="int8-tp2"),
+                 id="int8-tp2"),
 ])
-def test_disjoint_factory_refuses_only_item_8(arch, kw, raises):
+def test_disjoint_factory_refuses_only_item_8(arch, kw):
     """A disjoint tp=1 slice builds (Mamba2 too), and so do MoE's 2-wide
-    slices of a 4-rank world (experts over "model", item 8b); int8 on a
-    2-wide slice still raises, naming item 8c, before any process group
-    is touched."""
+    slices of a 4-rank world (experts over "model") and an int8 ring's
+    2-wide slices (its scales cut with its kv heads), before any process
+    group is touched: the factory refuses none of them."""
     if arch.endswith("-int8"):
         rc = dataclasses.replace(TREG[arch[:-5]].reduced(), kv_dtype="int8")
     else:
         rc = TREG[arch].reduced()
-    if raises:
-        with pytest.raises(NotImplementedError, match="item 8c"):
-            t_factory(rc, {}, device="cpu", **kw)
-    else:
-        assert callable(t_factory(rc, {}, device="cpu", **kw))
+    assert callable(t_factory(rc, {}, device="cpu", **kw))

@@ -510,13 +510,6 @@ def test_run_cell_at_full_width(arch, shape_name, multi_pod):
                                   else shape.global_batch)
 
 
-def test_int8_on_the_mesh_is_not_ported_naming_8c():
-    rec = D.run_cell("minicpm-2b", "decode_32k", False, verbose=False,
-                     variant={"weight_dtype": "int8"})
-    assert rec["status"] == "not_ported" and rec["item"] == "8c"
-    assert rec["params_local_bytes"] > 0 and rec["flops_global"] > 0
-
-
 def test_the_fake_world_is_gone_after_a_dry_run():
     with make_production_mesh() as mesh:
         assert dist.get_world_size() == 256

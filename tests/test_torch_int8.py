@@ -21,7 +21,7 @@ and MoE dispatch (analogues of tests/test_quantization.py:27-91).
   ``RealBackend`` and by the JAX one: a bit-exact control plane and the
   near-argmax replay within 0.05; the emulated step graphs of an int8
   dense serve equal its eager serve.
-- int8 on a mesh wider than 1 raises, naming ROADMAP item 8.
+- int8 on a mesh slice: ``tests/test_torch_mesh_int8.py``.
 """
 import dataclasses
 from functools import partial
@@ -43,7 +43,6 @@ from repro.serving.cluster import build_predictor
 from repro.serving.realengine import make_real_backend_factory
 from repro_torch.configs.registry import REGISTRY as TREG
 from repro_torch.core.power import A100 as TA100
-from repro_torch.distributed.context import mesh_context
 from repro_torch.models import layers as TL
 from repro_torch.models import model as TM
 from repro_torch.models.bridge import params_from_jax
@@ -367,21 +366,3 @@ def test_emulated_graphs_of_an_int8_serve_equal_eager(int8_llama, counting,
     graphs, captures, replays = serve()
     assert graphs == eager
     assert captures > 0 and replays > 0
-
-
-def test_int8_on_a_wide_mesh_raises_item_8():
-    """Every int8 mode on a width-2 mesh: the model's check and the
-    serving factory, before any process group."""
-    wide = SimpleNamespace(mesh_dim_names=("data", "model"), shape=(1, 2))
-    llama = TREG["llama-3.1-8b"].reduced()
-    moe = TREG["qwen3-moe-30b-a3b"].reduced()
-    for cfg in (dataclasses.replace(llama, weight_dtype="int8"),
-                dataclasses.replace(llama, kv_dtype="int8"),
-                dataclasses.replace(moe, moe=dataclasses.replace(
-                    moe.moe, dispatch_dtype="int8"))):
-        TM.check_supported(cfg)  # off the mesh: served
-        with mesh_context(wide):
-            with pytest.raises(NotImplementedError, match="item 8"):
-                TM.check_supported(cfg)
-        with pytest.raises(NotImplementedError, match="item 8"):
-            t_factory(cfg, {}, device="cpu", tp=2, devices=[0, 1])

@@ -126,9 +126,10 @@ def test_moe_layers_match_jax(T, E, k, cf, batch):
 
 
 def test_int8_dispatch_raises():
-    """int8 dispatch is served off a mesh (the layer runs it; its parity
-    with the JAX layer is in tests/test_torch_int8.py) and still raises
-    on a mesh wider than 1 (ROADMAP queue 1, item 8c)."""
+    """int8 dispatch is served off a mesh and on a mesh wider than 1
+    alike: the layer runs it (its parity with the JAX layer is in
+    tests/test_torch_int8.py, on a slice in tests/test_torch_mesh_int8.py)
+    and the model's check refuses it nowhere."""
     import dataclasses
 
     from repro_torch.distributed.context import mesh_context
@@ -140,10 +141,10 @@ def test_int8_dispatch_raises():
     moe = TREG["qwen3-moe-30b-a3b"].reduced()
     int8 = dataclasses.replace(moe, moe=dataclasses.replace(
         moe.moe, dispatch_dtype="int8"))
+    TM.check_supported(int8)
     wide = SimpleNamespace(mesh_dim_names=("data", "model"), shape=(1, 2))
     with mesh_context(wide):
-        with pytest.raises(NotImplementedError, match="item 8c"):
-            TM.check_supported(int8)
+        TM.check_supported(int8)
 
 
 # ---------------------------------------------------------------------------
